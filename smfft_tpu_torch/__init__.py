@@ -1,35 +1,47 @@
-"""smfft_tpu_torch — batched small/medium FFTs in PyTorch with a
-hand-written Hopper CUDA kernel.
+"""smfft_tpu_torch — batched small/medium FFTs in PyTorch with
+hand-written Hopper CUDA kernels.
 
 The port of ``smfft_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports no JAX: the JAX package stays beside it as the reference the
 port is tested against.
 
-This slice covers batched fp32 power-of-two C2C transforms, N = 32..16384,
-forward and inverse, natural or revblock order:
+Two slices so far:
 
-  * :func:`fft`, :func:`ifft`, :func:`ifft_unordered` on complex64
-    tensors (``api``);
-  * the same three on planar fp32 pairs in :mod:`smfft_tpu_torch.planar`;
-  * ``python -m smfft_tpu_torch.verify N nFFTs nRuns inverse reorder``,
-    the reference's verification harness.
+  * batched fp32 power-of-two C2C transforms, N = 32..16384, forward and
+    inverse, natural or revblock order: :func:`fft`, :func:`ifft`,
+    :func:`ifft_unordered` on complex64 tensors and the same three on
+    planar fp32 pairs in :mod:`smfft_tpu_torch.planar` (``csrc/c2c.cu``);
+  * real transforms, N = 64..16384 (``SUPPORTED_REAL_SIZES``):
+    :func:`rfft` / :func:`irfft` in numpy layout, :func:`fft_packed_real`
+    and packed ``irfft`` in the reference's layout (slot 0 = DC +
+    i*Nyquist), and ``planar.rfft`` / ``planar.irfft`` on packed planar
+    pairs, natural or revblock (``csrc/real.cu``);
+  * ``python -m smfft_tpu_torch.verify N nFFTs nRuns inverse reorder
+    [--kind c2c|r2c|c2r]``, the reference's verification harness.
 
-A CUDA tensor runs the kernel in ``csrc/c2c.cu`` (built with nvcc at first
-use); a CPU tensor runs its plain PyTorch version.
+A CUDA tensor runs the kernels (built with nvcc at first use); a CPU
+tensor runs their plain PyTorch versions.  ``precision="exact"`` runs the
+kernels' fp64-arithmetic instantiation (<= 2 ulp of max|X|).
 """
 
 from smfft_tpu_torch import planar
-from smfft_tpu_torch.api import fft, ifft, ifft_unordered
-from smfft_tpu_torch.params import FFTParams, SUPPORTED_C2C_SIZES, plan_for
+from smfft_tpu_torch.api import (fft, fft_packed_real, ifft, ifft_unordered,
+                                 irfft, rfft)
+from smfft_tpu_torch.params import (FFTParams, SUPPORTED_C2C_SIZES,
+                                    SUPPORTED_REAL_SIZES, plan_for)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "FFTParams",
     "SUPPORTED_C2C_SIZES",
+    "SUPPORTED_REAL_SIZES",
     "fft",
+    "fft_packed_real",
     "ifft",
     "ifft_unordered",
+    "irfft",
     "plan_for",
     "planar",
+    "rfft",
 ]

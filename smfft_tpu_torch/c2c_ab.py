@@ -1,0 +1,85 @@
+"""Time the C2C kernel of one or more checkouts of smfft_tpu_torch on one
+GPU, in turns, so that two versions are compared on the same card in one
+run.
+
+    python -m smfft_tpu_torch.c2c_ab PARENT_ROOT . . PARENT_ROOT
+
+Each root runs in its own process (each builds its own kernels): ``fft``
+and ``planar.fft`` at N = 1024, 4096, 16384 with 2^27 complex points per
+call, precision "highest", the median of 25 (``fft``) or 15
+CUDA-event-timed calls after a warm-up, beside a same-run ``copy_`` of the
+same bytes.  Prints one JSON line per root and the registers ptxas gave
+each fp32 C2C kernel in that root's build, then the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+from smfft_tpu_torch.ops._cuda import register_report
+
+CHILD = r"""
+import json, statistics, sys
+root = sys.argv[1]
+sys.path.insert(0, root)
+import torch
+import smfft_tpu_torch as T
+from smfft_tpu_torch.ops import _cuda
+assert T.__file__.startswith(root), T.__file__
+_cuda.library()
+def ms(fn, reps=15):
+    fn(); torch.cuda.synchronize(); ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(); fn(); b.record(); b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+out = {"root": root, "rows": [], "ptxas": _cuda.build_log}
+gen = torch.Generator(device="cuda").manual_seed(1234)
+for n in (1024, 4096, 16384):
+    b = (1 << 27) // n
+    x = torch.complex(torch.rand((b, n), generator=gen, device="cuda"),
+                      torch.rand((b, n), generator=gen, device="cuda"))
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    dst = torch.empty_like(x)
+    out["rows"].append({"n": n, "fft_ms": ms(lambda: T.fft(x), 25),
+                        "planar_fft_ms": ms(lambda: T.planar.fft(xr, xi)),
+                        "copy_ms": ms(lambda: dst.copy_(x))})
+    del x, xr, xi, dst
+    torch.cuda.empty_cache()
+print(json.dumps(out), flush=True)
+"""
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("roots", nargs="+", help="checkout roots, in run order")
+    args = p.parse_args(argv)
+    for root in args.roots:
+        proc = subprocess.run(
+            [sys.executable, "-c", CHILD, str(Path(root).resolve())],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr)
+            return proc.returncode
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        # the fp32 C2C kernels' registers, from this root's own build
+        regs = [r for r in register_report(res.pop("ptxas"))
+                if r.startswith("c2c_kernel") and "fp32" in r]
+        print(json.dumps(res), flush=True)
+        for r in regs:
+            print(f"  ptxas {Path(root).name or root}: {r}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(f"card: {smi.stdout.strip()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

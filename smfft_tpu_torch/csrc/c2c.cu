@@ -1,5 +1,6 @@
 // Batched fp32 power-of-two C2C FFT, N = 32..16384, one shared-memory
-// kernel for Hopper (sm_90a).
+// kernel for Hopper (sm_90a), in an fp32 and an "exact" (fp64 arithmetic)
+// instantiation.
 //
 // Replaces the TPU kernels smfft_tpu/ops/pallas_c2c.py::_build (kernel A:
 // natural -> revblock or natural; kernel B: revblock -> natural; the fused
@@ -23,7 +24,9 @@
 //   * One transform (F transforms for N <= 2048) per thread block, resident
 //     in dynamic shared memory as float2.  TPF = N/E threads serve one
 //     transform, E = 16 (32 at N = 16384) points per thread; blocks have
-//     256 threads (512 at N >= 8192).
+//     256 threads (512 at N >= 8192).  That layout, the register budget
+//     and the shared-memory size per tier are stockham.cuh's Geometry,
+//     which the real kernels share.
 //   * Stockham auto-sort radix-8 stages, closed by one radix-4 or radix-2
 //     stage when log2 N is not a multiple of 3.  Each stage reads all of
 //     its butterfly inputs into registers, synchronises, and writes its
@@ -58,184 +61,51 @@
 //     at the working sizes (2^27 points per plane).
 //   * The launcher returns cudaGetLastError() right after the launch, so a
 //     launch refused for its shared memory or block size is reported.
+//   * The precision tier "exact" (<= 2 ulp of max|X|) has its own
+//     instantiation: butterflies and twiddle products in fp64 registers
+//     from an fp64 twiddle table, fp64 shared memory where the transform
+//     fits (N <= 8192), fp32 shared memory at N = 16384 (128 KB; fp64 would
+//     need 256 KB).  Its only fp32 rounding is the output's, plus the
+//     stage outputs at N = 16384.  fp64 runs at about half the fp32 rate
+//     outside the tensor cores, and the FFT's ~5 N log2 N flops stay below
+//     the memory time, so the tier stays memory-bound.  Every other tier
+//     runs the fp32 instantiation.
 //
-// Templated on N only (the reference's static size switch); layouts,
-// direction and scale are runtime arguments.
+// The Stockham core (stockham.cuh) is shared with the real kernels
+// (real.cu).  Templated on N and the tier (the reference's static size
+// switch); layouts, direction and scale are runtime arguments.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stockham.cuh"
 
 namespace {
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-    return make_float2(a.x + b.x, a.y + b.y);
-}
+using namespace smfft;
 
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-    return make_float2(a.x - b.x, a.y - b.y);
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-    return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// s * i * a, s = -1 forward, +1 inverse (exact).
-__device__ __forceinline__ float2 mul_si(float2 a, float s) {
-    return make_float2(-s * a.y, s * a.x);
-}
-
-// In-register DFT of R points, natural order in and out, sign s.
-template <int R> struct Dft;
-
-template <> struct Dft<2> {
-    static __device__ __forceinline__ void run(float2* u, float) {
-        const float2 a = u[0], b = u[1];
-        u[0] = cadd(a, b);
-        u[1] = csub(a, b);
-    }
-};
-
-template <> struct Dft<4> {
-    static __device__ __forceinline__ void run(float2* u, float s) {
-        const float2 t0 = cadd(u[0], u[2]), t1 = csub(u[0], u[2]);
-        const float2 t2 = cadd(u[1], u[3]);
-        const float2 t3 = mul_si(csub(u[1], u[3]), s);
-        u[0] = cadd(t0, t2);
-        u[1] = cadd(t1, t3);
-        u[2] = csub(t0, t2);
-        u[3] = csub(t1, t3);
-    }
-};
-
-template <> struct Dft<8> {
-    static __device__ __forceinline__ void run(float2* u, float s) {
-        float2 e[4] = {u[0], u[2], u[4], u[6]};
-        float2 o[4] = {u[1], u[3], u[5], u[7]};
-        Dft<4>::run(e, s);
-        Dft<4>::run(o, s);
-        const float c = 0.70710678118654752440f;  // fp32(cos(pi/4))
-        o[1] = cmul(o[1], make_float2(c, s * c));   // W_8^1
-        o[2] = mul_si(o[2], s);                     // W_8^2
-        o[3] = cmul(o[3], make_float2(-c, s * c));  // W_8^3
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            u[k] = cadd(e[k], o[k]);
-            u[k + 4] = csub(e[k], o[k]);
-        }
-    }
-};
-
-// Twiddle and DFT of one Stockham radix-RS butterfly, in registers.
-// p is the length of the sub-transforms already done (1, RS, RS^2, ...);
-// butterfly i twiddles its input r by W_N^{r*k*N/(p*RS)}, k = i mod p.
-template <int N, int RS>
-__device__ __forceinline__ void butterfly(float2 (&u)[RS], int i, int p,
-                                          const float2* __restrict__ tw,
-                                          float s) {
-    if (p > 1) {
-        const int k = i & (p - 1);
-        const int step = N / (p * RS);
-#pragma unroll
-        for (int r = 1; r < RS; ++r)
-            u[r] = cmul(u[r], __ldg(&tw[r * k * step]));
-    }
-    Dft<RS>::run(u, s);
-}
-
-// Where butterfly i of a stage with sub-length p writes its output r.
-__device__ __forceinline__ int stockham_dst(int i, int p, int rs, int r) {
-    const int k = i & (p - 1);
-    return (i - k) * rs + k + r * p;
-}
-
-// One radix-RS stage in place in shared memory: butterfly i reads
-// buf[i + r*N/RS], and all reads finish (barrier) before any write.
-template <int N, int TPF, int RS>
-__device__ __forceinline__ void smem_stage(float2* buf, int t, int p,
-                                           const float2* __restrict__ tw,
-                                           float s) {
-    constexpr int Q = N / TPF / RS;  // butterflies per thread
-    constexpr int STRIDE = N / RS;   // butterflies per stage
-    float2 u[Q][RS];
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-#pragma unroll
-        for (int r = 0; r < RS; ++r)
-            u[q][r] = buf[t + q * TPF + r * STRIDE];
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-        const int i = t + q * TPF;
-        butterfly<N, RS>(u[q], i, p, tw, s);
-#pragma unroll
-        for (int r = 0; r < RS; ++r)
-            buf[stockham_dst(i, p, RS, r)] = u[q][r];
-    }
-    __syncthreads();
-}
-
-__host__ __device__ constexpr int ilog2(int n) {
-    return n <= 1 ? 0 : 1 + ilog2(n / 2);
-}
-
-// Logical element stored at position pos of a revblock row.
-__device__ __forceinline__ int revblock_index(int pos, int c) {
-    return (pos & 127) * c + (pos >> 7);
-}
-
-// The kernel's view of the data: point g (64-bit) of the batch, either
-// interleaved complex64 (one float2 per point at in_re / out_re) or two
-// contiguous fp32 planes.
-struct Io {
-    const float* __restrict__ in_re;
-    const float* __restrict__ in_im;
-    float* __restrict__ out_re;
-    float* __restrict__ out_im;
-    bool interleaved;
-
-    __device__ __forceinline__ float2 load(int64_t g) const {
-        if (interleaved)
-            return __ldg(reinterpret_cast<const float2*>(in_re) + g);
-        return make_float2(__ldg(in_re + g), __ldg(in_im + g));
-    }
-    __device__ __forceinline__ void store(int64_t g, float2 v) const {
-        if (interleaved) {
-            reinterpret_cast<float2*>(out_re)[g] = v;
-        } else {
-            out_re[g] = v.x;
-            out_im[g] = v.y;
-        }
-    }
-};
-
-// Stockham stages: a radix-8 first stage (p = 1), radix-8 middle stages,
-// and a last stage of radix RL = 8, 4 or 2 (p = N / RL).  With natural
-// input the first stage reads its butterflies straight from device memory
-// (point i + r*N/8: consecutive threads, consecutive addresses), and with
-// natural output the last stage writes straight to device memory (point
-// i + r*N/RL); revblock layouts are staged through shared memory with the
-// index map.  Each thread first issues all E of its loads, then computes.
-template <int N, int TPF, int F, int MINB>
+// Stockham stages (stockham.cuh).  With natural input the first stage
+// reads its butterflies straight from device memory (point i + r*N/8:
+// consecutive threads, consecutive addresses), and with natural output
+// the last stage writes straight to device memory (point i + r*N/RL);
+// revblock layouts are staged through shared memory with the index map.
+// Each thread first issues all E of its loads, then computes.
+template <int N, int TPF, int F, int MINB, typename C, typename S>
 __global__ void __launch_bounds__(TPF * F, MINB)
 c2c_kernel(Io io, int64_t batch, int inverse, int in_rev, int out_rev,
-           float scale, const float2* __restrict__ tw) {
-    extern __shared__ float2 smem[];
+           float scale, const C* __restrict__ tw) {
+    using T = real_t<C>;
+    S* smem = shared_buffer<S>();
     constexpr int THREADS = TPF * F;
     constexpr int E = N / TPF;  // points per thread
-    constexpr int C = N >= 128 ? N / 128 : 1;
-    constexpr int L = ilog2(N);
-    constexpr int R8 = L / 3;
-    constexpr int RL = L % 3 == 0 ? 8 : (L % 3 == 2 ? 4 : 2);
-    constexpr int MID = L % 3 == 0 ? R8 - 2 : R8 - 1;  // middle stages
-    const float s = inverse ? 1.0f : -1.0f;
+    constexpr int CB = N >= 128 ? N / 128 : 1;
+    constexpr int RL = Ladder<N>::RL;
+    const T s = inverse ? T(1) : T(-1);
     const int64_t first = (int64_t)blockIdx.x * F;  // first transform
     const int64_t valid = (batch - first) * N;      // points left in batch
     const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
     const bool live = first + f < batch;
     const int64_t row = (first + f) * N;  // this transform's first point
-    float2* buf = smem + f * N;
+    S* buf = smem + f * N;
 
-    // first stage: radix 8, p = 1
+    // first stage: radix 8, p = 1, from the E input points a thread holds
     constexpr int Q0 = E / 8;
     float2 u[Q0][8];
     if (!in_rev) {
@@ -258,47 +128,28 @@ c2c_kernel(Io io, int64_t batch, int inverse, int in_rev, int out_rev,
 #pragma unroll
         for (int j = 0; j < E; ++j) {
             const int e = threadIdx.x + j * THREADS;
-            smem[(e / N) * N + revblock_index(e % N, C)] = v[j];
+            put(smem[(e / N) * N + revblock_index(e % N, CB)], v[j]);
         }
         __syncthreads();
+        // fp32 input values: exact in either storage type
 #pragma unroll
         for (int q = 0; q < Q0; ++q)
 #pragma unroll
             for (int r = 0; r < 8; ++r)
-                u[q][r] = buf[t + q * TPF + r * (N / 8)];
+                put(u[q][r], buf[t + q * TPF + r * (N / 8)]);
         __syncthreads();
     }
-#pragma unroll
-    for (int q = 0; q < Q0; ++q) {
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-            u[q][r] = make_float2(u[q][r].x * scale, u[q][r].y * scale);
-        const int i = t + q * TPF;
-        butterfly<N, 8>(u[q], i, 1, tw, s);
-#pragma unroll
-        for (int r = 0; r < 8; ++r) buf[i * 8 + r] = u[q][r];
-    }
-    __syncthreads();
+    // one first stage for both layouts: an inlined copy per layout changed
+    // ptxas's register allocation and cost 2-5 % at N = 1024 / 4096
+    first_stage<N, TPF>(u, buf, t, tw, s, T(scale));
 
-    int p = 8;
-#pragma unroll
-    for (int st = 0; st < MID; ++st) {
-        smem_stage<N, TPF, 8>(buf, t, p, tw, s);
-        p *= 8;
-    }
+    middle_stages<N, TPF>(buf, t, tw, s);
 
     // last stage: radix RL, p = N / RL, so butterfly i writes point
     // i + r*p
     constexpr int QL = E / RL;
     float2 w[QL][RL];
-#pragma unroll
-    for (int q = 0; q < QL; ++q)
-#pragma unroll
-        for (int r = 0; r < RL; ++r)
-            w[q][r] = buf[t + q * TPF + r * (N / RL)];
-#pragma unroll
-    for (int q = 0; q < QL; ++q)
-        butterfly<N, RL>(w[q], t + q * TPF, p, tw, s);
+    last_stage<N, TPF>(buf, t, tw, s, w);
     if (!out_rev) {
         if (live) {
 #pragma unroll
@@ -314,13 +165,13 @@ c2c_kernel(Io io, int64_t batch, int inverse, int in_rev, int out_rev,
     for (int q = 0; q < QL; ++q)
 #pragma unroll
         for (int r = 0; r < RL; ++r)
-            buf[t + q * TPF + r * (N / RL)] = w[q][r];
+            put(buf[t + q * TPF + r * (N / RL)], w[q][r]);
     __syncthreads();
     float2 v[E];
 #pragma unroll
     for (int j = 0; j < E; ++j) {
         const int e = threadIdx.x + j * THREADS;
-        v[j] = smem[(e / N) * N + revblock_index(e % N, C)];
+        put(v[j], smem[(e / N) * N + revblock_index(e % N, CB)]);
     }
 #pragma unroll
     for (int j = 0; j < E; ++j) {
@@ -329,26 +180,30 @@ c2c_kernel(Io io, int64_t batch, int inverse, int in_rev, int out_rev,
     }
 }
 
-template <int N, int E, int F>
+template <int N, bool EXACT>
 cudaError_t launch(const Io& io, int64_t batch, int inverse, int in_rev,
-                   int out_rev, float scale, const float2* tw,
+                   int out_rev, float scale, const void* tw,
                    cudaStream_t stream) {
-    constexpr int TPF = N / E;
-    constexpr size_t SMEM = sizeof(float2) * N * F;
-    // blocks per SM the register budget must allow: 64 registers a thread
-    // (4 blocks of 256, 2 of 512); one block at N = 16384, whose shared
-    // memory allows no second
-    constexpr int MINB = TPF * F <= 256 ? 4 : (SMEM > 96 * 1024 ? 1 : 2);
-    auto kernel = c2c_kernel<N, TPF, F, MINB>;
-    if (SMEM > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-        if (err != cudaSuccess) return err;
-    }
-    const int64_t blocks = (batch + F - 1) / F;
-    kernel<<<(unsigned)blocks, TPF * F, SMEM, stream>>>(
-        io, batch, inverse, in_rev, out_rev, scale, tw);
+    using G = Geometry<N, EXACT>;
+    using C = typename G::C;
+    auto kernel = c2c_kernel<N, G::TPF, G::F, G::MINB, C, typename G::S>;
+    cudaError_t err = allow_smem(kernel, G::SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(
+        io, batch, inverse, in_rev, out_rev, scale,
+        static_cast<const C*>(tw));
     return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_tier(int exact, const Io& io, int64_t batch, int inverse,
+                        int in_rev, int out_rev, float scale, const void* tw,
+                        cudaStream_t stream) {
+    if (exact)
+        return launch<N, true>(io, batch, inverse, in_rev, out_rev, scale,
+                               tw, stream);
+    return launch<N, false>(io, batch, inverse, in_rev, out_rev, scale, tw,
+                            stream);
 }
 
 }  // namespace
@@ -358,11 +213,12 @@ extern "C" {
 // Returns a cudaError_t (0 on success).  interleaved != 0: in_re and
 // out_re point at complex64 data (8-byte aligned) and in_im, out_im are
 // unused; otherwise the four pointers are contiguous fp32 planes.  Rows are
-// contiguous, so transform b starts at point b*n.
+// contiguous, so transform b starts at point b*n.  twiddles is W_N^m,
+// m < N, as (re, im) float32 pairs, or float64 pairs when exact != 0.
 int smfft_c2c(const void* in_re, const void* in_im, void* out_re,
               void* out_im, int interleaved, int64_t batch, int64_t n,
               int inverse, int in_rev, int out_rev, float scale,
-              const void* twiddles, void* stream) {
+              const void* twiddles, int exact, void* stream) {
     if (batch <= 0) return (int)cudaSuccess;
     Io io;
     io.in_re = static_cast<const float*>(in_re);
@@ -370,23 +226,22 @@ int smfft_c2c(const void* in_re, const void* in_im, void* out_re,
     io.out_re = static_cast<float*>(out_re);
     io.out_im = static_cast<float*>(out_im);
     io.interleaved = interleaved != 0;
-    const float2* tw = static_cast<const float2*>(twiddles);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SMFFT_CASE(NN, EE, FF)                                              \
+#define SMFFT_CASE(NN)                                                      \
     case NN:                                                                \
-        return (int)launch<NN, EE, FF>(io, batch, inverse, in_rev, out_rev, \
-                                       scale, tw, st);
+        return (int)launch_tier<NN>(exact, io, batch, inverse, in_rev,      \
+                                    out_rev, scale, twiddles, st);
     switch (n) {
-        SMFFT_CASE(32, 16, 128)
-        SMFFT_CASE(64, 16, 64)
-        SMFFT_CASE(128, 16, 32)
-        SMFFT_CASE(256, 16, 16)
-        SMFFT_CASE(512, 16, 8)
-        SMFFT_CASE(1024, 16, 4)
-        SMFFT_CASE(2048, 16, 2)
-        SMFFT_CASE(4096, 16, 1)
-        SMFFT_CASE(8192, 16, 1)
-        SMFFT_CASE(16384, 32, 1)
+        SMFFT_CASE(32)
+        SMFFT_CASE(64)
+        SMFFT_CASE(128)
+        SMFFT_CASE(256)
+        SMFFT_CASE(512)
+        SMFFT_CASE(1024)
+        SMFFT_CASE(2048)
+        SMFFT_CASE(4096)
+        SMFFT_CASE(8192)
+        SMFFT_CASE(16384)
         default:
             return (int)cudaErrorInvalidValue;
     }

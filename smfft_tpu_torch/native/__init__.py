@@ -69,6 +69,14 @@ def get_lib():
             f32p, f32p, ctypes.c_int64, ctypes.c_double,
             ctypes.POINTER(CompareStats)]
         lib.smfft_compare.restype = None
+        lib.smfft_compare_r2c.argtypes = [
+            f32p, f32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+            ctypes.POINTER(CompareStats)]
+        lib.smfft_compare_r2c.restype = None
+        lib.smfft_compare_real.argtypes = [
+            f32p, f32p, ctypes.c_int64, ctypes.c_double, ctypes.c_double,
+            ctypes.c_double, ctypes.POINTER(CompareStats)]
+        lib.smfft_compare_real.restype = None
         _lib = lib
         return _lib
 
@@ -112,6 +120,17 @@ def generate_two_tone(n_ffts: int, n: int, f1: float = 17.0, a1: float = 1.0,
     return np.broadcast_to(sig, (n_ffts, n)).copy()
 
 
+def _stats(st: CompareStats) -> dict:
+    return {"total_error": st.total_error, "mean_error": st.mean_error,
+            "max_error": st.max_error, "error_count": int(st.error_count)}
+
+
+def _summary(e: np.ndarray, tolerance: float) -> dict:
+    return {"total_error": float(e.sum()), "mean_error": float(e.mean()),
+            "max_error": float(e.max()),
+            "error_count": int((e > tolerance).sum())}
+
+
 def compare_np(got: np.ndarray, want: np.ndarray,
                tolerance: float = 1e-4) -> dict:
     """numpy implementation of :func:`compare`."""
@@ -119,9 +138,7 @@ def compare_np(got: np.ndarray, want: np.ndarray,
     w = np.ascontiguousarray(want, np.complex64).view(np.float32).reshape(-1, 2)
     e = np.maximum(_hybrid_error_np(g[:, 0], w[:, 0]),
                    _hybrid_error_np(g[:, 1], w[:, 1]))
-    return {"total_error": float(e.sum()), "mean_error": float(e.mean()),
-            "max_error": float(e.max()),
-            "error_count": int((e > tolerance).sum())}
+    return _summary(e, tolerance)
 
 
 def compare(got: np.ndarray, want: np.ndarray,
@@ -138,5 +155,42 @@ def compare(got: np.ndarray, want: np.ndarray,
     st = CompareStats()
     lib.smfft_compare(g.reshape(-1), w.reshape(-1), g.size // 2, tolerance,
                       ctypes.byref(st))
-    return {"total_error": st.total_error, "mean_error": st.mean_error,
-            "max_error": st.max_error, "error_count": int(st.error_count)}
+    return _stats(st)
+
+
+def compare_r2c_packed(got_packed: np.ndarray, want_full: np.ndarray,
+                       tolerance: float = 1e-4) -> dict:
+    """Packed R2C output (n_ffts, L), slot 0 = (DC, Nyquist), against a
+    full (n_ffts, L+1) golden spectrum (Compare_R2C_output,
+    FFT.c:126-159)."""
+    n_ffts, l = got_packed.shape
+    got = np.ascontiguousarray(got_packed, np.complex64)
+    want = np.ascontiguousarray(want_full, np.complex64)
+    lib = get_lib()
+    if lib is not None:
+        st = CompareStats()
+        lib.smfft_compare_r2c(got.view(np.float32).reshape(-1),
+                              want.view(np.float32).reshape(-1), n_ffts, l,
+                              tolerance, ctypes.byref(st))
+        return _stats(st)
+    e0 = np.maximum(_hybrid_error_np(got[:, 0].real, want[:, 0].real),
+                    _hybrid_error_np(got[:, 0].imag, want[:, l].real))
+    eb = np.maximum(_hybrid_error_np(got[:, 1:].real, want[:, 1:l].real),
+                    _hybrid_error_np(got[:, 1:].imag, want[:, 1:l].imag))
+    return _summary(np.concatenate([e0[:, None], eb], axis=1), tolerance)
+
+
+def compare_real(got: np.ndarray, want: np.ndarray, got_scale: float = 1.0,
+                 want_scale: float = 1.0, tolerance: float = 1e-4) -> dict:
+    """Real signals compared after dividing each by its own scale
+    (Compare_C2R_output, FFT.c:161-185)."""
+    got = np.ascontiguousarray(got, np.float32).reshape(-1)
+    want = np.ascontiguousarray(want, np.float32).reshape(-1)
+    lib = get_lib()
+    if lib is not None:
+        st = CompareStats()
+        lib.smfft_compare_real(got, want, got.size, got_scale, want_scale,
+                               tolerance, ctypes.byref(st))
+        return _stats(st)
+    return _summary(_hybrid_error_np(got / got_scale, want / want_scale),
+                    tolerance)

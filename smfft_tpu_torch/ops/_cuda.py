@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use, ``nvcc`` compiles the sources into one shared library with a
-plain C interface under ``smfft_tpu_torch/build/``, named by a hash of the
-sources, flags and compiler, so a stale library is never loaded.  The
-library is bound with ``ctypes``; pointers and the stream travel as
-``c_void_p``, counts as ``c_int64``.
+At first use, ``nvcc`` compiles each ``csrc/*.cu`` to an object file, all
+sources at once in parallel, and links them into one shared library with a
+plain C interface under ``smfft_tpu_torch/build/``, named by a hash of every
+source (headers included), the flags and the compiler, so a stale library
+is never loaded.  The library is bound with ``ctypes``; pointers and the
+stream travel as ``c_void_p``, counts as ``c_int64``, flags as ``c_int``.
 
 Nothing here runs at import.  CPU tensors never reach this module; a CUDA
 tensor that does reaches :func:`library`, which raises with the cause when
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,8 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -62,7 +63,19 @@ def find_nvcc() -> str:
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+    """Every file the library is built from: the .cu units and the headers
+    they include."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Start every command at once, then wait for all of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [subprocess.CompletedProcess(c, p.returncode, o, "")
+            for c, p, o in zip(cmds, procs, outs)]
 
 
 def _build(nvcc: str) -> Path:
@@ -77,22 +90,57 @@ def _build(nvcc: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sources]]
-    debug_print("build CUDA kernels:", " ".join(cmd))
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    units = [s for s in sources if s.suffix == ".cu"]
+    objs = [tmp / f"{s.stem}.o" for s in units]
+    compile_cmds = [[nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(o),
+                     str(s)] for s, o in zip(units, objs)]
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / "lib.so"),
+            *map(str, objs)]
+    for cmd in compile_cmds + [link]:
+        debug_print("build CUDA kernels:", " ".join(cmd))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    done = _run_all(compile_cmds)
+    if all(p.returncode == 0 for p in done):
+        done += _run_all([link])
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
+    build_log = "".join(p.stdout for p in done)
+    failed = [p for p in done if p.returncode != 0]
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
         raise RuntimeError(
-            f"smfft_tpu_torch: nvcc failed (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+            f"smfft_tpu_torch: nvcc failed (exit {failed[0].returncode}):\n"
+            f"{' '.join(failed[0].args)}\n{build_log}")
+    # atomic: concurrent builders never see half a file
+    os.replace(tmp / "lib.so", out)
+    shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def register_report(log: str | None = None) -> list[str]:
+    """One line per kernel instantiation from ptxas's report in a build
+    log: the kernel, its integer template arguments, fp32 or fp64,
+    registers and spill stores."""
+    lines, name, spill = [], None, 0
+    for line in (build_log if log is None else log).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"([cr]2[cr]_kernel)I((?:Li\d+E)+)", name)
+            label = (f"{k.group(1)}<"
+                     f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+                     if k else name)
+            kind = "fp64" if "double2" in name else "fp32"
+            lines.append(f"{label} {kind}: {m.group(1)} registers, {spill} "
+                         "bytes of spill stores")
+            name = None
+    return lines
 
 
 def library() -> ctypes.CDLL:
@@ -103,9 +151,14 @@ def library() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(_build(find_nvcc())))
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        f32 = ctypes.c_float
         lib.smfft_c2c.argtypes = [vp, vp, vp, vp, ci, i64, i64, ci, ci, ci,
-                                  ctypes.c_float, vp, vp]
-        lib.smfft_c2c.restype = ci
+                                  f32, vp, ci, vp]
+        lib.smfft_r2c.argtypes = [vp, vp, vp, ci, i64, i64, vp, vp, ci, vp]
+        lib.smfft_c2r.argtypes = [vp, vp, ci, vp, i64, i64, f32, vp, vp, ci,
+                                  vp]
+        for fn in (lib.smfft_c2c, lib.smfft_r2c, lib.smfft_c2r):
+            fn.restype = ci
         lib.smfft_error_string.argtypes = [ci]
         lib.smfft_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -146,8 +146,12 @@ def c2c_plain(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False,
 
 
 @lru_cache(maxsize=None)
-def _device_twiddles(n: int, inverse: bool, device: torch.device):
-    return torch.from_numpy(P.twiddle_table(n, inverse).copy()).to(device)
+def device_twiddles(n: int, inverse: bool, exact: bool,
+                    device: torch.device) -> torch.Tensor:
+    """The kernel's W_N^m table on the device: float32, or float64 for the
+    "exact" tier."""
+    tab = P.twiddle_table(n, inverse, "float64" if exact else "float32")
+    return torch.from_numpy(tab.copy()).to(device)
 
 
 def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype):
@@ -164,12 +168,14 @@ def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype):
 
 def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
            inverse: bool = False, rev_in: bool = False,
-           rev_out: bool = False, scale: float | None = None):
+           rev_out: bool = False, scale: float | None = None,
+           exact: bool = False):
     """Launch ``csrc/c2c.cu`` on the current CUDA stream.
 
     ``x`` complex64 (B, n) -> complex64 (B, n) (interleaved); or ``x, xi``
-    planar float32 (B, n) -> planar pair.  Outputs are allocated with
-    ``torch.empty``.  Each launch adds one to ``launch.count``.
+    planar float32 (B, n) -> planar pair.  ``exact`` runs the fp64
+    arithmetic instantiation (the "exact" tier).  Outputs are allocated
+    with ``torch.empty``.  Each launch adds one to ``launch.count``.
     """
     from smfft_tpu_torch.ops import _cuda
 
@@ -195,12 +201,12 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     b, n = x.shape
     lib = _cuda.library()
     with torch.cuda.device(x.device):
-        tw = _device_twiddles(n, bool(inverse), x.device)
+        tw = device_twiddles(n, bool(inverse), bool(exact), x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.smfft_c2c(in_re, in_im, out_re, out_im, interleaved, b, n,
                             int(inverse), int(rev_in), int(rev_out),
                             1.0 if scale is None else float(scale),
-                            tw.data_ptr(), stream)
+                            tw.data_ptr(), int(exact), stream)
     _cuda.check(err, f"c2c kernel launch (n={n}, batch={b})")
     launch.count += 1
     return out
@@ -214,7 +220,28 @@ launch.count = 0
 # ---------------------------------------------------------------------------
 
 
-def _is_cpu(t: torch.Tensor) -> bool:
+def at_tier(fn, exact: bool, *tensors):
+    """fn(*tensors) at the tier's precision: "exact" computes float32 /
+    complex64 input in float64 and rounds the result once, as its kernels
+    do; otherwise the tensors' own precision."""
+    if not exact or tensors[0].dtype not in (torch.float32,
+                                             torch.complex64):
+        return fn(*tensors)
+    out = fn(*(t.to(torch.complex128 if t.is_complex() else torch.float64)
+               for t in tensors))
+    if isinstance(out, tuple):
+        return tuple(o.to(torch.float32) for o in out)
+    return out.to(torch.complex64 if out.is_complex() else torch.float32)
+
+
+def plain(xr: torch.Tensor, xi: torch.Tensor, exact: bool = False, **kw):
+    """:func:`c2c_plain` at the tier's precision (:func:`at_tier`)."""
+    return at_tier(lambda a, b: c2c_plain(a, b, **kw), exact, xr, xi)
+
+
+def is_cpu(t: torch.Tensor) -> bool:
+    """Dispatch by device: True for a CPU tensor (the plain version), False
+    for a CUDA tensor (the kernel); anything else raises."""
     if t.device.type == "cpu":
         return True
     if t.device.type == "cuda":
@@ -241,7 +268,8 @@ def check_pack(batch: int, n: int) -> None:
 
 def fft_planar(vr: torch.Tensor, vi: torch.Tensor, n: int,
                inverse: bool = False, rev_in: bool = False,
-               ordered: bool = False, scale: float | None = None):
+               ordered: bool = False, scale: float | None = None,
+               exact: bool = False):
     """Planar batched FFT on the JAX package's row layout.
 
     vr, vi: float32 (rows, max(n, 128)); rows pack 128/n transforms when
@@ -257,16 +285,16 @@ def fft_planar(vr: torch.Tensor, vi: torch.Tensor, n: int,
     rows = vr.shape[0]
     b = rows * row // n
     kw = dict(inverse=inverse, rev_in=rev_in,
-              rev_out=not (ordered or rev_in), scale=scale)
+              rev_out=not (ordered or rev_in), scale=scale, exact=exact)
     xr, xi = vr.reshape(b, n), vi.reshape(b, n)
-    o_r, o_i = (c2c_plain(xr, xi, **kw) if _is_cpu(xr)
-                else launch(xr, xi, **kw))
+    o_r, o_i = plain(xr, xi, **kw) if is_cpu(xr) else launch(xr, xi, **kw)
     return o_r.reshape(rows, row), o_i.reshape(rows, row)
 
 
 def fft_complex(x: torch.Tensor, inverse: bool = False,
                 ordered: bool = True, rev_in: bool = False,
-                scale: float | None = None) -> torch.Tensor:
+                scale: float | None = None,
+                exact: bool = False) -> torch.Tensor:
     """Complex (..., n) batched FFT with the packing rule applied.
 
     ``rev_in=False``: natural in, natural (``ordered``) or revblock out —
@@ -279,10 +307,10 @@ def fft_complex(x: torch.Tensor, inverse: bool = False,
     b = int(np.prod(batch_shape)) if batch_shape else 1
     check_pack(b, n)
     kw = dict(inverse=inverse, rev_in=rev_in,
-              rev_out=not (ordered or rev_in), scale=scale)
+              rev_out=not (ordered or rev_in), scale=scale, exact=exact)
     x = x.reshape(b, n).resolve_conj().contiguous()
-    if _is_cpu(x):
-        y = torch.complex(*c2c_plain(x.real, x.imag, **kw))
+    if is_cpu(x):
+        y = torch.complex(*plain(x.real, x.imag, **kw))
     else:
         y = launch(x, **kw)  # interleaved: no conversion pass
     return y.reshape(batch_shape + (n,))

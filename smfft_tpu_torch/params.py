@@ -128,12 +128,38 @@ def plan_from_jax(fields: dict) -> FFTParams:
 
 
 @lru_cache(maxsize=None)
-def twiddle_table(n: int, inverse: bool) -> np.ndarray:
-    """W_N^m = exp(±2πi m / N) for m = 0..N-1 as an (N, 2) fp32 (re, im)
-    array: float64 angles, rounded once.  The Hopper kernel reads every
-    stage twiddle from this table."""
+def twiddle_table(n: int, inverse: bool, dtype: str = "float32") -> np.ndarray:
+    """W_N^m = exp(±2πi m / N) for m = 0..N-1 as an (N, 2) (re, im) array:
+    float64 angles, rounded once to ``dtype``.  The Hopper kernels read
+    every stage twiddle from this table; the "exact" tier reads the
+    float64 copy."""
     sign = +1.0 if inverse else -1.0
     ang = sign * 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
-    tab = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    tab = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(dtype)
+    tab.setflags(write=False)
+    return tab
+
+
+@lru_cache(maxsize=None)
+def real_split_twiddles(n: int, dtype: str = "float32"):
+    """Twiddles W_n^k = exp(-2πi k / n) for k = 0..n/2-1, as (cos, sin).
+
+    Used by the r2c/c2r split/merge post-process (reference
+    SMFFT_Stockham_R2C_C2R/FFT-GPU-32bit-Stockham.cu:289-328): for real
+    length ``n`` the half-size spectrum of length L = n/2 is recombined with
+    W(n, k) for k = 0..L-1.  Float64-computed, rounded once to ``dtype``.
+    """
+    L = n // 2
+    k = np.arange(L, dtype=np.float64)
+    ang = -2.0 * np.pi * k / n
+    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
+
+
+@lru_cache(maxsize=None)
+def real_split_table(n: int, dtype: str = "float32") -> np.ndarray:
+    """:func:`real_split_twiddles` as one (n/2, 2) (re, im) array: the
+    table the real kernels read (W^-k is its conjugate, formed in the
+    kernel).  The "exact" tier reads the float64 copy."""
+    tab = np.stack(real_split_twiddles(n, dtype), axis=-1)
     tab.setflags(write=False)
     return tab

@@ -1,10 +1,18 @@
-"""Planar public API — C2C transforms of separate fp32 (re, im) planes.
+"""Planar public API — transforms of separate fp32 (re, im) planes.
 
-``(vr, vi)`` float32 (..., N) -> ``(or, oi)`` float32 (..., N), natural
-order when ``ordered=True``, revblock otherwise; batched over any leading
-shape, with the same size switch, packing rule and normalization contract
-as :mod:`smfft_tpu_torch.api`.  The kernel reads and writes the planes
-directly, with no conversion pass.
+Layout contracts, batched over any leading shape, with the same size
+switch, packing rule and normalization contract as
+:mod:`smfft_tpu_torch.api`:
+  * C2C: ``(vr, vi)`` float32 (..., N) -> ``(or, oi)`` float32 (..., N),
+    natural order when ``ordered=True``, revblock otherwise.
+  * R2C: real (..., N) -> packed planar pair (..., N/2), slot 0 =
+    (DC, Nyquist) (SMFFT_Stockham_R2C_C2R/FFT-GPU-32bit-Stockham.cu:
+    332-340); natural bin order, or revblock at size N/2.
+  * C2R: packed pair (..., N/2), natural or revblock -> real (..., N);
+    numpy normalization under ``norm="backward"``, the reference's raw
+    (N/2)-scale under ``norm=None``.  N >= 256 for R2C and C2R, as in the
+    JAX package.
+The kernels read and write the planes directly, with no conversion pass.
 
 Unlike the JAX package's planar API, N = 32 / 64 work: the planes are
 regrouped into 128-wide rows of 128/N transforms before the row-layout op,
@@ -17,6 +25,7 @@ import torch
 
 from smfft_tpu_torch import api
 from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import real as R
 
 
 def _rows(vr: torch.Tensor, vi: torch.Tensor):
@@ -36,10 +45,10 @@ def _rows(vr: torch.Tensor, vi: torch.Tensor):
 
 
 def _run(vr, vi, precision, **kw):
-    api._resolve_precision(precision)
+    exact = api._exact(precision)
     n = vr.shape[-1]
     r, i, batch = _rows(vr, vi)
-    o_r, o_i = C.fft_planar(r, i, n, **kw)
+    o_r, o_i = C.fft_planar(r, i, n, exact=exact, **kw)
     return o_r.reshape(batch + (n,)), o_i.reshape(batch + (n,))
 
 
@@ -65,3 +74,39 @@ def ifft_unordered(vr: torch.Tensor, vi: torch.Tensor,
     produces, returning natural order."""
     return _run(vr, vi, precision, inverse=True, rev_in=True,
                 scale=api._norm_scale(norm, vr.shape[-1]))
+
+
+def rfft(x: torch.Tensor, ordered: bool = True,
+         precision: str | None = None):
+    """Planar R2C: real (..., N) -> packed planar pair (..., N/2) with
+    slot 0 = (DC, Nyquist); natural bin order when ``ordered=True``,
+    revblock otherwise (pairs with :func:`irfft`'s ``in_natural``)."""
+    n = x.shape[-1]
+    R.check_fused(n, "planar rfft")
+    exact = api._exact(precision)
+    rows, batch, _ = R.rows_of(x.to(torch.float32), n)
+    hr, hi = R.rfft_planar(rows, exact=exact, ordered=ordered)
+    return hr.reshape(batch + (n // 2,)), hi.reshape(batch + (n // 2,))
+
+
+def irfft(vr: torch.Tensor, vi: torch.Tensor, n: int | None = None,
+          precision: str | None = None, norm: str | None = "backward",
+          in_natural: bool = True):
+    """Planar C2R: packed spectrum pair (..., N/2) -> real (..., N).
+    ``in_natural=False`` consumes the revblock layout of
+    ``rfft(ordered=False)`` relayout-free; the norm's scale is fused into
+    the kernel."""
+    if vr.shape != vi.shape:
+        raise ValueError(f"planar pair shapes differ: {tuple(vr.shape)} vs "
+                         f"{tuple(vi.shape)}")
+    n = n or vr.shape[-1] * 2
+    R.check_fused(n, "planar irfft")
+    if vr.shape[-1] != n // 2:
+        raise ValueError(f"n={n} takes {n // 2} bins, got {vr.shape[-1]}")
+    exact = api._exact(precision)
+    scale = api.real_norm_scale(norm, n)
+    r, batch, _ = R.rows_of(vr.to(torch.float32), n // 2)
+    i, _, _ = R.rows_of(vi.to(torch.float32), n // 2)
+    out = R.irfft_planar(r, i, n, exact=exact, in_natural=in_natural,
+                         scale=scale)
+    return out.reshape(batch + (n,))

@@ -1,6 +1,7 @@
-"""Public API of smfft_tpu_torch (complex and planar) on CPU tensors,
-against smfft_tpu's pallas backend (interpret mode) and float64 numpy;
-norms, precision tiers, the spec backend, autograd and the no-JAX import.
+"""Public API of smfft_tpu_torch (complex, real and planar) on CPU
+tensors, against smfft_tpu's pallas backend (interpret mode) and float64
+numpy; norms, precision tiers, the spec backend, autograd and the no-JAX
+import.
 
 Tolerances: tol(n) = 5e-7 * n^0.75 * 8 against numpy, 2 * tol(n) against
 JAX.  JAX comparisons use sizes whose interpret-mode kernels trace in about
@@ -22,7 +23,7 @@ import smfft_tpu.planar as JPL
 
 import smfft_tpu_torch as T
 from smfft_tpu_torch import api
-from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
+from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES, SUPPORTED_REAL_SIZES
 
 from conftest import max_abs_err
 
@@ -145,8 +146,7 @@ def test_packing_rule_in_api():
 @pytest.mark.parametrize("precision", ["highest", "exact", "high", "fast",
                                        None])
 def test_precision_tiers_accepted(rng, precision):
-    """Every tier runs the same fp32 kernel; "high" meets the reference's
-    1e-4 gate."""
+    """Every tier is accepted; "high" meets the reference's 1e-4 gate."""
     for n in (1024, 4096):
         x = rand_c(rng, (8, n))
         y = T.fft(torch.from_numpy(x), precision=precision)
@@ -235,3 +235,236 @@ def test_sources_name_no_jax():
                                      "import smfft_tpu ", "import smfft_tpu.",
                                      "from smfft_tpu ", "from smfft_tpu.")), \
                 f"{path}: {s}"
+
+
+# ---------------------------------------------------------------------------
+# Real transforms: api.rfft / irfft / fft_packed_real, planar.rfft / irfft.
+# The JAX side runs its pallas backend in interpret mode up to n = 4096 and
+# its plain backend (backend="xla") at 8192 / 16384, as in
+# tests/test_torch_real.py; tolerances as above.
+# ---------------------------------------------------------------------------
+
+REAL_INTERPRET_MAX = 4096
+
+
+def rand_r(rng, shape):
+    return (rng.random(shape) - 0.5).astype(np.float32)
+
+
+def jax_backend(n):
+    return "pallas" if n <= REAL_INTERPRET_MAX else "xla"
+
+
+@pytest.mark.parametrize("n", SUPPORTED_REAL_SIZES)
+def test_real_api(rng, n):
+    """rfft, fft_packed_real and irfft (numpy and packed layouts, norm
+    "backward" and None) against smfft_tpu.api and numpy."""
+    L = n // 2
+    x = rand_r(rng, (8, n))
+    x64 = x.astype(np.float64)
+    xt = torch.from_numpy(x)
+    full = np.fft.rfft(x64)
+    y = T.rfft(xt)
+    assert y.dtype == torch.complex64 and y.shape == (8, L + 1)
+    assert max_abs_err(y.numpy(), full) < tol(n)
+    pk = T.fft_packed_real(xt)
+    assert pk.shape == (8, L)
+    assert max_abs_err(pk.numpy()[:, 1:], full[:, 1:L]) < tol(n)
+    assert max_abs_err(pk.numpy()[:, 0].real, full[:, 0].real) < tol(n)
+    assert max_abs_err(pk.numpy()[:, 0].imag, full[:, L].real) < tol(n)
+    back = T.irfft(y)
+    assert back.dtype == torch.float32 and back.shape == (8, n)
+    assert max_abs_err(back.numpy(), x) < tol(n)
+    raw = T.irfft(y, norm=None)
+    assert max_abs_err(raw.numpy(), x * L) < tol(n) * L
+    assert max_abs_err(T.irfft(pk, packed=True).numpy(), x) < tol(n)
+    assert max_abs_err(T.irfft(pk, n=n, packed=True, norm=None).numpy(),
+                       x * L) < tol(n) * L
+    be = jax_backend(n)
+    ref = np.asarray(smfft_tpu.rfft(jnp.asarray(x), backend=be))
+    assert max_abs_err(y.numpy(), ref) < 2 * tol(n)
+    ref = np.asarray(smfft_tpu.irfft(jnp.asarray(y.numpy()), n=n,
+                                     backend=be, norm=None))
+    assert max_abs_err(raw.numpy(), ref) < 2 * tol(n) * L
+    if n in (64, 1024, 16384):
+        ref = np.asarray(smfft_tpu.fft_packed_real(jnp.asarray(x),
+                                                   backend=be))
+        assert max_abs_err(pk.numpy(), ref) < 2 * tol(n)
+        ref = np.asarray(smfft_tpu.irfft(jnp.asarray(pk.numpy()), n=n,
+                                         backend=be, packed=True))
+        assert max_abs_err(T.irfft(pk, packed=True).numpy(), ref) \
+            < 2 * tol(n)
+
+
+@pytest.mark.parametrize("n", [n for n in SUPPORTED_REAL_SIZES if n >= 256])
+def test_planar_real_api(rng, n):
+    """planar.rfft / planar.irfft, natural and revblock, against
+    smfft_tpu.planar (n <= 4096) or the JAX plain backend, and numpy."""
+    L = n // 2
+    x = rand_r(rng, (8, n))
+    xt = torch.from_numpy(x)
+    full = np.fft.rfft(x.astype(np.float64))
+    pk = np.concatenate([full[:, :1].real + 1j * full[:, L:].real,
+                         full[:, 1:L]], axis=1)
+    hr, hi = T.planar.rfft(xt)
+    got = hr.numpy() + 1j * hi.numpy()
+    assert hr.shape == (8, L)
+    assert max_abs_err(got, pk) < tol(n)
+    ur, ui = T.planar.rfft(xt, ordered=False)
+    c = max(1, L // 128)
+    rev = pk if c == 1 else pk.reshape(-1, 128, c).transpose(
+        0, 2, 1).reshape(-1, L)
+    assert max_abs_err(ur.numpy() + 1j * ui.numpy(), rev) < tol(n)
+    assert max_abs_err(T.planar.irfft(hr, hi).numpy(), x) < tol(n)
+    assert max_abs_err(T.planar.irfft(ur, ui, in_natural=False).numpy(),
+                       x) < tol(n)
+    raw = T.planar.irfft(hr, hi, norm=None).numpy()
+    assert max_abs_err(raw, x * L) < tol(n) * L
+    if n <= REAL_INTERPRET_MAX:
+        jr, ji = JPL.rfft(jnp.asarray(x))
+        ref = np.asarray(jr) + 1j * np.asarray(ji)
+        jraw = np.asarray(JPL.irfft(jr, ji, norm=None))
+    else:
+        ref = np.asarray(smfft_tpu.fft_packed_real(jnp.asarray(x),
+                                                   backend="xla"))
+        jraw = np.asarray(smfft_tpu.irfft(jnp.asarray(ref), n=n,
+                                          backend="xla", packed=True,
+                                          norm=None))
+    assert max_abs_err(got, ref) < 2 * tol(n)
+    assert max_abs_err(raw, jraw) < 2 * tol(n) * L
+    if n == 1024:
+        jr, ji = JPL.rfft(jnp.asarray(x), ordered=False)
+        assert max_abs_err(ur.numpy() + 1j * ui.numpy(),
+                           np.asarray(jr) + 1j * np.asarray(ji)) < 2 * tol(n)
+        jback = np.asarray(JPL.irfft(jr, ji, in_natural=False))
+        assert max_abs_err(T.planar.irfft(ur, ui, in_natural=False).numpy(),
+                           jback) < 2 * tol(n)
+
+
+@pytest.mark.parametrize("n", [128, 2048])
+def test_real_batch_shapes(rng, n):
+    L = n // 2
+    x = rand_r(rng, (2, 3, 4, n))
+    xt = torch.from_numpy(x)
+    y = T.rfft(xt)
+    assert y.shape == (2, 3, 4, L + 1)
+    assert max_abs_err(y.numpy(), np.fft.rfft(x.astype(np.float64))) < tol(n)
+    if n < 256:  # larger n: test_real_api holds the same kernels to JAX
+        ref = np.asarray(smfft_tpu.rfft(jnp.asarray(x), backend="pallas"))
+        assert max_abs_err(y.numpy(), ref) < 2 * tol(n)
+    assert T.irfft(y).shape == (2, 3, 4, n)
+    assert max_abs_err(T.irfft(y).numpy(), x) < tol(n)
+    assert T.fft_packed_real(xt).shape == (2, 3, 4, L)
+    if n >= 256:
+        hr, hi = T.planar.rfft(xt)
+        assert hr.shape == (2, 3, 4, L)
+        assert max_abs_err(T.planar.irfft(hr, hi).numpy(), x) < tol(n)
+
+
+def test_real_size_errors():
+    """The reference's size switch and the planar n >= 256 rule, as in
+    smfft_tpu."""
+    for n in (48, 32768):
+        with pytest.raises(ValueError, match="Error wrong FFT length!"):
+            T.rfft(torch.zeros(4, n))
+        with pytest.raises(ValueError, match="Error wrong FFT length!"):
+            smfft_tpu.rfft(jnp.zeros((4, n), jnp.float32), backend="xla")
+        with pytest.raises(ValueError, match="Error wrong FFT length!"):
+            T.fft_packed_real(torch.zeros(4, n))
+    with pytest.raises(ValueError, match="Error wrong FFT length!"):
+        T.irfft(torch.zeros(4, 25, dtype=torch.complex64))
+    with pytest.raises(ValueError, match="Error wrong FFT length!"):
+        smfft_tpu.irfft(jnp.zeros((4, 25), jnp.complex64), backend="xla")
+    with pytest.raises(ValueError, match="takes 129 bins"):
+        T.irfft(torch.zeros(4, 65, dtype=torch.complex64), n=256)
+    for fn, jfn, shape in ((T.planar.rfft, JPL.rfft, (4, 128)),):
+        with pytest.raises(ValueError, match="Error wrong FFT length!"):
+            fn(torch.zeros(shape))
+        with pytest.raises(ValueError, match="Error wrong FFT length!"):
+            jfn(jnp.zeros(shape, jnp.float32))
+    z = torch.zeros(4, 64)
+    with pytest.raises(ValueError, match="Error wrong FFT length!"):
+        T.planar.irfft(z, z)
+    with pytest.raises(ValueError, match="Error wrong FFT length!"):
+        JPL.irfft(jnp.zeros((4, 64)), jnp.zeros((4, 64)))
+    with pytest.raises(ValueError, match="norm"):
+        T.irfft(torch.zeros(4, 129, dtype=torch.complex64), norm="ortho")
+    with pytest.raises(ValueError, match="unknown precision"):
+        T.rfft(torch.zeros(4, 256), precision="bf16")
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_real_spec_backend(rng, packed):
+    n = 256
+    x = rand_r(rng, (4, n))
+    xt = torch.from_numpy(x)
+    fn = T.fft_packed_real if packed else T.rfft
+    jfn = smfft_tpu.fft_packed_real if packed else smfft_tpu.rfft
+    got = fn(xt, backend="spec")
+    assert max_abs_err(got.numpy(), fn(xt).numpy()) < 2 * tol(n)
+    ref = np.asarray(jfn(jnp.asarray(x), backend="spec"))
+    assert max_abs_err(got.numpy(), ref) < 2 * tol(n)
+    back = T.irfft(got, n=n, backend="spec", packed=packed, norm=None)
+    assert max_abs_err(back.numpy(), x * (n // 2)) < tol(n) * n
+    assert max_abs_err(T.irfft(got, n=n, backend="spec",
+                               packed=packed).numpy(), x) < tol(n)
+
+
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("which", ["rfft", "irfft", "irfft_raw"])
+def test_real_autograd(n, which):
+    """gradcheck (float64, plain versions) and agreement with torch.fft's
+    gradients, which follow PyTorch's conjugate convention (the JAX rules
+    conjugate instead)."""
+    L = n // 2
+    rng = np.random.default_rng(n)
+    b = 4
+    if which == "rfft":
+        x = torch.from_numpy(rng.random((b, n)))
+        fn, ref = T.rfft, torch.fft.rfft
+        g = torch.from_numpy(rng.random((b, L + 1))
+                             + 1j * rng.random((b, L + 1)))
+    else:
+        x = torch.from_numpy(rng.random((b, L + 1))
+                             + 1j * rng.random((b, L + 1)))
+        norm = "backward" if which == "irfft" else None
+        scale = 1.0 if which == "irfft" else float(L)
+
+        def fn(a):
+            return T.irfft(a, norm=norm)
+
+        def ref(a):
+            return torch.fft.irfft(a, n) * scale
+        g = torch.from_numpy(rng.random((b, n)))
+    x.requires_grad_(True)
+    assert torch.autograd.gradcheck(fn, (x,))
+    (gx,) = torch.autograd.grad(fn(x), x, g)
+    (gr,) = torch.autograd.grad(ref(x), x, g)
+    assert torch.allclose(gx, gr, atol=1e-10)
+
+
+def test_packed_real_has_no_gradient():
+    x = torch.zeros(4, 256, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        T.fft_packed_real(x).abs().sum().backward()
+    h = torch.zeros(4, 128, dtype=torch.complex64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        T.irfft(h, packed=True).sum().backward()
+
+
+@pytest.mark.parametrize("n", [512, 16384])
+def test_exact_tier_c2c_cpu(rng, n):
+    """precision="exact" on the CPU runs the plain version in float64 and
+    rounds once: within the tier's 2 ulp of max|X| (here within 1)."""
+    x = rand_c(rng, (8, n))
+    want = np.fft.fft(x.astype(np.complex128))
+    ulp = np.spacing(np.float32(np.abs(want).max()))
+    y = T.fft(torch.from_numpy(x), precision="exact")
+    assert y.dtype == torch.complex64
+    assert max_abs_err(y.numpy(), want) <= ulp
+    o_r, o_i = T.planar.ifft(torch.from_numpy(x.real.copy()),
+                             torch.from_numpy(x.imag.copy()), norm=None,
+                             precision="exact")
+    want = np.fft.ifft(x.astype(np.complex128)) * n
+    assert max_abs_err(o_r.numpy() + 1j * o_i.numpy(), want) <= np.spacing(
+        np.float32(np.abs(want).max()))

@@ -93,3 +93,39 @@ def test_kernel_twiddle_table(n):
         m = (np.arange(n // 128)[:, None] * np.arange(128)[None, :]) % n
         np.testing.assert_allclose(tab[m, 0], t_re, atol=1e-6)
         np.testing.assert_allclose(tab[m, 1], t_im, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", TP.SUPPORTED_REAL_SIZES)
+def test_real_split_tables_bit_identical(n):
+    """real_split_twiddles is the same fp32 bits as smfft_tpu.params'; the
+    kernels' (n/2, 2) table stacks it, and its float64 copy rounds to it."""
+    mine, ref = TP.real_split_twiddles(n), JP.real_split_twiddles(n)
+    for a, b in zip(mine, ref):
+        assert a.dtype == np.float32 and a.shape == (n // 2,)
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    tab = TP.real_split_table(n)
+    assert tab.shape == (n // 2, 2) and tab.dtype == np.float32
+    assert np.array_equal(tab[:, 0], ref[0]) and np.array_equal(tab[:, 1],
+                                                                ref[1])
+    tab64 = TP.real_split_table(n, "float64")
+    assert tab64.dtype == np.float64
+    assert np.array_equal(tab64.astype(np.float32), tab)
+    ang = -2.0 * np.pi * np.arange(n // 2) / n
+    assert np.array_equal(tab64[:, 0], np.cos(ang))
+    for a, b in zip(TP.real_split_twiddles(n, "float64"),
+                    JP.real_split_twiddles(n, "float64")):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", [32, 4096, 16384])
+def test_exact_twiddle_table(n):
+    """The "exact" tier's float64 twiddle table: the float64 values the
+    fp32 table is rounded from."""
+    for inverse in (False, True):
+        t64 = TP.twiddle_table(n, inverse, "float64")
+        assert t64.dtype == np.float64 and t64.shape == (n, 2)
+        assert np.array_equal(t64.astype(np.float32),
+                              TP.twiddle_table(n, inverse))
+    ang = -2.0 * np.pi * np.arange(n) / n
+    assert np.array_equal(TP.twiddle_table(n, False, "float64")[:, 1],
+                          np.sin(ang))
