@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """GPU smoke run of smfft_tpu_torch: builds the kernels, checks them, and
-drives the C2C and the real main paths at the working size on one NVIDIA
-GPU.
+drives the C2C, real, reuse and convolution main paths at the working
+size on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -34,11 +34,39 @@ Phases (each failure exits non-zero at once):
      ``planar.rfft(ordered=False)`` -> ``planar.irfft(in_natural=False)``
      round trip at n = 1024, checked and timed the same way (GB/s counted
      as 8 bytes per real sample) beside ``torch.fft.rfft`` / ``irfft``.
-  Before each main path every launch counter is set to 0; right after, each
-     kernel's counter must equal its number of calls on that path (and the
-     other path's kernels must not have run).
   6. ``smfft_tpu_torch.verify`` 1024 4096 2 0 1, and 4096 4096 2 with
      ``--kind r2c`` and ``--kind c2r``, print PASSED.
+  7. Reuse sweep: ``c2c_multiple_kernel`` through
+     ``fft_planar(multiple_iters=k)`` (both tiers, ordered and revblock
+     out, k = 1, 3) against its plain version and float64 ``torch.fft``
+     with the revblock map between steps; through
+     ``multiple_pencil_planar`` (k = 1, 4; (F/sqrt N)^4 = I returns x);
+     ``real_multiple_kernel`` through ``multiple_real_pencil_planar``
+     (iters = 2, 4; returns x); every size, ~2^22 points a call.
+  8. The reuse main path at 2^27 points with ITERS = 100 transforms held
+     on chip (the reference's NREUSES): ``fft_planar(multiple_iters=100)``
+     at N = 1024 / 4096 / 16384, ``multiple_pencil_planar`` and
+     ``multiple_real_pencil_planar`` at 1024 / 4096.  MFFT/s (rows x iters
+     / time), the bound (fp32 operations), and the ratio to 100 single
+     calls (timed after the path's counters are read).
+  9. Convolution sweep: ``conv_kernel`` (complex64 and planar) and
+     ``conv_real_kernel``, every size, both tiers, 1 and 3 filters,
+     against their plain versions and float64 ``torch.fft``; "exact"
+     within 2 ulp of max|y|.
+ 10. The convolution main path at 2^27 points or samples: ``convolve`` at
+     N = 1024 / 4096 / 16384 and a 4-filter bank at 1024,
+     ``planar.convolve`` at 1024, ``convolve_real`` likewise, and
+     ``fftconvolve`` of 64 real streams of 2^21 samples with 129 taps
+     (n_fft = 512) and of complex streams of the same shape.  Time, GB/s,
+     the same-run ``copy_``, the bound, the plain version and the
+     ``torch.fft`` three-call composition; every row against the plain
+     version, the first rows (every stream for ``fftconvolve``) against
+     float64.
+  Before each of the main paths 4, 5, 8 and 10 every launch counter is
+     set to 0; right after, the counters must equal the path's calls (the
+     convolution path runs ``conv`` / ``conv_real`` and, once a
+     ``fftconvolve`` call, the R2C or C2C kernel for the taps) and no other
+     kernel may have run.
 
 The last lines are the card, a JSON line of kernel results and the device
 line.
@@ -61,6 +89,14 @@ MAIN_POINTS = 1 << 27
 MAIN_SIZES = (1024, 4096, 16384)
 ORACLE_ROWS = 64
 REPS = 7
+# the new phases: the reuse loop's iterations (the reference's NREUSES),
+# the bank size, the streams filtered by overlap-save, and repetitions
+ITERS = 100
+M_BANK = 4
+M_SWEEP = 3
+STREAMS, STREAM_LEN, TAPS = 64, 1 << 21, 129
+REPS_REUSE = 3
+REPS_CONV = 5
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -133,24 +169,35 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def reset_counts() -> None:
+def launchers() -> dict:
+    """Every kernel's wrapper, whose ``count`` it bumps once a launch."""
     from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import convolve as CV
+    from smfft_tpu_torch.ops import multiple as M
     from smfft_tpu_torch.ops import real as R
-    C.launch.count = R.launch_r2c.count = R.launch_c2r.count = 0
+    return {"c2c": C.launch, "r2c": R.launch_r2c, "c2r": R.launch_c2r,
+            "c2c_multiple": M.launch_multiple,
+            "real_multiple": M.launch_real_multiple,
+            "conv": CV.launch_conv, "conv_real": CV.launch_conv_real}
+
+
+def reset_counts() -> None:
+    for fn in launchers().values():
+        fn.count = 0
 
 
 def counts() -> dict:
-    from smfft_tpu_torch.ops import c2c as C
-    from smfft_tpu_torch.ops import real as R
-    return {"c2c": C.launch.count, "r2c": R.launch_r2c.count,
-            "c2r": R.launch_c2r.count}
+    return {name: fn.count for name, fn in launchers().items()}
 
 
 def check_counts(path: str, expected: dict) -> dict:
+    """The counters after a main path: ``expected`` names the kernels the
+    path runs and their calls; every other kernel must not have run."""
     got = counts()
+    want = {name: expected.get(name, 0) for name in got}
     print(f"launch counters over the {path} main path: {got} (expected "
-          f"{expected})")
-    if got != expected or not any(got.values()):
+          f"{want})")
+    if got != want or not all(got[name] for name in expected):
         fail(f"the {path} main path did not go through its kernels once "
              "per call")
     return got
@@ -307,9 +354,13 @@ def check_rows(y: torch.Tensor, x: torch.Tensor, inverse: bool, scale,
         fail(f"{what}: error {err:.3e} over bound")
 
 
-def check_all(y, plain, n: int, what: str) -> float:
+def check_all(y, plain, n: int, what: str, lim: float | None = None,
+              against: str = "plain") -> float:
     """Every row of y (a tensor or a planar pair) against the plain
-    version's output on the same input; returns the max abs error."""
+    version's output on the same input (or another reference, named by
+    ``against``), within ``lim`` (default bound(n)); returns the max abs
+    error."""
+    lim = bound(n) if lim is None else lim
     first = y[0] if isinstance(y, tuple) else y
     finite = all(bool(torch.isfinite(torch.view_as_real(t) if t.is_complex()
                                      else t).all())
@@ -317,10 +368,10 @@ def check_all(y, plain, n: int, what: str) -> float:
     if not finite:
         fail(f"{what}: non-finite output")
     err = max_err(y, plain)
-    print(f"  {what}: all {first.shape[0]} rows vs plain {err:.3e} "
-          f"(bound {bound(n):.3e})")
-    if not err <= bound(n):
-        fail(f"{what}: error {err:.3e} against the plain version over bound")
+    print(f"  {what}: all {first.shape[-2]} rows vs {against} {err:.3e} "
+          f"(bound {lim:.3e})")
+    if not err <= lim:
+        fail(f"{what}: error {err:.3e} against the {against} over bound")
     return err
 
 
@@ -590,6 +641,555 @@ def phase_main_real(card: str):
     return rows, n_r2c, n_c2r, worst
 
 
+def reuse_bound(n: int, iters: int) -> float:
+    """Error bound of a chain of iters + 1 transforms: each transform is
+    unitary up to its 1/sqrt(N) scale, so the rounding errors of the steps
+    add like a random walk, about sqrt(iters + 1) times one transform's;
+    twice that, over bound(n)."""
+    return 2.0 * bound(n) * math.sqrt(iters + 1)
+
+
+def b1_oracle(x: torch.Tensor, iters: int, ordered: bool) -> torch.Tensor:
+    """fft_planar(multiple_iters=iters) in float64 torch.fft: each
+    re-application is kernel A's natural -> revblock map times 1/sqrt(N),
+    its revblock row read back as natural input."""
+    y = x.to(torch.complex128)
+    s = 1.0 / math.sqrt(x.shape[-1])
+    for _ in range(iters):
+        y = to_revblock(torch.fft.fft(y)) * s
+    out = torch.fft.fft(y)
+    return out if ordered else to_revblock(out)
+
+
+def phase_reuse_sweep():
+    """Both reuse kernels against their plain versions and independent
+    oracles at every size: the fft_planar(multiple_iters) form in both
+    tiers, ordered and revblock out, k = 1 and 3, against float64
+    torch.fft with the revblock map between steps; the pencil form at k = 1
+    and 4 ((F / sqrt(N))^4 = I returns x); the real form at iters = 2 and
+    4 (returns x).  Returns the max |kernel - plain| of each kernel."""
+    from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import multiple as M
+    from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {"c2c_multiple": 0.0, "real_multiple": 0.0}
+    for n in SUPPORTED_C2C_SIZES:
+        row = max(n, 128)
+        b = SWEEP_POINTS // n
+        x = rand_complex(b, n, gen)
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        line = []
+        for exact in (False, True):
+            for ordered in (True, False):
+                for k in (1, 3):
+                    o = C.fft_planar(xr.view(-1, row), xi.view(-1, row), n,
+                                     ordered=ordered, exact=exact,
+                                     multiple_iters=k)
+                    got = torch.complex(*o).view(b, n)
+                    plain = torch.complex(*M.multiple_plain(
+                        xr, xi, loops=k, fb_rev=True, last_rev=True,
+                        rev_out=not ordered, exact=exact))
+                    torch.cuda.synchronize()
+                    e = max_err(got, plain)
+                    o64 = max_err(got[:ORACLE_ROWS],
+                                  b1_oracle(x[:ORACLE_ROWS], k, ordered))
+                    if max(e, o64) > reuse_bound(n, k):
+                        fail(f"reuse fft_planar n={n} k={k} exact={exact} "
+                             f"ordered={ordered}: {e:.3e} / {o64:.3e} over "
+                             f"{reuse_bound(n, k):.3e}")
+                    worst["c2c_multiple"] = max(worst["c2c_multiple"], e)
+                    line.append(f"{'x' if exact else 'h'}{'o' if ordered else 'r'}"
+                                f"{k} {e:.2e}/{o64:.2e}")
+        if n <= 4096:
+            for k in (1, 4):
+                o = M.multiple_pencil_planar(xr, xi, n, k)
+                got = torch.complex(*o)
+                plain = torch.complex(*M.multiple_plain(
+                    xr, xi, loops=k - 1, scale=1.0 / math.sqrt(n)))
+                want = x if k == 4 else torch.fft.fft(
+                    x[:ORACLE_ROWS].to(torch.complex128)) / math.sqrt(n)
+                torch.cuda.synchronize()
+                e = max_err(got, plain)
+                o64 = max_err(got if k == 4 else got[:ORACLE_ROWS], want)
+                if max(e, o64) > reuse_bound(n, k):
+                    fail(f"reuse pencil n={n} k={k}: {e:.3e} / {o64:.3e}")
+                worst["c2c_multiple"] = max(worst["c2c_multiple"], e)
+                line.append(f"pencil{k} {e:.2e}/{o64:.2e}")
+        if 256 <= n <= 4096:
+            xr_ = torch.rand((b + 3, n), generator=gen, device="cuda") - 0.5
+            for iters in (2, 4):
+                got = M.multiple_real_pencil_planar(xr_, n, iters)
+                plain = M.real_multiple_plain(xr_, iters // 2)
+                torch.cuda.synchronize()
+                e, ex = max_err(got, plain), max_err(got, xr_)
+                if max(e, ex) > reuse_bound(n, iters):
+                    fail(f"reuse real n={n} iters={iters}: {e:.3e} / "
+                         f"{ex:.3e}")
+                worst["real_multiple"] = max(worst["real_multiple"], e)
+                line.append(f"real{iters} {e:.2e}/{ex:.2e}")
+            del xr_
+        print(f"reuse N={n:5d} (vs plain / vs oracle; h/x = highest/exact, "
+              f"o/r = ordered/revblock out, k): " + ", ".join(line))
+        del x, xr, xi
+    print(f"reuse sweep: max |kernel - plain| c2c_multiple "
+          f"{worst['c2c_multiple']:.3e}, real_multiple "
+          f"{worst['real_multiple']:.3e}")
+    return worst
+
+
+def phase_conv_sweep():
+    """Both fused convolution kernels against their plain versions and
+    float64 torch.fft at every size, both tiers, single and M_SWEEP
+    filters, complex64 and planar (the complex kernel); "exact" within 2
+    ulp of max|y|.  Returns the max |kernel - plain| of each kernel."""
+    from smfft_tpu_torch.ops import convolve as CV
+    from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst = {"conv": 0.0, "conv_real": 0.0}
+    worst_ulp = 0.0
+    for n in SUPPORTED_C2C_SIZES:
+        b = SWEEP_POINTS // n + 3 * max(1, 128 // n)  # ragged
+        x = rand_complex(b, n, gen)
+        line = []
+        for m in (1, M_SWEEP):
+            h = rand_complex(m, n, gen)
+            want = torch.fft.ifft(
+                torch.fft.fft(x[:ORACLE_ROWS].to(torch.complex128))[None]
+                * h.to(torch.complex128)[:, None])
+            u = ulp(want.abs().max().item())
+            for exact in (False, True):
+                hd = CV.device_response(h, 1.0 / n, exact, x.device)
+                got_c = CV.launch_conv(x, h=hd, exact=exact)
+                gr, gi = CV.launch_conv(x.real.contiguous(),
+                                        x.imag.contiguous(), h=hd,
+                                        exact=exact)
+                plain = torch.complex(*CV.conv_plain(
+                    x.real, x.imag, (h / n).real, (h / n).imag, exact))
+                torch.cuda.synchronize()
+                e = o64 = 0.0
+                for got in (got_c, torch.complex(gr, gi)):
+                    e = max(e, max_err(got, plain))
+                    o64 = max(o64, max_err(got[:, :ORACLE_ROWS], want))
+                del got_c, gr, gi, plain
+                if max(e, o64) > bound(n):
+                    fail(f"conv N={n} m={m} exact={exact}: {e:.3e} / "
+                         f"{o64:.3e} over {bound(n):.3e}")
+                if exact and o64 > 2 * u:
+                    fail(f"conv N={n} m={m}: 'exact' is {o64 / u:.2f} ulp "
+                         "from float64, over its contract of 2")
+                worst["conv"] = max(worst["conv"], e)
+                if exact:
+                    worst_ulp = max(worst_ulp, o64 / u)
+                line.append(f"m={m} {'exact' if exact else 'highest'} "
+                            f"{e:.2e}/{o64:.2e} ({o64 / u:.2f} ulp)")
+        print(f"conv N={n:5d} (vs plain / vs float64): " + ", ".join(line))
+        del x
+        if n < 256:
+            continue
+        L = n // 2
+        xr = torch.rand((SWEEP_POINTS // n + 3, n), generator=gen,
+                        device="cuda") - 0.5
+        line = []
+        for m in (1, M_SWEEP):
+            h = torch.fft.rfft(torch.rand((m, n), generator=gen,
+                                          device="cuda") - 0.5).to(
+                                              torch.complex64)
+            want = torch.fft.irfft(
+                torch.fft.rfft(xr[:ORACLE_ROWS].double())[None]
+                * h.to(torch.complex128)[:, None], n)
+            u = ulp(want.abs().max().item())
+            pk = CV.pack_real_response(h) / L
+            for exact in (False, True):
+                got = CV.launch_conv_real(
+                    xr, h=CV.device_response(CV.pack_real_response(h),
+                                             1.0 / L, exact, xr.device),
+                    exact=exact)
+                plain = CV.conv_real_plain(xr, pk.real, pk.imag, exact)
+                torch.cuda.synchronize()
+                e = max_err(got, plain)
+                o64 = max_err(got[:, :ORACLE_ROWS], want)
+                del got, plain
+                if max(e, o64) > bound(n):
+                    fail(f"conv_real n={n} m={m} exact={exact}: {e:.3e} / "
+                         f"{o64:.3e} over {bound(n):.3e}")
+                if exact and o64 > 2 * u:
+                    fail(f"conv_real n={n} m={m}: 'exact' is "
+                         f"{o64 / u:.2f} ulp from float64")
+                worst["conv_real"] = max(worst["conv_real"], e)
+                if exact:
+                    worst_ulp = max(worst_ulp, o64 / u)
+                line.append(f"m={m} {'exact' if exact else 'highest'} "
+                            f"{e:.2e}/{o64:.2e} ({o64 / u:.2f} ulp)")
+        print(f"conv_real n={n:5d} (vs plain / vs float64): "
+              + ", ".join(line))
+        del xr
+    print(f"convolution sweep: max |kernel - plain| conv {worst['conv']:.3e}"
+          f", conv_real {worst['conv_real']:.3e}; 'exact' at most "
+          f"{worst_ulp:.2f} ulp(max|y|)")
+    return worst
+
+
+def phase_main_reuse(card: str):
+    """The reuse main path at 2^27 points (samples) per call, ITERS
+    transforms held on chip: fft_planar(multiple_iters=ITERS) at N = 1024 /
+    4096 / 16384, multiple_pencil_planar(iters=ITERS) and
+    multiple_real_pencil_planar(iters=ITERS) at N = 1024 / 4096.  Every
+    row against the plain version (and the pencil and real forms, whose
+    ITERS = 100 is a multiple of 4, against x itself); the first rows of
+    the fft_planar form against float64 torch.fft.  Returns (rows, calls
+    per kernel, worst error per kernel)."""
+    from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import multiple as M
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows, calls = [], {"c2c_multiple": 0, "real_multiple": 0}
+    worst = {"c2c_multiple": 0.0, "real_multiple": 0.0}
+    lim = {n: reuse_bound(n, ITERS) for n in MAIN_SIZES}
+    for n in MAIN_SIZES:
+        b = MAIN_POINTS // n
+        x = rand_complex(b, n, gen)
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        del x
+        o = C.fft_planar(xr, xi, n, ordered=True, multiple_iters=ITERS)
+        calls["c2c_multiple"] += 1
+        plain = M.multiple_plain(xr, xi, loops=ITERS, fb_rev=True,
+                                 last_rev=True)
+        worst["c2c_multiple"] = max(worst["c2c_multiple"], check_all(
+            o, plain, n, f"fft_planar(multiple_iters={ITERS}) N={n}",
+            lim[n]))
+        del plain
+        head = torch.complex(xr[:ORACLE_ROWS], xi[:ORACLE_ROWS])
+        e64 = max_err(torch.complex(*o)[:ORACLE_ROWS],
+                      b1_oracle(head, ITERS, True))
+        print(f"  first {ORACLE_ROWS} rows vs float64 torch.fft with the "
+              f"revblock map: {e64:.3e}")
+        if e64 > lim[n]:
+            fail(f"reuse N={n}: {e64:.3e} against float64 over bound")
+        del o
+        ms = cuda_ms(lambda: C.fft_planar(xr, xi, n, ordered=True,
+                                          multiple_iters=ITERS),
+                     reps=REPS_REUSE)
+        calls["c2c_multiple"] += 1 + REPS_REUSE
+        ms_plain = cuda_ms(lambda: M.multiple_plain(
+            xr, xi, loops=ITERS, fb_rev=True, last_rev=True), reps=1)
+        rows.append({"form": "fft_planar", "n": n, "batch": b, "ms": ms,
+                     "plain_ms": ms_plain, "transforms": ITERS + 1})
+        if n <= 4096:
+            o = M.multiple_pencil_planar(xr, xi, n, ITERS)
+            calls["c2c_multiple"] += 1
+            plain = M.multiple_plain(xr, xi, loops=ITERS - 1,
+                                     scale=1.0 / math.sqrt(n))
+            worst["c2c_multiple"] = max(worst["c2c_multiple"], check_all(
+                o, plain, n, f"multiple_pencil_planar(iters={ITERS}) N={n}",
+                lim[n]))
+            del plain
+            check_all(o, (xr, xi), n, f"multiple_pencil_planar(iters="
+                      f"{ITERS}) N={n}", lim[n], against="x ((F/sqrt N)^4 = I)")
+            del o
+            ms = cuda_ms(lambda: M.multiple_pencil_planar(xr, xi, n, ITERS),
+                         reps=REPS_REUSE)
+            calls["c2c_multiple"] += 1 + REPS_REUSE
+            ms_plain = cuda_ms(lambda: M.multiple_plain(
+                xr, xi, loops=ITERS - 1, scale=1.0 / math.sqrt(n)), reps=1)
+            rows.append({"form": "pencil", "n": n, "batch": b, "ms": ms,
+                         "plain_ms": ms_plain, "transforms": ITERS})
+            y = M.multiple_real_pencil_planar(xr, n, ITERS)
+            calls["real_multiple"] += 1
+            plain = M.real_multiple_plain(xr, ITERS // 2)
+            worst["real_multiple"] = max(worst["real_multiple"], check_all(
+                y, plain, n, f"multiple_real_pencil_planar(iters={ITERS}) "
+                f"n={n}", lim[n]))
+            del plain
+            check_all(y, xr, n, f"multiple_real_pencil_planar(iters={ITERS}) "
+                      f"n={n}", lim[n], against="x")
+            del y
+            ms = cuda_ms(lambda: M.multiple_real_pencil_planar(xr, n, ITERS),
+                         reps=REPS_REUSE)
+            calls["real_multiple"] += 1 + REPS_REUSE
+            ms_plain = cuda_ms(lambda: M.real_multiple_plain(
+                xr, ITERS // 2), reps=1)
+            rows.append({"form": "real", "n": n, "batch": b, "ms": ms,
+                         "plain_ms": ms_plain, "transforms": ITERS})
+        del xr, xi
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows, calls, worst
+
+
+def reuse_references(rows: list, card: str) -> None:
+    """After the reuse path's counters are read: each form's single-call
+    time (planar.fft; planar.rfft + planar.irfft for a real pair) on the
+    same shapes, the bound (operations at the fp32 peak), MFFT/s and the
+    ratio of ITERS single calls to one reuse call."""
+    import smfft_tpu_torch as T
+    for r in rows:
+        n, b = r["n"], r["batch"]
+        if r["form"] == "real":
+            x = torch.rand((b, n), device="cuda") - 0.5
+            hr, hi = T.planar.rfft(x)
+            single = (cuda_ms(lambda: T.planar.rfft(x))
+                      + cuda_ms(lambda: T.planar.irfft(hr, hi))) / 2
+            del x, hr, hi
+            flops = r["transforms"] * b * (2.5 * n * math.log2(n) + 5 * n)
+            nbytes = 8.0 * b * n
+        else:
+            xr = torch.rand((b, n), device="cuda")
+            xi = torch.rand((b, n), device="cuda")
+            single = cuda_ms(lambda: T.planar.fft(xr, xi))
+            del xr, xi
+            flops = r["transforms"] * b * 5.0 * n * math.log2(n)
+            nbytes = 16.0 * b * n
+        torch.cuda.empty_cache()
+        r["bound_ms"], r["bound_by"] = least_ms(nbytes, flops)
+        r["single_ms"] = single
+        r["mfft_s"] = b * ITERS / r["ms"] / 1e3
+        r["ratio_to_single_calls"] = ITERS * single / r["ms"]
+        print(f"reuse {r['form']:10s} N={n:5d} batch={b} iters={ITERS} "
+              f"({card}): {r['ms']:.4f} ms = {r['mfft_s']:.1f} MFFT/s "
+              f"(rows x iters / time) | bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), at {r['bound_ms'] / r['ms']:.3f} | "
+              f"{ITERS} single calls {ITERS * single:.4f} ms, "
+              f"{r['ratio_to_single_calls']:.2f}x | plain "
+              f"{r['plain_ms']:.1f} ms")
+
+
+def overlap_save(x: torch.Tensor, taps: torch.Tensor,
+                 library: bool = False) -> torch.Tensor:
+    """signal.fftconvolve's overlap-save ("full" mode) with the fused
+    kernel's plain version in its place (the check of every output row),
+    or with the torch.fft three-call composition (``library``, a
+    yardstick)."""
+    from smfft_tpu_torch import signal as S
+    from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import convolve as CV
+    from smfft_tpu_torch.ops import real as R
+    b, t = x.shape
+    k = taps.shape[-1]
+    n = S._pick_nfft(k)
+    hop, full = n - k + 1, t + k - 1
+    frames = -(-full // hop)
+    real = not x.is_complex()
+    pad = torch.zeros((b, (frames - 1) * hop + n - (k - 1) - t),
+                      dtype=x.dtype, device=x.device)
+    xp = torch.cat([torch.zeros((b, k - 1), dtype=x.dtype, device=x.device),
+                    x, pad], dim=-1)
+    fx = xp.unfold(-1, n, hop).reshape(b * frames, n)
+    pt = S._pad_taps(taps, n, real)
+    if library and real:
+        y = torch.fft.irfft(torch.fft.rfft(fx) * torch.fft.rfft(pt), n)
+    elif library:
+        y = torch.fft.ifft(torch.fft.fft(fx) * torch.fft.fft(pt))
+    elif real:
+        hf = R.to_layout(*R.r2c_plain(pt), "numpy")
+        pk = CV.pack_real_response(hf) / (n // 2)
+        y = CV.conv_real_plain(fx, pk.real, pk.imag)[0]
+    else:
+        hf = torch.complex(*C.c2c_plain(pt.real, pt.imag)) / n
+        y = torch.complex(*CV.conv_plain(fx.real, fx.imag, hf.real,
+                                         hf.imag))[0]
+    return y.reshape(b, frames, n)[:, :, k - 1:].reshape(
+        b, frames * hop)[:, :full]
+
+
+def linear_oracle(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The full linear convolution of each row in float64 torch.fft."""
+    full = x.shape[-1] + taps.shape[-1] - 1
+    m = 1 << (full - 1).bit_length()
+    if x.is_complex():
+        y = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128), m)
+                           * torch.fft.fft(taps.to(torch.complex128), m))
+    else:
+        y = torch.fft.irfft(torch.fft.rfft(x.double(), m)
+                            * torch.fft.rfft(taps.double(), m), m)
+    return y[..., :full]
+
+
+def phase_main_conv(card: str):
+    """The convolution main path at 2^27 points or samples per call:
+    convolve at N = 1024 / 4096 / 16384 and an M_BANK bank at 1024,
+    planar.convolve at 1024, convolve_real at n = 1024 / 4096 / 16384 and
+    an M_BANK bank at 1024, and fftconvolve of STREAMS real streams of
+    STREAM_LEN samples with TAPS taps and of complex streams of the same
+    shape.  Every row of every output against the plain version, the first
+    rows against float64 torch.fft (every stream for fftconvolve).  Returns
+    (rows, calls per kernel, worst error per kernel)."""
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch.ops import convolve as CV
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = []
+    calls = {"conv": 0, "conv_real": 0, "r2c": 0, "c2c": 0}
+    worst = {"conv": 0.0, "conv_real": 0.0}
+
+    def record(name, kind, n, b, m, fn, plain_fn, comp_fn, nbytes, flops,
+               x_like):
+        ms = cuda_ms(fn, reps=REPS_CONV)
+        calls[kind] += 1 + REPS_CONV
+        dst = torch.empty_like(x_like)
+        ms_copy = cuda_ms(lambda: dst.copy_(x_like), reps=REPS_CONV)
+        copy_gbs = 2.0 * dst.numel() * dst.element_size() / ms_copy / 1e6
+        del dst
+        ms_plain = cuda_ms(plain_fn, reps=1)
+        ms_comp = cuda_ms(comp_fn, reps=REPS_CONV)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = least_ms(nbytes, flops)
+        gb = nbytes / 1e9
+        row = {"what": name, "n": n, "batch": b, "m": m, "ms": ms,
+               "gbs": gb / ms * 1e3, "copy_ms": ms_copy,
+               "copy_gbs": copy_gbs, "plain_ms": ms_plain,
+               "composition_ms": ms_comp, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        rows.append(row)
+        print(f"{name} N={n:5d} batch={b} m={m} ({card}): {ms:.4f} ms = "
+              f"{gb / ms * 1e3:.1f} GB/s | copy_ of the input {ms_copy:.4f} "
+              f"ms = {copy_gbs:.1f} GB/s | bound {bound_ms:.4f} ms "
+              f"({bound_by}), at "
+              f"{bound_ms / ms:.3f} | plain {ms_plain:.2f} ms | torch.fft "
+              f"composition (3 calls) {ms_comp:.4f} ms")
+
+    for n in MAIN_SIZES:
+        b = MAIN_POINTS // n
+        lg = math.log2(n)
+        x = rand_complex(b, n, gen)
+        for m in ((1, M_BANK) if n == 1024 else (1,)):
+            h = rand_complex(m, n, gen)
+            hh = h if m > 1 else h[0]
+            plain = torch.complex(*CV.conv_plain(x.real, x.imag,
+                                                 (h / n).real,
+                                                 (h / n).imag))
+            y = T.convolve(x, hh)
+            calls["conv"] += 1
+            if m == 1:
+                plain = plain[0]
+            what = f"convolve{' bank' if m > 1 else ''}"
+            worst["conv"] = max(worst["conv"], check_all(
+                y, plain, n, f"{what} N={n} m={m}"))
+            del plain
+            head = torch.fft.fft(x[:ORACLE_ROWS].to(torch.complex128))
+            want = torch.fft.ifft(head[None] * h.to(torch.complex128)[:, None])
+            e64 = max_err(y.reshape(m, b, n)[:, :ORACLE_ROWS], want)
+            print(f"  first {ORACLE_ROWS} rows vs float64 torch.fft: {e64:.3e}")
+            if e64 > bound(n):
+                fail(f"{what} N={n}: {e64:.3e} against float64 over bound")
+            del y
+            record(what, "conv", n, b, m, lambda: T.convolve(x, hh),
+                   lambda: CV.conv_plain(x.real, x.imag, (h / n).real,
+                                         (h / n).imag),
+                   lambda: torch.fft.ifft(torch.fft.fft(x)[None]
+                                          * h[:, None]),
+                   (8.0 + 8.0 * m) * MAIN_POINTS,
+                   MAIN_POINTS * (5.0 * lg * (1 + m) + 6.0 * m), x)
+            if n == 1024 and m == 1:
+                xr, xi = x.real.contiguous(), x.imag.contiguous()
+                o = T.planar.convolve(xr, xi, hh.real, hh.imag)
+                calls["conv"] += 1
+                plain = CV.conv_plain(xr, xi, (h / n).real, (h / n).imag)
+                worst["conv"] = max(worst["conv"], check_all(
+                    o, (plain[0][0], plain[1][0]), n,
+                    f"planar.convolve N={n}"))
+                del o, plain
+                record("planar.convolve", "conv", n, b, 1,
+                       lambda: T.planar.convolve(xr, xi, hh.real, hh.imag),
+                       lambda: CV.conv_plain(xr, xi, (h / n).real,
+                                             (h / n).imag),
+                       lambda: torch.fft.ifft(torch.fft.fft(x) * hh),
+                       16.0 * MAIN_POINTS,
+                       MAIN_POINTS * (10.0 * lg + 6.0), x)
+                del xr, xi
+        del x
+        torch.cuda.empty_cache()
+
+        x = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+        L = n // 2
+        for m in ((1, M_BANK) if n == 1024 else (1,)):
+            h = torch.fft.rfft(torch.rand((m, n), generator=gen,
+                                          device="cuda") - 0.5).to(
+                                              torch.complex64)
+            hh = h if m > 1 else h[0]
+            pk = CV.pack_real_response(h) / L
+            plain = CV.conv_real_plain(x, pk.real, pk.imag)
+            y = T.convolve_real(x, hh)
+            calls["conv_real"] += 1
+            if m == 1:
+                plain = plain[0]
+            what = f"convolve_real{' bank' if m > 1 else ''}"
+            worst["conv_real"] = max(worst["conv_real"], check_all(
+                y, plain, n, f"{what} n={n} m={m}"))
+            del plain
+            want = torch.fft.irfft(
+                torch.fft.rfft(x[:ORACLE_ROWS].double())[None]
+                * h.to(torch.complex128)[:, None], n)
+            e64 = max_err(y.reshape(m, b, n)[:, :ORACLE_ROWS], want)
+            print(f"  first {ORACLE_ROWS} rows vs float64 torch.fft: {e64:.3e}")
+            if e64 > bound(n):
+                fail(f"{what} n={n}: {e64:.3e} against float64 over bound")
+            del y
+            record(what, "conv_real", n, b, m,
+                   lambda: T.convolve_real(x, hh),
+                   lambda: CV.conv_real_plain(x, pk.real, pk.imag),
+                   lambda: torch.fft.irfft(torch.fft.rfft(x)[None]
+                                           * h[:, None], n),
+                   (4.0 + 4.0 * m) * MAIN_POINTS,
+                   MAIN_POINTS * ((2.5 * math.log2(n) + 5.0) * (1 + m)
+                                  + 3.0 * m), x)
+        del x
+        torch.cuda.empty_cache()
+
+    # overlap-save FIR filtering of sampled streams
+    from smfft_tpu_torch import signal as S
+    samples = STREAMS * STREAM_LEN
+    for cplx in (False, True):
+        if cplx:
+            x = rand_complex(STREAMS, STREAM_LEN, gen)
+            taps = rand_complex(1, TAPS, gen)[0]
+        else:
+            x = torch.rand((STREAMS, STREAM_LEN), generator=gen,
+                           device="cuda") - 0.5
+            taps = torch.rand(TAPS, generator=gen, device="cuda") - 0.5
+        y = T.fftconvolve(x, taps)
+        calls["conv" if cplx else "conv_real"] += 1
+        calls["c2c" if cplx else "r2c"] += 1
+        n_fft = S._pick_nfft(TAPS)
+        what = f"fftconvolve {'complex' if cplx else 'real'}"
+        kernel = "conv" if cplx else "conv_real"
+        worst[kernel] = max(worst[kernel], check_all(
+            y, overlap_save(x, taps), n_fft, f"{what} K={TAPS}"))
+        check_all(y, linear_oracle(x, taps), n_fft, f"{what} K={TAPS}",
+                  bound(n_fft) * math.sqrt(TAPS), against="float64 torch.fft")
+        del y
+        ms = cuda_ms(lambda: T.fftconvolve(x, taps), reps=REPS_CONV)
+        calls[kernel] += 1 + REPS_CONV
+        calls["c2c" if cplx else "r2c"] += 1 + REPS_CONV
+        per = 16.0 if cplx else 8.0
+        hop = n_fft - TAPS + 1
+        frames = -(-(STREAM_LEN + TAPS - 1) // hop) * STREAMS
+        lg = math.log2(n_fft)
+        flops = frames * n_fft * ((10.0 * lg + 6.0) if cplx else
+                                  (5.0 * lg + 13.0))
+        bound_ms, bound_by = least_ms(per * samples, flops)
+        dst = torch.empty_like(x)
+        ms_copy = cuda_ms(lambda: dst.copy_(x), reps=REPS_CONV)
+        del dst
+        ms_plain = cuda_ms(lambda: overlap_save(x, taps), reps=1)
+        ms_comp = cuda_ms(lambda: overlap_save(x, taps, library=True),
+                          reps=REPS_CONV)
+        torch.cuda.empty_cache()
+        print(f"{what} {STREAMS} x {STREAM_LEN} samples, K={TAPS}, n_fft="
+              f"{n_fft} ({card}): {ms:.4f} ms = {samples / ms / 1e6:.2f} "
+              f"Gsamples/s = {per * samples / ms / 1e6:.1f} GB/s | copy_ of "
+              f"the input {ms_copy:.4f} ms | bound {bound_ms:.4f} ms "
+              f"({bound_by}; {per:.0f} B a sample in+out), at "
+              f"{bound_ms / ms:.3f} | plain {ms_plain:.2f} ms | the same "
+              f"framing around the torch.fft composition {ms_comp:.4f} ms")
+        rows.append({"what": what, "n": n_fft, "batch": STREAMS,
+                     "m": 1, "ms": ms, "gbs": per * samples / ms / 1e6,
+                     "copy_ms": ms_copy, "plain_ms": ms_plain,
+                     "composition_ms": ms_comp, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        del x
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows, calls, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)")
@@ -611,12 +1211,11 @@ def main() -> int:
 
     reset_counts()
     rows, calls, worst_main = phase_main(card)
-    c2c_counts = check_counts("C2C", {"c2c": calls, "r2c": 0, "c2r": 0})
+    c2c_counts = check_counts("C2C", {"c2c": calls})
 
     reset_counts()
     real_rows, n_r2c, n_c2r, worst_real_main = phase_main_real(card)
-    real_counts = check_counts("real",
-                               {"c2c": 0, "r2c": n_r2c, "c2r": n_c2r})
+    real_counts = check_counts("real", {"r2c": n_r2c, "c2r": n_c2r})
 
     from smfft_tpu_torch import verify
     for argv in (["1024", "4096", "2", "0", "1"],
@@ -624,6 +1223,17 @@ def main() -> int:
                  ["4096", "4096", "2", "--kind", "c2r"]):
         if verify.main(argv) != 0:
             fail(f"verify {' '.join(argv)} did not pass")
+
+    worst_reuse = phase_reuse_sweep()
+    reset_counts()
+    reuse_rows, reuse_calls, worst_reuse_main = phase_main_reuse(card)
+    reuse_counts = check_counts("reuse", reuse_calls)
+    reuse_references(reuse_rows, card)
+
+    worst_conv = phase_conv_sweep()
+    reset_counts()
+    conv_rows, conv_calls, worst_conv_main = phase_main_conv(card)
+    conv_counts = check_counts("convolution", conv_calls)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -665,6 +1275,41 @@ def main() -> int:
          "bound_ms": real_row["bound_ms"], "bound_by": real_row["bound_by"],
          "library_ms": real_row["torch_irfft_ms"]},
     ]
+    mult = {r["form"]: r for r in reuse_rows if r["n"] == 1024}
+    conv = {r["what"]: r for r in conv_rows if r["n"] == 1024}
+    print("main path rows: " + json.dumps({"card": card,
+                                           "reuse": reuse_rows,
+                                           "convolution": conv_rows}))
+    print("c2c_multiple also replaces smfft_tpu/ops/pencil.py:206 (iters > "
+          "1); conv also convolve.py:152 (bank); conv_real also "
+          "convolve.py:353 (bank).  c2c_multiple = fft_planar(multiple_iters"
+          f"={ITERS}), real_multiple = multiple_real_pencil_planar(iters="
+          f"{ITERS}), conv = convolve, conv_real = convolve_real, at N = n "
+          "= 1024 with 2^27 points or samples; no single PyTorch call "
+          "computes these functions (library_ms null); composition_ms is "
+          "the torch.fft three-call composition (fft, multiply, ifft)")
+    for kname, row, kernel, src, rep in (
+            ("c2c_multiple", mult["fft_planar"], "c2c_multiple",
+             "multiple.cu", "pallas_c2c.py:1015"),
+            ("real_multiple", mult["real"], "real_multiple", "multiple.cu",
+             "pencil.py:466"),
+            ("conv", conv["convolve"], "conv", "conv.cu", "convolve.py:67"),
+            ("conv_real", conv["convolve_real"], "conv_real", "conv.cu",
+             "convolve.py:253")):
+        reuse = "multiple" in kname
+        worst = (worst_reuse if reuse else worst_conv)[kernel]
+        worst_main = (worst_reuse_main if reuse else worst_conv_main)[kernel]
+        entry = {"name": kname, "route": "cuda",
+                 "source": f"smfft_tpu_torch/csrc/{src}",
+                 "replaces": f"smfft_tpu/ops/{rep}",
+                 "launches": (reuse_counts if reuse else conv_counts)[kernel],
+                 "max_abs_err": max(worst, worst_main),
+                 "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "library_ms": None}
+        if "composition_ms" in row:
+            entry["composition_ms"] = row["composition_ms"]
+        kernels.append(entry)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

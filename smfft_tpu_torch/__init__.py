@@ -5,7 +5,7 @@ The port of ``smfft_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports no JAX: the JAX package stays beside it as the reference the
 port is tested against.
 
-Two slices so far:
+Three slices so far:
 
   * batched fp32 power-of-two C2C transforms, N = 32..16384, forward and
     inverse, natural or revblock order: :func:`fft`, :func:`ifft`,
@@ -16,6 +16,13 @@ Two slices so far:
     and packed ``irfft`` in the reference's layout (slot 0 = DC +
     i*Nyquist), and ``planar.rfft`` / ``planar.irfft`` on packed planar
     pairs, natural or revblock (``csrc/real.cu``);
+  * fused convolution, one pass over memory for a forward transform, a
+    filter product and an inverse: :func:`convolve` (complex, one filter
+    or a bank), :func:`convolve_real`, ``planar.convolve``, and the
+    overlap-save :func:`fftconvolve` / :func:`oaconvolve` /
+    :func:`fftcorrelate` for long streams (``csrc/conv.cu``); and the
+    reuse loops of ``ops/multiple.py`` (``csrc/multiple.cu``), many
+    transforms of data held on chip;
   * ``python -m smfft_tpu_torch.verify N nFFTs nRuns inverse reorder
     [--kind c2c|r2c|c2r]``, the reference's verification harness.
 
@@ -25,10 +32,12 @@ kernels' fp64-arithmetic instantiation (<= 2 ulp of max|X|).
 """
 
 from smfft_tpu_torch import planar
-from smfft_tpu_torch.api import (fft, fft_packed_real, ifft, ifft_unordered,
+from smfft_tpu_torch.api import (convolve, convolve_real, fft,
+                                 fft_packed_real, ifft, ifft_unordered,
                                  irfft, rfft)
 from smfft_tpu_torch.params import (FFTParams, SUPPORTED_C2C_SIZES,
                                     SUPPORTED_REAL_SIZES, plan_for)
+from smfft_tpu_torch.signal import fftconvolve, fftcorrelate, oaconvolve
 
 __version__ = "0.2.0"
 
@@ -36,11 +45,16 @@ __all__ = [
     "FFTParams",
     "SUPPORTED_C2C_SIZES",
     "SUPPORTED_REAL_SIZES",
+    "convolve",
+    "convolve_real",
     "fft",
     "fft_packed_real",
+    "fftconvolve",
+    "fftcorrelate",
     "ifft",
     "ifft_unordered",
     "irfft",
+    "oaconvolve",
     "plan_for",
     "planar",
     "rfft",

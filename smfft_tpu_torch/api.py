@@ -36,6 +36,11 @@ Ordered ``fft`` and ``ifft``, ``rfft`` and numpy-layout ``irfft`` are
 differentiable through ``torch.autograd.Function``s whose backward runs a
 kernel.  The packed real layout (slot 0 = DC + i*Nyquist) has no gradient,
 as in the JAX package.
+
+``convolve`` / ``convolve_real`` run the fused convolution kernels
+(``csrc/conv.cu``: forward transform, filter product, inverse transform in
+one pass), for one filter or a bank, and are differentiable in both the
+signal and the filter.
 """
 
 from __future__ import annotations
@@ -48,7 +53,9 @@ import torch
 from smfft_tpu_torch.models import cooley_tukey
 from smfft_tpu_torch.models import real as real_model
 from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import convolve as CV
 from smfft_tpu_torch.ops import real as R
+from smfft_tpu_torch.params import SUPPORTED_REAL_SIZES
 
 Backend = Literal["auto", "spec"]
 
@@ -339,3 +346,152 @@ def irfft(x: torch.Tensor, n: int | None = None, backend: Backend = "auto",
         return _Packed.apply(
             x, lambda h: _irfft_op(h, n, backend, exact, scale, True))
     return _IRFFT.apply(x, n, backend, exact, scale)
+
+
+# ---------------------------------------------------------------------------
+# Fused convolution.
+# ---------------------------------------------------------------------------
+
+
+def _conv_op(x: torch.Tensor, h: torch.Tensor, exact: bool,
+             real: bool) -> torch.Tensor:
+    """x (..., n) against h (bins,) or a bank (m, bins) -> (..., n) or
+    (m, ..., n), through the fused kernels (CV.conv_rows,
+    CV.conv_real_rows) or their plain versions."""
+    n = x.shape[-1]
+    rows, batch_shape, b = R.rows_of(x.resolve_conj(), n)
+    h2 = h.resolve_conj().reshape(-1, h.shape[-1])
+    if real:
+        y = CV.conv_real_rows(rows, h2, exact)
+    else:
+        C.check_pack(b, n)
+        y = CV.conv_rows(rows, None, h2, exact)
+    lead = (h2.shape[0],) if h.dim() == 2 else ()
+    return y.reshape(lead + batch_shape + (n,))
+
+
+def _bank_sum(fn, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """fn(g, h) for one filter; sum_j fn(g[j], h[j]) for a bank."""
+    if h.dim() == 1:
+        return fn(g, h)
+    return sum(fn(g[j], h[j]) for j in range(h.shape[0]))
+
+
+class _Convolve(torch.autograd.Function):
+    """The fused convolutions with gradients for the signal and the
+    filter (the JAX package's ``_diff_convolve``, which differentiates the
+    unfused composition).
+
+    Complex: y = ifft(X * H), X = fft(x).  y is linear in x with operator
+    A = F^H diag(H) F / N, and PyTorch's conjugate convention gives gx =
+    A^H g = ifft(fft(g) * conj H): the same fused kernel with conj(H) (for
+    a bank, the sum of that over the filters).  In H, y = F^H diag(X) H /
+    N, so gH = conj(X) * fft(g) / N, summed over the batch.
+
+    Real: y = irfft(X * H), X = rfft(x), which ignores Im H[0] and Im H[L]
+    (L = n/2).  The operator is real, so gx = A^T g = irfft(rfft(g) *
+    conj H): the fused kernel again.  The gradient of irfft's input is
+    rfft(g) * w / n with w = [1, 2, ..., 2, 1] (the interior bins appear
+    twice, as H and conj H; see :class:`_IRFFT`), so gH = conj(X) *
+    rfft(g) * w / n, real at DC and Nyquist.
+
+    The transforms in the filter gradient are the package's own ``fft`` /
+    ``rfft`` (the C2C or R2C kernel on the card).
+    """
+
+    @staticmethod
+    def forward(ctx, x, h, exact: bool, real: bool):
+        ctx.exact, ctx.real = exact, real
+        ctx.save_for_backward(x, h)
+        return _conv_op(x, h, exact, real)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h = ctx.saved_tensors
+        exact, real = ctx.exact, ctx.real
+        n = x.shape[-1]
+        gx = gh = None
+        if ctx.needs_input_grad[0]:
+            gx = _bank_sum(lambda gj, hj: _conv_op(gj, hj.conj(), exact,
+                                                   real), g, h)
+        if ctx.needs_input_grad[1]:
+            prec = "exact" if exact else "highest"
+            tr = rfft if real else fft
+            xs = tr(x.detach(), precision=prec).reshape(-1, h.shape[-1])
+            gs = tr(g.contiguous(), precision=prec)
+            gs = gs.reshape(h.shape[:-1] + (-1, h.shape[-1]))
+            gh = (xs.conj() * gs).sum(dim=-2) / n
+            if real:
+                gh = gh * _half_weights(n, 2.0, gh)
+        return gx, gh, None, None
+
+
+def convolve(x: torch.Tensor, h: torch.Tensor, backend: Backend = "auto",
+             precision: str | None = None) -> torch.Tensor:
+    """Batched circular convolution ``ifft(fft(x) * h)`` (numpy
+    normalization) in one fused kernel pass.
+
+    Args:
+      x: complex (..., N) signal batch, N a supported C2C size; for N < 128
+        the batch must be a multiple of 128/N (the reference's rule).
+      h: complex (N,) frequency response in natural order (compute it once
+        with ``fft(h_time)``), or an (M, N) bank, giving (M, ..., N): each
+        signal's forward transform is computed once for the whole bank,
+        in the kernel.
+      backend / precision: as :func:`fft`.
+
+    Differentiable in both ``x`` and ``h``.
+    """
+    n = x.shape[-1]
+    C.check_size(n)
+    bank = h.dim() == 2
+    if tuple(h.shape) != (n,) and not (bank and h.shape[-1] == n):
+        raise ValueError(f"filter must be natural-order frequency response "
+                         f"of shape ({n},) or (M, {n}), got "
+                         f"{tuple(h.shape)}")
+    exact = _exact(precision)
+    _check_backend(backend)
+    if not x.is_complex():
+        x = x.to(torch.complex64)
+    if backend == "spec":
+        spec = fft(x, backend="spec")
+        spec = spec[None] * h.reshape((h.shape[0],) + (1,) * (x.dim() - 1)
+                                      + (n,)) if bank else spec * h
+        return ifft(spec, backend="spec")
+    return _Convolve.apply(x, h, exact, False)
+
+
+def convolve_real(x: torch.Tensor, h: torch.Tensor,
+                  backend: Backend = "auto",
+                  precision: str | None = None) -> torch.Tensor:
+    """Batched real circular convolution ``irfft(rfft(x) * h)`` in one
+    fused kernel pass, at half the traffic of :func:`convolve`.
+
+    Args:
+      x: real (..., N) signal batch, N >= 256 a supported real size.
+      h: complex (N/2+1,) rfft-style response in natural order (compute it
+        once with ``rfft(h_time)``; the imaginary parts of DC and Nyquist
+        are ignored, zero for any real filter), or an (M, N/2+1) bank,
+        giving (M, ..., N).
+
+    Differentiable in both ``x`` and ``h``.
+    """
+    n = x.shape[-1]
+    if n not in SUPPORTED_REAL_SIZES or n < 256:
+        raise ValueError(
+            f"Error wrong FFT length! N={n}; real convolve supports "
+            f"{[s for s in SUPPORTED_REAL_SIZES if s >= 256]}")
+    bank = h.dim() == 2
+    if tuple(h.shape) != (n // 2 + 1,) and not (bank and h.shape[-1]
+                                                 == n // 2 + 1):
+        raise ValueError(f"filter must be an rfft-style frequency response "
+                         f"of shape ({n // 2 + 1},) or (M, {n // 2 + 1}), "
+                         f"got {tuple(h.shape)}")
+    exact = _exact(precision)
+    _check_backend(backend)
+    if backend == "spec":
+        spec = rfft(x, backend="spec")
+        spec = spec[None] * h.reshape((h.shape[0],) + (1,) * (x.dim() - 1)
+                                      + (n // 2 + 1,)) if bank else spec * h
+        return irfft(spec, n=n, backend="spec")
+    return _Convolve.apply(x, h, exact, True)

@@ -8,8 +8,9 @@ Each root runs in its own process (each builds its own kernels): ``fft``
 and ``planar.fft`` at N = 1024, 4096, 16384 with 2^27 complex points per
 call, precision "highest", the median of 25 (``fft``) or 15
 CUDA-event-timed calls after a warm-up, beside a same-run ``copy_`` of the
-same bytes.  Prints one JSON line per root and the registers ptxas gave
-each fp32 C2C kernel in that root's build, then the card.
+same bytes.  Prints one JSON line per root and the registers and spills
+ptxas gave each C2C, R2C and C2R kernel instantiation in that root's
+build, whether those are the same in every root, then the card.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("roots", nargs="+", help="checkout roots, in run order")
     args = p.parse_args(argv)
+    reports = []
     for root in args.roots:
         proc = subprocess.run(
             [sys.executable, "-c", CHILD, str(Path(root).resolve())],
@@ -68,12 +70,19 @@ def main(argv=None) -> int:
             print(proc.stdout + proc.stderr)
             return proc.returncode
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        # the fp32 C2C kernels' registers, from this root's own build
-        regs = [r for r in register_report(res.pop("ptxas"))
-                if r.startswith("c2c_kernel") and "fp32" in r]
+        # the single-pass kernels' registers and spills, from this root's
+        # own build
+        regs = sorted(r for r in register_report(res.pop("ptxas"))
+                      if r.startswith(("c2c_kernel", "r2c_kernel",
+                                       "c2r_kernel")))
+        reports.append(regs)
         print(json.dumps(res), flush=True)
         for r in regs:
             print(f"  ptxas {Path(root).name or root}: {r}")
+    reports = [r for r in reports if r]  # a root's older build: no log
+    print(f"c2c / r2c / c2r instantiations report the same registers and "
+          f"spills in the {len(reports)} roots with a ptxas report: "
+          f"{bool(reports) and all(r == reports[0] for r in reports)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

@@ -79,6 +79,7 @@
 //     L = 8192); the output's rounding to fp32 is the only one.
 //   * The launcher returns cudaGetLastError() right after the launch.
 
+#include "real_pair.cuh"
 #include "stockham.cuh"
 
 namespace {
@@ -132,16 +133,13 @@ r2c_kernel(const float2* __restrict__ x, float* __restrict__ out_re,
     for (int k = t; k <= L / 2; k += TPF) {
         const C a = as<C>(buf[k]);
         if (k == 0) {
-            put(buf[0], cmake(a.x + a.y, a.x - a.y));  // (DC, Nyquist)
+            put(buf[0], split_dc(a));  // (DC, Nyquist)
             continue;
         }
-        const C b = as<C>(buf[L - k]);
-        const T h = T(0.5);
-        const C e = cmake(h * (a.x + b.x), h * (a.y - b.y));
-        const C o = cmake(h * (a.y + b.y), h * (b.x - a.x));
-        const C wo = cmul(__ldg(&wn[k]), o);
-        put(buf[k], cadd(e, wo));
-        if (2 * k != L) put(buf[L - k], cmake(e.x - wo.x, wo.y - e.y));
+        C xk, xm;
+        split_pair(a, as<C>(buf[L - k]), wn, k, xk, xm);
+        put(buf[k], xk);
+        if (2 * k != L) put(buf[L - k], xm);
     }
     __syncthreads();
 
@@ -247,16 +245,13 @@ c2r_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
     for (int k = t; k <= L / 2; k += TPF) {
         const C a = as<C>(buf[k]);
         if (k == 0) {
-            put(buf[0], cmake(h * (a.x + a.y), h * (a.x - a.y)));
+            put(buf[0], merge_dc(a, h));
             continue;
         }
-        const C b = as<C>(buf[L - k]);
-        const C e = cmake(h * (a.x + b.x), h * (a.y - b.y));
-        const C d = cmake(h * (a.x - b.x), h * (a.y + b.y));
-        const C w = __ldg(&wn[k]);
-        const C o = cmul(d, cmake(w.x, -w.y));  // * W^-k
-        put(buf[k], cmake(e.x - o.y, e.y + o.x));
-        if (2 * k != L) put(buf[L - k], cmake(e.x + o.y, o.x - e.y));
+        C zk, zm;
+        merge_pair(a, as<C>(buf[L - k]), wn, k, h, zk, zm);
+        put(buf[k], zk);
+        if (2 * k != L) put(buf[L - k], zm);
     }
     __syncthreads();
 

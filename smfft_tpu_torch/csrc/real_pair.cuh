@@ -1,0 +1,62 @@
+// The real transforms' work on one pair of bins (k, L-k), L = n/2, shared
+// by real.cu (R2C split, C2R merge), multiple.cu (the real reuse loop:
+// split then merge) and conv.cu (split, filter product, merge).  With
+// W = W_n = exp(-2 pi i / n) and wn[k] = W^k:
+//
+//   split (R2C): Z (the L-point spectrum of z[m] = x[2m] + i x[2m+1]) ->
+//     E = (Z[k] + conj Z[L-k]) / 2,  O = -i (Z[k] - conj Z[L-k]) / 2,
+//     X[k] = E + W^k O,  X[L-k] = conj(E - W^k O),
+//     slot 0 = (Re Z0 + Im Z0, Re Z0 - Im Z0) = (DC, Nyquist);
+//   merge (C2R, the split's inverse times s, with h = s/2):
+//     E = h (X[k] + conj X[L-k]),  O = h (X[k] - conj X[L-k]) W^-k,
+//     Z[k] = E + i O,  Z[L-k] = conj(E - i O),
+//     Z[0] = (h (DC + Nyquist), h (DC - Nyquist)).
+//
+// For k = L/2 both outputs are the same bin; a caller stores one of them.
+
+#pragma once
+
+#include "stockham.cuh"
+
+namespace smfft {
+
+// (DC, Nyquist) from Z[0].
+template <typename C>
+__device__ __forceinline__ C split_dc(C a) {
+    return cmake(a.x + a.y, a.x - a.y);
+}
+
+// X[k], X[L-k] from a = Z[k], b = Z[L-k], 0 < k <= L/2.
+template <typename C>
+__device__ __forceinline__ void split_pair(C a, C b,
+                                           const C* __restrict__ wn, int k,
+                                           C& xk, C& xm) {
+    using T = real_t<C>;
+    const T h = T(0.5);
+    const C e = cmake(h * (a.x + b.x), h * (a.y - b.y));
+    const C o = cmake(h * (a.y + b.y), h * (b.x - a.x));
+    const C wo = cmul(__ldg(&wn[k]), o);
+    xk = cadd(e, wo);
+    xm = cmake(e.x - wo.x, wo.y - e.y);
+}
+
+// Z[0] from a = (DC, Nyquist), h = scale / 2.
+template <typename C>
+__device__ __forceinline__ C merge_dc(C a, real_t<C> h) {
+    return cmake(h * (a.x + a.y), h * (a.x - a.y));
+}
+
+// Z[k], Z[L-k] from a = X[k], b = X[L-k], 0 < k <= L/2, h = scale / 2.
+template <typename C>
+__device__ __forceinline__ void merge_pair(C a, C b,
+                                           const C* __restrict__ wn, int k,
+                                           real_t<C> h, C& zk, C& zm) {
+    const C e = cmake(h * (a.x + b.x), h * (a.y - b.y));
+    const C d = cmake(h * (a.x - b.x), h * (a.y + b.y));
+    const C w = __ldg(&wn[k]);
+    const C o = cmul(d, cmake(w.x, -w.y));  // * W^-k
+    zk = cmake(e.x - o.y, e.y + o.x);
+    zm = cmake(e.x + o.y, o.x - e.y);
+}
+
+}  // namespace smfft

@@ -1,7 +1,9 @@
 // The Stockham core shared by the kernels in csrc/: in-register DFTs,
 // twiddled butterflies, in-place shared-memory stages, the stage ladder,
-// the revblock index map, the block geometry per size and tier, and the
-// view of the data in device memory.
+// the revblock index map and its inverse, the hand-off from one transform
+// to the next in shared memory (the reuse loops and the fused
+// convolutions), the block geometry per size and tier, and the view of
+// the data in device memory.
 //
 // Contract of the stage functions (N points of one transform in `buf`,
 // TPF threads per transform, thread t):
@@ -255,6 +257,49 @@ __device__ __forceinline__ void last_stage(
 // Logical element stored at position pos of a revblock row.
 __device__ __forceinline__ int revblock_index(int pos, int c) {
     return (pos & 127) * c + (pos >> 7);
+}
+
+// The inverse of revblock_index: the position of logical element k
+// (k = k1*c + k2 sits at k2*128 + k1; the identity for c = 1).
+__device__ __forceinline__ int revblock_pos(int k, int c) {
+    return (k % c) * 128 + k / c;
+}
+
+// The first_stage operands of one transform from buf:
+// u[q][r] = buf[t + q*TPF + r*N/8].
+template <int N, int TPF, typename S, typename V>
+__device__ __forceinline__ void load_first(const S* buf, int t,
+                                           V (&u)[N / TPF / 8][8]) {
+#pragma unroll
+    for (int q = 0; q < N / TPF / 8; ++q)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) put(u[q][r], buf[t + q * TPF + r * (N / 8)]);
+}
+
+// Hands a last_stage result over to the next first_stage through buf.
+// w[q][r] is point k = t + q*TPF + r*N/RL; it is stored at position k, or
+// at revblock_pos(k) when rev (the next transform then reads the revblock
+// row as if it were natural), and u is reloaded for first_stage.  The two
+// register maps differ unless RL = 8, so the hand-off goes through shared
+// memory: a barrier before the writes (the last stage's reads are done),
+// one before the reads, and one after them (first_stage overwrites buf).
+template <int N, int TPF, typename S, typename W, typename V>
+__device__ __forceinline__ void handoff(
+    S* buf, int t, const W (&w)[N / TPF / Ladder<N>::RL][Ladder<N>::RL],
+    bool rev, V (&u)[N / TPF / 8][8]) {
+    constexpr int RL = Ladder<N>::RL;
+    constexpr int CB = N >= 128 ? N / 128 : 1;
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < N / TPF / RL; ++q)
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+            const int k = t + q * TPF + r * (N / RL);
+            put(buf[rev ? revblock_pos(k, CB) : k], w[q][r]);
+        }
+    __syncthreads();
+    load_first<N, TPF>(buf, t, u);
+    __syncthreads();
 }
 
 // The block's dynamic shared memory as an array of S.

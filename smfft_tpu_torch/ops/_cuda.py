@@ -35,8 +35,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
-# what the last build printed (ptxas register / shared-memory report) and
-# how long it took; empty until a build ran in this process
+# what the build of the loaded library printed (ptxas register /
+# shared-memory report; kept beside the library, so a cached build has it
+# too) and how long a build in this process took (0 for a cached one)
 build_log = ""
 build_seconds = 0.0
 
@@ -87,7 +88,10 @@ def _build(nvcc: str) -> Path:
         h.update(src.read_bytes())
     h.update(" ".join([nvcc] + ARCH_FLAGS + NVCC_FLAGS).encode())
     out = BUILD_DIR / f"libsmfft_kernels_{h.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
     if out.exists():
+        # a library built earlier: its ptxas report, for register_report
+        build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
@@ -112,6 +116,8 @@ def _build(nvcc: str) -> Path:
             f"smfft_tpu_torch: nvcc failed (exit {failed[0].returncode}):\n"
             f"{' '.join(failed[0].args)}\n{build_log}")
     # atomic: concurrent builders never see half a file
+    (tmp / "lib.log").write_text(build_log)
+    os.replace(tmp / "lib.log", log)
     os.replace(tmp / "lib.so", out)
     shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -132,7 +138,9 @@ def register_report(log: str | None = None) -> list[str]:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"([cr]2[cr]_kernel)I((?:Li\d+E)+)", name)
+            k = re.search(r"(c2c_multiple_kernel|real_multiple_kernel|"
+                          r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel)"
+                          r"I((?:Li\d+E)+)", name)
             label = (f"{k.group(1)}<"
                      f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
                      if k else name)
@@ -157,7 +165,18 @@ def library() -> ctypes.CDLL:
         lib.smfft_r2c.argtypes = [vp, vp, vp, ci, i64, i64, vp, vp, ci, vp]
         lib.smfft_c2r.argtypes = [vp, vp, ci, vp, i64, i64, f32, vp, vp, ci,
                                   vp]
-        for fn in (lib.smfft_c2c, lib.smfft_r2c, lib.smfft_c2r):
+        lib.smfft_c2c_multiple.argtypes = [vp, vp, vp, vp, ci, i64, i64, ci,
+                                           ci, ci, ci, ci, f32,
+                                           ctypes.c_double, vp, ci, vp]
+        lib.smfft_real_multiple.argtypes = [vp, vp, i64, i64, ci, vp, vp, vp,
+                                            vp]
+        lib.smfft_conv.argtypes = [vp, vp, vp, vp, ci, i64, i64, ci, vp, vp,
+                                   vp, ci, vp]
+        lib.smfft_conv_real.argtypes = [vp, vp, i64, i64, ci, vp, vp, vp, vp,
+                                        ci, vp]
+        for fn in (lib.smfft_c2c, lib.smfft_r2c, lib.smfft_c2r,
+                   lib.smfft_c2c_multiple, lib.smfft_real_multiple,
+                   lib.smfft_conv, lib.smfft_conv_real):
             fn.restype = ci
         lib.smfft_error_string.argtypes = [ci]
         lib.smfft_error_string.restype = ctypes.c_char_p

@@ -166,6 +166,33 @@ def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype):
         raise ValueError(f"{name} must be contiguous")
 
 
+def io_pointers(x: torch.Tensor, xi: torch.Tensor | None = None,
+                lead: tuple[int, ...] = ()):
+    """Check a kernel's C2C input and allocate its output.
+
+    ``x`` complex64 (B, n) (interleaved), or ``x, xi`` a planar float32
+    (B, n) pair; the output has the same layout and shape ``lead + (B,
+    n)``.  Returns (output, (in_re, in_im, out_re, out_im) pointers,
+    interleaved flag)."""
+    if xi is None:
+        _check_rows(x, "x", torch.complex64)
+        out = torch.empty(lead + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        ptrs = (x.data_ptr(), None, out.data_ptr(), None)
+        if ptrs[0] % 8 or ptrs[2] % 8:
+            raise ValueError("complex64 data must be 8-byte aligned")
+        return out, ptrs, 1
+    _check_rows(x, "xr", torch.float32)
+    _check_rows(xi, "xi", torch.float32)
+    if x.shape != xi.shape or x.device != xi.device:
+        raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
+                         f"{x.device} vs {tuple(xi.shape)} on {xi.device}")
+    out = tuple(torch.empty(lead + tuple(x.shape), device=x.device)
+                for _ in range(2))
+    return out, (x.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr()), 0
+
+
 def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
            inverse: bool = False, rev_in: bool = False,
            rev_out: bool = False, scale: float | None = None,
@@ -179,31 +206,13 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     """
     from smfft_tpu_torch.ops import _cuda
 
-    if xi is None:
-        _check_rows(x, "x", torch.complex64)
-        out = torch.empty_like(x)
-        in_re, in_im = x.data_ptr(), None
-        out_re, out_im = out.data_ptr(), None
-        interleaved = 1
-        if in_re % 8 or out_re % 8:
-            raise ValueError("complex64 data must be 8-byte aligned")
-    else:
-        _check_rows(x, "xr", torch.float32)
-        _check_rows(xi, "xi", torch.float32)
-        if x.shape != xi.shape or x.device != xi.device:
-            raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
-                             f"{x.device} vs {tuple(xi.shape)} on "
-                             f"{xi.device}")
-        out = (torch.empty_like(x), torch.empty_like(xi))
-        in_re, in_im = x.data_ptr(), xi.data_ptr()
-        out_re, out_im = out[0].data_ptr(), out[1].data_ptr()
-        interleaved = 0
+    out, ptrs, interleaved = io_pointers(x, xi)
     b, n = x.shape
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         tw = device_twiddles(n, bool(inverse), bool(exact), x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_c2c(in_re, in_im, out_re, out_im, interleaved, b, n,
+        err = lib.smfft_c2c(*ptrs, interleaved, b, n,
                             int(inverse), int(rev_in), int(rev_out),
                             1.0 if scale is None else float(scale),
                             tw.data_ptr(), int(exact), stream)
@@ -266,27 +275,43 @@ def check_pack(batch: int, n: int) -> None:
             f"multiple of {pack} (reference rule, FFT-GPU-32bit.cu:835-836)")
 
 
+def planar_rows(vr: torch.Tensor, vi: torch.Tensor, n: int):
+    """The JAX package's planar rows (rows, max(n, 128)), 128/n transforms
+    a row below n = 128 -> one (B, n) row per transform."""
+    check_size(n)
+    row = max(n, LANES)
+    if vr.shape != vi.shape or vr.dim() != 2 or vr.shape[1] != row:
+        raise ValueError(f"expected planar rows (rows, {row}), got "
+                         f"{tuple(vr.shape)} and {tuple(vi.shape)}")
+    b = vr.shape[0] * row // n
+    return vr.reshape(b, n), vi.reshape(b, n)
+
+
 def fft_planar(vr: torch.Tensor, vi: torch.Tensor, n: int,
                inverse: bool = False, rev_in: bool = False,
                ordered: bool = False, scale: float | None = None,
-               exact: bool = False):
+               exact: bool = False, multiple_iters: int = 0):
     """Planar batched FFT on the JAX package's row layout.
 
     vr, vi: float32 (rows, max(n, 128)); rows pack 128/n transforms when
     n < 128.  ``rev_in=False`` is kernel A (natural in; revblock out, or
     natural when ``ordered``); ``rev_in=True`` is kernel B (revblock in,
     natural out).  ``scale`` multiplies the input inside the kernel.
+    ``multiple_iters`` > 0 re-applies kernel A that many times, times
+    1/sqrt(n), before the final transform, with the data held on chip
+    (the reuse loop, :func:`~smfft_tpu_torch.ops.multiple.
+    fft_planar_multiple`).
     """
-    check_size(n)
-    row = max(n, LANES)
-    if vr.shape != vi.shape or vr.dim() != 2 or vr.shape[1] != row:
-        raise ValueError(f"expected planar rows (rows, {row}), got "
-                         f"{tuple(vr.shape)} and {tuple(vi.shape)}")
-    rows = vr.shape[0]
-    b = rows * row // n
+    xr, xi = planar_rows(vr, vi, n)
+    rows, row = vr.shape
+    if multiple_iters:
+        from smfft_tpu_torch.ops import multiple
+        o_r, o_i = multiple.fft_planar_multiple(
+            xr, xi, n, multiple_iters, inverse=inverse, rev_in=rev_in,
+            ordered=ordered, scale=scale, exact=exact)
+        return o_r.reshape(rows, row), o_i.reshape(rows, row)
     kw = dict(inverse=inverse, rev_in=rev_in,
               rev_out=not (ordered or rev_in), scale=scale, exact=exact)
-    xr, xi = vr.reshape(b, n), vi.reshape(b, n)
     o_r, o_i = plain(xr, xi, **kw) if is_cpu(xr) else launch(xr, xi, **kw)
     return o_r.reshape(rows, row), o_i.reshape(rows, row)
 

@@ -172,7 +172,10 @@ def c2r_plain(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
 # ---------------------------------------------------------------------------
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, width: int):
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 width: int):
+    """A kernel's (B, width) operand: CUDA, ``dtype``, contiguous, 8-byte
+    aligned; raises otherwise."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -207,7 +210,7 @@ def launch_r2c(x: torch.Tensor, layout: str = "planar", exact: bool = False):
         raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
     b, n = x.shape
     check_size(n)
-    _check(x, "x", torch.float32, n)
+    check_tensor(x, "x", torch.float32, n)
     L = n // 2
     width, dtype = _spectrum_shape(layout, L)
     if dtype == torch.float32:
@@ -249,11 +252,11 @@ def launch_c2r(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
     check_size(n)
     L = n // 2
     width, dtype = _spectrum_shape(layout, L)
-    _check(spec, "spec", dtype, width)
+    check_tensor(spec, "spec", dtype, width)
     if dtype == torch.float32:
         if spec_im is None:
             raise ValueError(f"layout {layout!r} takes two planes")
-        _check(spec_im, "spec_im", dtype, width)
+        check_tensor(spec_im, "spec_im", dtype, width)
         if spec_im.shape != spec.shape or spec_im.device != spec.device:
             raise ValueError(f"planar pair differs: {tuple(spec.shape)} on "
                              f"{spec.device} vs {tuple(spec_im.shape)} on "

@@ -12,6 +12,8 @@ switch, packing rule and normalization contract as
     numpy normalization under ``norm="backward"``, the reference's raw
     (N/2)-scale under ``norm=None``.  N >= 256 for R2C and C2R, as in the
     JAX package.
+  * Convolution: ``(vr, vi)`` (..., N) against a natural-order response
+    ``(hr, hi)`` (N,) -> ``ifft(fft(x) * H)``, one fused kernel pass.
 The kernels read and write the planes directly, with no conversion pass.
 
 Unlike the JAX package's planar API, N = 32 / 64 work: the planes are
@@ -25,6 +27,7 @@ import torch
 
 from smfft_tpu_torch import api
 from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import convolve as CV
 from smfft_tpu_torch.ops import real as R
 
 
@@ -110,3 +113,16 @@ def irfft(vr: torch.Tensor, vi: torch.Tensor, n: int | None = None,
     out = R.irfft_planar(r, i, n, exact=exact, in_natural=in_natural,
                          scale=scale)
     return out.reshape(batch + (n,))
+
+
+def convolve(vr: torch.Tensor, vi: torch.Tensor, hr: torch.Tensor,
+             hi: torch.Tensor, precision: str | None = None):
+    """Planar fused circular convolution: ``ifft(fft(x) * H)`` (numpy
+    normalization) in one kernel pass.  ``H = (hr, hi)`` is the (N,)
+    frequency response in natural order.  Below N = 128 the planes are
+    regrouped into 128-wide rows as in :func:`fft`."""
+    n = vr.shape[-1]
+    exact = api._exact(precision)
+    r, i, batch = _rows(vr, vi)
+    o_r, o_i = CV.convolve_planar(r, i, hr, hi, n, exact=exact)
+    return o_r.reshape(batch + (n,)), o_i.reshape(batch + (n,))

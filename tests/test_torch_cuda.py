@@ -301,3 +301,221 @@ def test_real_offsets_past_2_31_floats(dev):
     torch.cuda.synchronize()
     assert (back[-8:] - tail).abs().max().item() < bound(n)
     assert back[:8].abs().max().item() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The reuse loops (csrc/multiple.cu) and the fused convolutions (csrc/conv.cu)
+# ---------------------------------------------------------------------------
+
+from smfft_tpu_torch import signal  # noqa: E402
+from smfft_tpu_torch.ops import convolve as CV  # noqa: E402
+from smfft_tpu_torch.ops import multiple as M  # noqa: E402
+
+MULTIPLE_FORMS = {
+    # fft_planar(multiple_iters=3), revblock out, fused input scale
+    "b1_rev_out": dict(loops=3, fb_rev=True, last_rev=True, rev_out=True,
+                       scale=0.5),
+    # fft_planar(multiple_iters=2, rev_in=True), inverse
+    "b1_rev_in": dict(loops=2, fb_rev=True, last_rev=False, inverse=True),
+    # multiple_pencil_planar(iters=4): natural feedback, 1/sqrt(n) each
+    "b2": dict(loops=3),
+}
+
+
+@pytest.mark.parametrize("n", SUPPORTED_C2C_SIZES)
+@pytest.mark.parametrize("form", list(MULTIPLE_FORMS))
+@pytest.mark.parametrize("exact", [False, True])
+def test_multiple_kernel_matches_plain(dev, n, form, exact):
+    """c2c_multiple_kernel in both layouts on a ragged batch against its
+    plain version; the error of loops + 1 chained transforms grows at most
+    linearly, so the bound is bound(n) * (loops + 1)."""
+    kw = dict(MULTIPLE_FORMS[form])
+    if form == "b2":
+        kw["scale"] = 1.0 / math.sqrt(n)
+    b = 2 * max(1, 4096 // n) + 3
+    x = rand_c(b, n, dev, seed=n + 11)
+    plain = torch.complex(*M.multiple_plain(x.real, x.imag, exact=exact,
+                                            **kw))
+    got_c = M.launch_multiple(x, exact=exact, **kw)
+    gr, gi = M.launch_multiple(x.real.contiguous(), x.imag.contiguous(),
+                               exact=exact, **kw)
+    torch.cuda.synchronize()
+    lim = bound(n) * (kw["loops"] + 1)
+    for got in (got_c, torch.complex(gr, gi)):
+        assert max_err(got, plain) < lim
+    if form == "b2":
+        # four applications of F / sqrt(n) are the identity
+        assert max_err(got_c, x) < lim
+
+
+def test_multiple_entry_points_count_launches(dev):
+    """fft_planar(multiple_iters), multiple_pencil_planar and
+    multiple_real_pencil_planar each launch their reuse kernel once and
+    nothing else."""
+    x = rand_c(64, 512, dev)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    before = (C.launch.count, M.launch_multiple.count,
+              M.launch_real_multiple.count)
+    o = C.fft_planar(xr, xi, 512, ordered=True, multiple_iters=3)
+    p = M.multiple_pencil_planar(xr, xi, 512, 4)
+    r = M.multiple_real_pencil_planar(xr, 512, 4)
+    torch.cuda.synchronize()
+    assert (C.launch.count, M.launch_multiple.count,
+            M.launch_real_multiple.count) == (before[0], before[1] + 2,
+                                              before[2] + 1)
+    plain = M.multiple_plain(xr, xi, loops=3, fb_rev=True, last_rev=True)
+    assert max_err(o, plain) < bound(512) * 4
+    assert max_err(torch.complex(*p), x) < bound(512) * 4
+    assert (r - xr).abs().max().item() < bound(512) * 4
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("pairs", [1, 3])
+def test_real_multiple_kernel_matches_plain(dev, n, pairs):
+    b = max(1, 8192 // n) + 5
+    x = rand_r(b, n, dev, seed=n)
+    got = M.launch_real_multiple(x, pairs)
+    torch.cuda.synchronize()
+    assert (got - M.real_multiple_plain(x, pairs)).abs().max().item() \
+        < bound(n) * pairs
+    assert (got - x).abs().max().item() < bound(n) * pairs
+
+
+@pytest.mark.parametrize("n", SUPPORTED_C2C_SIZES)
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("exact", [False, True])
+def test_conv_kernel_matches_plain_and_oracle(dev, n, m, exact):
+    """conv_kernel, complex64 and planar, ragged batch, single and bank,
+    against its plain version and float64 torch.fft; "exact" within 2 ulp
+    of max|y|."""
+    b = 2 * max(1, 4096 // n) + 3
+    x = rand_c(b, n, dev, seed=n)
+    h = rand_c(m, n, dev, seed=n + 1)
+    hd = CV.device_response(h, 1.0 / n, exact, dev)
+    got_c = CV.launch_conv(x, h=hd, exact=exact)
+    gr, gi = CV.launch_conv(x.real.contiguous(), x.imag.contiguous(), h=hd,
+                            exact=exact)
+    hs = h / n
+    plain = torch.complex(*CV.conv_plain(x.real, x.imag, hs.real, hs.imag,
+                                         exact))
+    want = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128))[None]
+                          * h.to(torch.complex128)[:, None])
+    torch.cuda.synchronize()
+    for got in (got_c, torch.complex(gr, gi)):
+        assert got.shape == (m, b, n)
+        assert max_err(got, plain) < bound(n)
+        assert max_err(got, want) < bound(n)
+        if exact:
+            assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+@pytest.mark.parametrize("n", [s for s in SUPPORTED_REAL_SIZES if s >= 256])
+@pytest.mark.parametrize("m", [1, 3])
+@pytest.mark.parametrize("exact", [False, True])
+def test_conv_real_kernel_matches_plain_and_oracle(dev, n, m, exact):
+    L = n // 2
+    b = 2 * max(1, 4096 // L) + 3
+    x = rand_r(b, n, dev, seed=n)
+    h = torch.fft.rfft(rand_r(m, n, dev, seed=n + 1).double()).to(
+        torch.complex64)
+    got = CV.conv_real_rows(x, h, exact)
+    pk = CV.pack_real_response(h) / L
+    plain = CV.conv_real_plain(x, pk.real, pk.imag, exact)
+    want = torch.fft.irfft(torch.fft.rfft(x.double())[None]
+                           * h.to(torch.complex128)[:, None], n)
+    torch.cuda.synchronize()
+    assert got.shape == (m, b, n)
+    assert max_err(got, plain) < bound(n)
+    assert max_err(got, want) < bound(n)
+    if exact:
+        assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("bank", [False, True])
+def test_convolve_api_forward_and_backward_on_card(dev, real, bank):
+    """api.convolve / convolve_real: one fused launch forward; backward
+    the fused kernel with conj(H) once per filter for x and two transforms
+    (x and g) for h; gradients against torch.autograd through torch.fft."""
+    n = 512
+    if real:
+        x = rand_r(16, n, dev).requires_grad_(True)
+        h = torch.fft.rfft(rand_r(3, n, dev, seed=1).double()).to(
+            torch.complex64)
+        h = (h if bank else h[0]).requires_grad_(True)
+        fn = api.convolve_real
+        counter = CV.launch_conv_real
+        tr = R.launch_r2c
+        ref = lambda a, f: torch.fft.irfft(  # noqa: E731
+            torch.fft.rfft(a)[None] * f[:, None] if bank
+            else torch.fft.rfft(a) * f, n)
+    else:
+        x = rand_c(16, n, dev).requires_grad_(True)
+        h = rand_c(3, n, dev, seed=1)
+        h = (h if bank else h[0]).requires_grad_(True)
+        fn = api.convolve
+        counter = CV.launch_conv
+        tr = C.launch
+        ref = lambda a, f: torch.fft.ifft(  # noqa: E731
+            torch.fft.fft(a)[None] * f[:, None] if bank
+            else torch.fft.fft(a) * f)
+    c0, t0 = counter.count, tr.count
+    y = fn(x, h)
+    assert counter.count == c0 + 1 and tr.count == t0
+    g = (rand_r if real else rand_c)(y.numel() // n, n, dev,
+                                     seed=2).reshape(y.shape)
+    gx, gh = torch.autograd.grad(y, (x, h), g)
+    torch.cuda.synchronize()
+    assert counter.count == c0 + 1 + (3 if bank else 1)
+    assert tr.count == t0 + 2
+    rx, rh = torch.autograd.grad(ref(x, h), (x, h), g)
+    # relative to the largest gradient: fp32 transforms of O(sqrt(n))
+    # spectra, summed over the batch for h
+    assert max_err(gx, rx) < 1e-4 * rx.abs().max().item()
+    assert max_err(gh, rh) < 1e-4 * rh.abs().max().item()
+
+
+def test_fftconvolve_on_card_counts(dev):
+    """Overlap-save: one fused launch for all frames plus one transform of
+    the taps (R2C for real data, C2C for complex)."""
+    x = rand_r(4, 20000, dev)
+    taps = rand_r(1, 129, dev, seed=5)[0]
+    c0, r0 = CV.launch_conv_real.count, R.launch_r2c.count
+    y = signal.fftconvolve(x, taps)
+    torch.cuda.synchronize()
+    assert (CV.launch_conv_real.count, R.launch_r2c.count) == (c0 + 1,
+                                                               r0 + 1)
+    want = torch.stack([torch.from_numpy(np.convolve(
+        row.double().cpu().numpy(), taps.double().cpu().numpy()))
+        for row in x]).to(dev)
+    assert y.shape == want.shape
+    assert (y.double() - want).abs().max().item() < bound(512) * 12
+    xc = rand_c(2, 20000, dev)
+    tc = rand_c(1, 129, dev, seed=6)[0]
+    c0, k0 = CV.launch_conv.count, C.launch.count
+    yc = signal.fftconvolve(xc, tc, mode="same")
+    torch.cuda.synchronize()
+    assert (CV.launch_conv.count, C.launch.count) == (c0 + 1, k0 + 1)
+    assert yc.shape == xc.shape
+
+
+def test_new_launchers_refuse_what_they_cannot_take(dev):
+    x = rand_c(4, 256, dev)
+    h = CV.device_response(rand_c(2, 256, dev), 1 / 256, False, dev)
+    with pytest.raises(ValueError, match="h must be"):
+        CV.launch_conv(x, h=h.to(torch.complex128))
+    with pytest.raises(ValueError, match=r"h must be \(m, 256\)"):
+        CV.launch_conv(x, h=h[:, :128].contiguous())
+    with pytest.raises(TypeError, match="complex64"):
+        CV.launch_conv(x.to(torch.complex128), h=h)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        CV.launch_conv(x.cpu(), h=h.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        CV.launch_conv_real(x.real.double().contiguous(), h=h[:, :128]
+                            .contiguous())
+    with pytest.raises(ValueError, match="pairs must be"):
+        M.launch_real_multiple(x.real.contiguous(), 0)
+    with pytest.raises(ValueError, match="wrong FFT length"):
+        M.launch_real_multiple(rand_r(4, 128, dev), 1)
+    with pytest.raises(TypeError, match="complex64"):
+        M.launch_multiple(x.to(torch.complex128), loops=1)
