@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """GPU smoke run of smfft_tpu_torch: builds the kernels, checks them, and
-drives the C2C, real, reuse and convolution main paths at the working
-size on one NVIDIA GPU.
+drives the C2C, real, reuse, convolution, spectral and arbitrary-length
+main paths at the working size on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -62,9 +62,32 @@ Phases (each failure exits non-zero at once):
      ``torch.fft`` three-call composition; every row against the plain
      version, the first rows (every stream for ``fftconvolve``) against
      float64.
-  Before each of the main paths 4, 5, 8 and 10 every launch counter is
-     set to 0; right after, the counters must equal the path's calls (the
-     convolution path runs ``conv`` / ``conv_real`` and, once a
+ 11. Spectral sweep: ``power_kernel`` at n = 256..4096, with and without a
+     hann window, against ``power_plain`` and float64 ``torch.fft.rfft``
+     squared, within 2 bound(n) max|X| + bound(n)^2; the ``stft`` ->
+     ``istft`` round trip, ``hilbert`` and ``welch`` on small inputs against
+     float64.
+ 12. The spectral main path at 2^27 samples: ``power_spectrum`` with a hann
+     window at n = 1024 and 4096, and ``welch`` / ``spectrogram`` of 64
+     streams of 2^21 samples (nperseg 1024, noverlap 512).  Time, GB/s
+     counted as 6 bytes a sample through the kernel, the same-run
+     ``copy_``, the bound, the plain version and the composition
+     ``torch.fft.rfft(x*w).abs().square()[..., :n//2]``; every row against
+     the plain version, the first rows (stream) against float64.
+ 13. Bluestein sweep: ``fft_any``, ``ifft_any`` and ``planar.fft_any`` at n
+     = 3, 100, 129, 1000, 1536, 4097, 6000, 8191, both tiers, against
+     ``bluestein_plain`` and float64 ``torch.fft`` within bound(m) (m the
+     convolution length); "exact" within 2 ulp of max|X|; the pad lanes of
+     ``planar.fft_any`` exactly 0.
+ 14. The Bluestein main path at ~2^27 points: ``fft_any`` at n = 1000
+     (131072 rows, m = 2048) and 4097 (32768 rows, m = 16384), ``ifft_any``
+     and ``planar.fft_any`` at 1000, and ``resample`` of (131072, 1000)
+     float32 rows to 768 samples (two Bluestein launches), beside
+     ``torch.fft.fft`` / ``ifft`` at the same n; every row against the plain
+     version (``resample``: against float64, scipy's semantics).
+  Before each of the main paths 4, 5, 8, 10, 12 and 14 every launch counter
+     is set to 0; right after, the counters must equal the path's calls
+     (the convolution path runs ``conv`` / ``conv_real`` and, once a
      ``fftconvolve`` call, the R2C or C2C kernel for the taps) and no other
      kernel may have run.
 
@@ -97,6 +120,14 @@ M_SWEEP = 3
 STREAMS, STREAM_LEN, TAPS = 64, 1 << 21, 129
 REPS_REUSE = 3
 REPS_CONV = 5
+# the spectral phases: power sizes, Welch's frames, and the arbitrary
+# lengths with the rows of their main path
+POWER_SIZES = (256, 512, 1024, 2048, 4096)
+NPERSEG, NOVERLAP = 1024, 512
+BLUESTEIN_SIZES = (3, 100, 129, 1000, 1536, 4097, 6000, 8191)
+BLUESTEIN_MAIN = {1000: 1 << 17, 4097: 1 << 15}
+RESAMPLE_TO = 768
+COMPOSITION = "torch.fft.rfft(x*w).abs().square()"
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
 # memory bandwidth and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -172,13 +203,16 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 def launchers() -> dict:
     """Every kernel's wrapper, whose ``count`` it bumps once a launch."""
     from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import chirp as CH
     from smfft_tpu_torch.ops import convolve as CV
     from smfft_tpu_torch.ops import multiple as M
     from smfft_tpu_torch.ops import real as R
+    from smfft_tpu_torch.ops import spectral as SP
     return {"c2c": C.launch, "r2c": R.launch_r2c, "c2r": R.launch_c2r,
             "c2c_multiple": M.launch_multiple,
             "real_multiple": M.launch_real_multiple,
-            "conv": CV.launch_conv, "conv_real": CV.launch_conv_real}
+            "conv": CV.launch_conv, "conv_real": CV.launch_conv_real,
+            "power": SP.launch_power, "bluestein": CH.launch_bluestein}
 
 
 def reset_counts() -> None:
@@ -1189,6 +1223,402 @@ def phase_main_conv(card: str):
     torch.cuda.synchronize()
     return rows, calls, worst
 
+def time_path(what: str, card: str, fn, plain_fn, ref_fn, ref_name: str,
+              x_like: torch.Tensor, nbytes: float, flops: float,
+              counted_bytes: float | None = None) -> dict:
+    """A main path's row: fn's median CUDA-event time over REPS_CONV runs,
+    a same-run copy_ of x_like, the plain version (one run) and a PyTorch
+    reference on the same inputs, and the bound (nbytes moved once, flops
+    at the fp32 peak).  GB/s counts counted_bytes (default nbytes)."""
+    ms = cuda_ms(fn, reps=REPS_CONV)
+    dst = torch.empty_like(x_like)
+    ms_copy = cuda_ms(lambda: dst.copy_(x_like), reps=REPS_CONV)
+    del dst
+    ms_plain = cuda_ms(plain_fn, reps=1)
+    ms_ref = cuda_ms(ref_fn, reps=REPS_CONV)
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = least_ms(nbytes, flops)
+    gbs = (nbytes if counted_bytes is None else counted_bytes) / ms / 1e6
+    print(f"{what} ({card}): {ms:.4f} ms = {gbs:.1f} GB/s | copy_ of the "
+          f"input {ms_copy:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}), "
+          f"at {bound_ms / ms:.3f} | plain {ms_plain:.2f} ms | {ref_name} "
+          f"{ms_ref:.4f} ms")
+    return {"what": what, "ms": ms, "gbs": gbs, "copy_ms": ms_copy,
+            "plain_ms": ms_plain, "reference": ref_name,
+            "reference_ms": ms_ref, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def power_bound(n: int, x_max: float) -> float:
+    """Error bound of a power bin |X|^2 whose X is within bound(n):
+    2 bound(n) max|X| + bound(n)^2."""
+    return 2.0 * bound(n) * x_max + bound(n) ** 2
+
+
+def power_composition(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The power spectrum as PyTorch calls: rfft, abs, square, slice."""
+    return torch.fft.rfft(x * w).abs().square()[..., :x.shape[-1] // 2]
+
+
+def power_oracle(x: torch.Tensor, window) -> tuple[torch.Tensor, float]:
+    """float64 one-sided power of x's rows (slot 0 = DC^2, no Nyquist) and
+    max|X|."""
+    xw = x.double() if window is None else x.double() * window.double()
+    spec = torch.fft.rfft(xw)
+    pw = spec.abs().square()[..., :x.shape[-1] // 2]
+    pw[..., 0] = spec[..., 0].real.square()
+    return pw, spec.abs().max().item()
+
+
+def phase_spectral_sweep():
+    """power_kernel at every n with and without a hann window against
+    power_plain (every row) and float64 (the first rows); the stft -> istft
+    round trip, hilbert and welch on small inputs against float64.
+    Returns the max |kernel - plain|."""
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch import signal as S
+    from smfft_tpu_torch.ops import spectral as SP
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    worst = 0.0
+    for n in POWER_SIZES:
+        x = torch.rand((SWEEP_POINTS // n + 3, n), generator=gen,
+                       device="cuda") - 0.5
+        line = []
+        for window in (None, T.get_window("hann", n).cuda()):
+            got = SP.launch_power(x, window)
+            plain = SP.power_plain(x, window)
+            want, x_max = power_oracle(x[:ORACLE_ROWS], window)
+            torch.cuda.synchronize()
+            lim = power_bound(n, max(x_max, plain.max().sqrt().item()))
+            e, e64 = max_err(got, plain), max_err(got[:ORACLE_ROWS], want)
+            if got.shape != plain.shape or max(e, e64) > lim:
+                fail(f"power n={n} window={window is not None}: {e:.3e} / "
+                     f"{e64:.3e} over {lim:.3e}")
+            worst = max(worst, e)
+            line.append(f"{'hann' if window is not None else 'none'} "
+                        f"{e:.2e}/{e64:.2e} (bound {lim:.2e})")
+            del got, plain, want
+        print(f"power n={n:5d} (vs plain / vs float64): " + ", ".join(line))
+        del x
+    # the signal layer on small inputs, against float64
+    x = torch.rand((8, 1 << 14), generator=gen, device="cuda") - 0.5
+    n_fft, hop = NPERSEG, NPERSEG // 4
+    w64 = T.get_window("hann", n_fft).double().cuda()
+    z = T.stft(x, n_fft=n_fft, hop_length=hop)
+    e_stft = max_err(z, torch.fft.rfft(x.double().unfold(-1, n_fft, hop)
+                                       * w64))
+    y = T.istft(z, n_fft=n_fft, hop_length=hop, length=x.shape[-1])
+    e_rt = (y - x)[:, n_fft:-n_fft].abs().max().item()
+    a = T.hilbert(x[:, :4096])
+    mask = torch.zeros(4096, dtype=torch.float64, device="cuda")
+    mask[0] = mask[2048] = 1.0
+    mask[1:2048] = 2.0
+    e_h = max_err(a, torch.fft.ifft(torch.fft.fft(x[:, :4096].double())
+                                    * mask))
+    _, p = T.welch(x, nperseg=n_fft, noverlap=NOVERLAP)
+    fx = x.double().unfold(-1, n_fft, n_fft - NOVERLAP)
+    spec = torch.fft.rfft((fx - fx.mean(dim=-1, keepdim=True)) * w64)
+    base, double = S._spectral_scale(w64, 1.0, "density")
+    want = spec.abs().square()[..., :n_fft // 2].mean(dim=-2) * (2 * base)
+    want[..., 0] /= 2
+    e_w = max_err(p, want) / want.abs().max().item()
+    torch.cuda.synchronize()
+    print(f"signal layer (float64 references): stft {e_stft:.3e}, stft -> "
+          f"istft round trip {e_rt:.3e} (bound {bound(n_fft):.3e}), hilbert "
+          f"{e_h:.3e} (bound {bound(4096):.3e}), welch {e_w:.3e} of its "
+          "largest bin (limit 1e-5)")
+    if max(e_stft, e_rt) > bound(n_fft) or e_h > bound(4096) or e_w > 1e-5:
+        fail("the signal layer is over its bound against float64")
+    return worst
+
+
+def phase_main_spectral(card: str):
+    """The spectral main path: power_spectrum (hann) at n = 1024 / 4096 with
+    2^27 samples, welch and spectrogram of STREAMS x STREAM_LEN samples.
+    Every row against the plain version, the first rows (the first
+    stream) against float64.  Returns (rows, calls, worst error against
+    the plain version)."""
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch import signal as S
+    from smfft_tpu_torch.ops import spectral as SP
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = []
+    calls = 0
+    worst = 0.0
+
+    def flops(rows_, n):
+        return rows_ * n * (2.5 * math.log2(n) + 8.0)
+
+    for n in (1024, 4096):
+        b = MAIN_POINTS // n
+        x = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+        w = T.get_window("hann", n).cuda()
+        y = T.power_spectrum(x, window=w)
+        calls += 1
+        plain = SP.power_plain(x, w)
+        want, x_max = power_oracle(x[:ORACLE_ROWS], w)
+        lim = power_bound(n, max(x_max, plain.max().sqrt().item()))
+        worst = max(worst, check_all(y, plain, n, f"power_spectrum n={n}",
+                                     lim))
+        check_all(y[:ORACLE_ROWS], want, n, f"power_spectrum n={n}", lim,
+                  against="float64 torch.fft")
+        del y, plain, want
+        rows.append(time_path(
+            f"power_spectrum n={n} ({MAIN_POINTS} samples, GB/s at 6 B)",
+            card, lambda: T.power_spectrum(x, window=w),
+            lambda: SP.power_plain(x, w), lambda: power_composition(x, w),
+            COMPOSITION, x,
+            6.0 * MAIN_POINTS, flops(b, n)))
+        calls += 1 + REPS_CONV
+        del x
+        torch.cuda.empty_cache()
+
+    # Welch and the spectrogram of sampled streams, and the same framing
+    # and scaling around the plain version and the torch.fft composition
+    n, hop = NPERSEG, NPERSEG - NOVERLAP
+    x = torch.rand((STREAMS, STREAM_LEN), generator=gen, device="cuda") - 0.5
+    w = T.get_window("hann", n).cuda()
+    base, double = S._spectral_scale(w, 1.0, "density")
+
+    def framed_power(power):
+        fx = S._detrend(S._frame(x, n, hop), "constant")
+        return power(fx.reshape(-1, n)).reshape(fx.shape[:-1] + (n // 2,))
+
+    plain_pw = lambda r: SP.power_plain(r, w)  # noqa: E731
+    frames = 1 + (STREAM_LEN - n) // hop
+    samples = STREAMS * frames * n
+    pw = framed_power(plain_pw)
+    lim = power_bound(n, pw.max().sqrt().item()) * double
+    # the first stream in float64
+    fx = x[0].double().unfold(-1, n, hop)
+    want_pw = power_oracle(fx - fx.mean(dim=-1, keepdim=True), w)[0]
+    for what in ("welch", "spectrogram"):
+        if what == "welch":
+            _, y = T.welch(x, nperseg=n, noverlap=NOVERLAP)
+            plain = S._scale_onesided(pw.mean(dim=-2), base, double)
+            want = S._scale_onesided(want_pw.mean(dim=-2), base, double)
+            out_bytes = 4.0 * STREAMS * (n // 2)
+        else:
+            _, _, y = T.spectrogram(x, nperseg=n, noverlap=NOVERLAP)
+            plain = S._scale_onesided(pw, base, double)
+            want = S._scale_onesided(want_pw, base, double)
+            out_bytes = 4.0 * samples / 2
+        calls += 1
+        worst = max(worst, check_all(y, plain, n, f"{what} {STREAMS} x "
+                                     f"{STREAM_LEN}", lim))
+        check_all(y[:1], want[None], n, f"{what} stream 0", lim,
+                  against="float64 torch.fft")
+        del y, plain
+        fn = ((lambda: T.welch(x, nperseg=n, noverlap=NOVERLAP))
+              if what == "welch" else
+              (lambda: T.spectrogram(x, nperseg=n, noverlap=NOVERLAP)))
+
+        def with_power(power, what=what):
+            p = framed_power(power)
+            if what == "welch":
+                p = p.mean(dim=-2)
+            return S._scale_onesided(p, base, double)
+        rows.append(time_path(
+            f"{what} {STREAMS} x {STREAM_LEN}, nperseg {n} ({samples} "
+            "samples through the kernel, GB/s at 6 B of them)", card, fn,
+            lambda: with_power(plain_pw),
+            lambda: with_power(lambda r: power_composition(r, w)),
+            f"the same framing around {COMPOSITION}", x,
+            4.0 * STREAMS * STREAM_LEN + out_bytes,
+            flops(STREAMS * frames, n), counted_bytes=6.0 * samples))
+        calls += 1 + REPS_CONV
+    del x, pw
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows, calls, worst
+
+
+def phase_bluestein_sweep():
+    """fft_any, ifft_any and planar.fft_any at every BLUESTEIN_SIZES n and
+    both tiers against bluestein_plain (every row) and float64 torch.fft
+    (the first rows), within bound(m); "exact" within 2 ulp of max|X|; the
+    pad lanes of planar.fft_any exactly 0.  Returns the max |kernel -
+    plain| and the worst "exact" ulp."""
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch.bluestein import _conv_length
+    from smfft_tpu_torch.ops import chirp as CH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    worst, worst_ulp = 0.0, 0.0
+    for n in BLUESTEIN_SIZES:
+        m = _conv_length(2 * n - 1)
+        b = SWEEP_POINTS // n + 3
+        x = rand_complex(b, n, gen)
+        head = x[:ORACLE_ROWS].to(torch.complex128)
+        wants = (torch.fft.fft(head), torch.fft.ifft(head))
+        np_ = CH.n_pad(n)
+        vr = torch.zeros((b, np_), device="cuda")
+        vi = torch.zeros_like(vr)
+        vr[:, :n], vi[:, :n] = x.real, x.imag
+        line = []
+        for exact in (False, True):
+            prec = "exact" if exact else "highest"
+            y = T.fft_any(x, precision=prec)
+            yi = T.ifft_any(x, precision=prec)
+            o_r, o_i = T.planar.fft_any(vr, vi, n=n, precision=prec)
+            pf = torch.complex(*CH.bluestein_plain(x.real, x.imag, n, m,
+                                                   exact=exact))
+            pi = torch.complex(*CH.bluestein_plain(
+                x.real, x.imag, n, m, inverse=True, scale=1.0 / n,
+                exact=exact))
+            torch.cuda.synchronize()
+            yp = torch.complex(o_r[:, :n], o_i[:, :n])
+            e = max(max_err(y, pf), max_err(yp, pf), max_err(yi, pi))
+            e64, u = 0.0, 0.0
+            for got, want in ((y, wants[0]), (yp, wants[0]),
+                              (yi, wants[1])):
+                err = max_err(got[:ORACLE_ROWS], want)
+                e64 = max(e64, err)
+                u = max(u, err / ulp(want.abs().max().item()))
+            pad = max(o_r[:, n:].abs().max().item(),
+                      o_i[:, n:].abs().max().item()) if np_ > n else 0.0
+            if max(e, e64) > bound(m) or pad != 0.0:
+                fail(f"bluestein n={n} {prec}: {e:.3e} / {e64:.3e} over "
+                     f"{bound(m):.3e}, pad lanes {pad}")
+            if exact and u > 2:
+                fail(f"bluestein n={n}: 'exact' is {u:.2f} ulp(max|X|) from "
+                     "float64, over its contract of 2")
+            worst = max(worst, e)
+            if exact:
+                worst_ulp = max(worst_ulp, u)
+            line.append(f"{prec} {e:.2e}/{e64:.2e} ({u:.2f} ulp)")
+            del y, yi, o_r, o_i, pf, pi, yp
+        print(f"bluestein n={n:5d} m={m:5d} (fft_any, ifft_any, planar."
+              f"fft_any; vs plain / vs float64; pad lanes 0; bound "
+              f"{bound(m):.2e}): " + ", ".join(line))
+        del x, vr, vi
+        torch.cuda.empty_cache()
+    print(f"bluestein sweep: max |kernel - plain| {worst:.3e}; 'exact' at "
+          f"most {worst_ulp:.2f} ulp(max|X|)")
+    return worst, worst_ulp
+
+
+def resample_ref(x: torch.Tensor, num: int, fft, ifft) -> torch.Tensor:
+    """scipy.signal.resample's two-sided path along the last axis, with the
+    transforms given (the real part for real x): an independent reference
+    for signal.resample."""
+    n = x.shape[-1]
+    X = fft(x)
+    N = min(n, num)
+    nyq = N // 2 + 1
+    Y = torch.zeros(X.shape[:-1] + (num,), dtype=X.dtype, device=X.device)
+    Y[..., :nyq] = X[..., :nyq]
+    if N > 2:
+        Y[..., nyq - N:] = X[..., nyq - N:]
+    if N % 2 == 0 and num < n:
+        Y[..., -N // 2] += X[..., -N // 2]
+    elif N % 2 == 0 and n < num:
+        Y[..., N // 2] *= 0.5
+        Y[..., num - N // 2] = Y[..., N // 2]
+    y = ifft(Y) * (num / n)
+    return y if x.is_complex() else y.real
+
+
+def phase_main_bluestein(card: str):
+    """The Bluestein main path: fft_any at n = 1000 and 4097, ifft_any and
+    planar.fft_any at 1000, resample of (131072, 1000) real rows to
+    RESAMPLE_TO samples.  Every row against the plain version (resample:
+    against float64), the first rows against float64.  Returns (rows,
+    calls, worst error against the plain version)."""
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch.bluestein import _conv_length
+    from smfft_tpu_torch.ops import chirp as CH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    calls = 0
+    worst = 0.0
+
+    for n, b in BLUESTEIN_MAIN.items():
+        m = _conv_length(2 * n - 1)
+        x = rand_complex(b, n, gen)
+        nbytes = 16.0 * b * n
+        flops = b * 10.0 * m * math.log2(m)
+        head = x[:ORACLE_ROWS].to(torch.complex128)
+        fwd = torch.complex(*CH.bluestein_plain(x.real, x.imag, n, m))
+        y = T.fft_any(x)
+        calls += 1
+        worst = max(worst, check_all(y, fwd, m, f"fft_any n={n}"))
+        check_all(y[:ORACLE_ROWS], torch.fft.fft(head), m, f"fft_any n={n}",
+                  against="float64 torch.fft")
+        del y
+        rows.append(time_path(
+            f"fft_any n={n} batch={b}", card, lambda: T.fft_any(x),
+            lambda: CH.bluestein_plain(x.real, x.imag, n, m),
+            lambda: torch.fft.fft(x), "torch.fft.fft", x, nbytes, flops))
+        calls += 1 + REPS_CONV
+        if n == 1000:
+            y = T.ifft_any(x)
+            calls += 1
+            worst = max(worst, check_all(y, torch.complex(
+                *CH.bluestein_plain(x.real, x.imag, n, m, inverse=True,
+                                    scale=1.0 / n)), m, f"ifft_any n={n}"))
+            check_all(y[:ORACLE_ROWS], torch.fft.ifft(head), m,
+                      f"ifft_any n={n}", against="float64 torch.fft")
+            del y
+            rows.append(time_path(
+                f"ifft_any n={n} batch={b}", card, lambda: T.ifft_any(x),
+                lambda: CH.bluestein_plain(x.real, x.imag, n, m,
+                                           inverse=True, scale=1.0 / n),
+                lambda: torch.fft.ifft(x), "torch.fft.ifft", x, nbytes,
+                flops))
+            calls += 1 + REPS_CONV
+            np_ = CH.n_pad(n)
+            vr = torch.zeros((b, np_), device="cuda")
+            vi = torch.zeros_like(vr)
+            vr[:, :n], vi[:, :n] = x.real, x.imag
+            o_r, o_i = T.planar.fft_any(vr, vi, n=n)
+            calls += 1
+            worst = max(worst, check_all(
+                (o_r[:, :n], o_i[:, :n]), (fwd.real, fwd.imag), m,
+                f"planar.fft_any n={n}"))
+            if o_r[:, n:].any() or o_i[:, n:].any():
+                fail("planar.fft_any: the pad lanes are not zero")
+            del o_r, o_i
+            rows.append(time_path(
+                f"planar.fft_any n={n} batch={b}", card,
+                lambda: T.planar.fft_any(vr, vi, n=n),
+                lambda: CH.bluestein_plain(vr, vi, n, m),
+                lambda: torch.fft.fft(x), "torch.fft.fft", vr,
+                16.0 * b * np_, flops))
+            calls += 1 + REPS_CONV
+            del vr, vi
+            # resample real rows: B16 twice (n -> spectrum, num -> samples)
+            xr = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+            num = RESAMPLE_TO
+            mi = _conv_length(2 * num - 1)
+            y = T.resample(xr, num)
+            calls += 2
+            want = resample_ref(xr, num, lambda a: torch.fft.fft(a.double()),
+                                torch.fft.ifft)
+            check_all(y, want, m, f"resample {n} -> {num}",
+                      against="float64 (scipy's semantics)")
+            del y, want
+            zeros = torch.zeros_like(xr)
+            rows.append(time_path(
+                f"resample {n} -> {num} batch={b}", card,
+                lambda: T.resample(xr, num),
+                lambda: resample_ref(
+                    xr, num,
+                    lambda a: torch.complex(*CH.bluestein_plain(
+                        a, zeros, n, m)),
+                    lambda a: torch.complex(*CH.bluestein_plain(
+                        a.real.contiguous(), a.imag.contiguous(), num, mi,
+                        inverse=True, scale=1.0 / num))),
+                lambda: resample_ref(xr, num, torch.fft.fft,
+                                     torch.fft.ifft),
+                "the torch.fft composition", xr, 4.0 * b * (n + num),
+                b * 10.0 * (m * math.log2(m) + mi * math.log2(mi))))
+            calls += 2 * (1 + REPS_CONV)
+            del xr, zeros
+        del x, fwd
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows, calls, worst
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1234,6 +1664,15 @@ def main() -> int:
     reset_counts()
     conv_rows, conv_calls, worst_conv_main = phase_main_conv(card)
     conv_counts = check_counts("convolution", conv_calls)
+
+    worst_power = phase_spectral_sweep()
+    reset_counts()
+    spec_rows, spec_calls, worst_power_main = phase_main_spectral(card)
+    spec_counts = check_counts("spectral", {"power": spec_calls})
+    worst_blue, _ = phase_bluestein_sweep()
+    reset_counts()
+    blue_rows, blue_calls, worst_blue_main = phase_main_bluestein(card)
+    blue_counts = check_counts("Bluestein", {"bluestein": blue_calls})
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -1310,6 +1749,33 @@ def main() -> int:
         if "composition_ms" in row:
             entry["composition_ms"] = row["composition_ms"]
         kernels.append(entry)
+    print("main path rows: " + json.dumps({"card": card,
+                                           "spectral": spec_rows,
+                                           "bluestein": blue_rows}))
+    power = spec_rows[0]  # power_spectrum at n = 1024
+    blue = blue_rows[0]   # fft_any at n = 1000
+    print("power = power_spectrum with a hann window at n = 1024, 2^27 "
+          "samples (no single PyTorch call computes it: library_ms null; "
+          "composition_ms is torch.fft.rfft(x*w).abs().square()); bluestein "
+          "= fft_any at n = 1000, 131072 rows, against torch.fft.fft")
+    kernels.append({"name": "power", "route": "cuda",
+                    "source": "smfft_tpu_torch/csrc/spectral.cu",
+                    "replaces": "smfft_tpu/ops/spectral.py:54",
+                    "launches": spec_counts["power"],
+                    "max_abs_err": max(worst_power, worst_power_main),
+                    "ms": power["ms"], "plain_ms": power["plain_ms"],
+                    "bound_ms": power["bound_ms"],
+                    "bound_by": power["bound_by"], "library_ms": None,
+                    "composition_ms": power["reference_ms"]})
+    kernels.append({"name": "bluestein", "route": "cuda",
+                    "source": "smfft_tpu_torch/csrc/chirp.cu",
+                    "replaces": "smfft_tpu/ops/chirp.py:78",
+                    "launches": blue_counts["bluestein"],
+                    "max_abs_err": max(worst_blue, worst_blue_main),
+                    "ms": blue["ms"], "plain_ms": blue["plain_ms"],
+                    "bound_ms": blue["bound_ms"],
+                    "bound_by": blue["bound_by"],
+                    "library_ms": blue["reference_ms"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,14 @@ The port of ``smfft_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports no JAX: the JAX package stays beside it as the reference the
 port is tested against.
 
-Three slices so far:
+Four slices so far:
 
   * batched fp32 power-of-two C2C transforms, N = 32..16384, forward and
     inverse, natural or revblock order: :func:`fft`, :func:`ifft`,
     :func:`ifft_unordered` on complex64 tensors and the same three on
-    planar fp32 pairs in :mod:`smfft_tpu_torch.planar` (``csrc/c2c.cu``);
+    planar fp32 pairs in :mod:`smfft_tpu_torch.planar` (``csrc/c2c.cu``),
+    with ``python -m smfft_tpu_torch.verify N nFFTs nRuns inverse reorder
+    [--kind c2c|r2c|c2r]``, the reference's verification harness;
   * real transforms, N = 64..16384 (``SUPPORTED_REAL_SIZES``):
     :func:`rfft` / :func:`irfft` in numpy layout, :func:`fft_packed_real`
     and packed ``irfft`` in the reference's layout (slot 0 = DC +
@@ -23,8 +25,15 @@ Three slices so far:
     :func:`fftcorrelate` for long streams (``csrc/conv.cu``); and the
     reuse loops of ``ops/multiple.py`` (``csrc/multiple.cu``), many
     transforms of data held on chip;
-  * ``python -m smfft_tpu_torch.verify N nFFTs nRuns inverse reorder
-    [--kind c2c|r2c|c2r]``, the reference's verification harness.
+  * the spectral and signal layer and arbitrary lengths: the one-pass
+    power spectrum :func:`power_spectrum` (``csrc/spectral.cu``) under
+    :func:`periodogram`, :func:`welch`, :func:`spectrogram`, with
+    :func:`get_window`, :func:`stft` / :func:`istft`, :func:`hilbert` /
+    :func:`envelope`; the DFT of any length n <= 8192 in one pass,
+    :func:`fft_any` / :func:`ifft_any` / :func:`rfft_any` /
+    :func:`irfft_any` and ``planar.fft_any`` (Bluestein, ``csrc/chirp.cu``),
+    :func:`resample` on them, and :func:`czt` / :func:`zoom_fft` on the
+    fused convolution.
 
 A CUDA tensor runs the kernels (built with nvcc at first use); a CPU
 tensor runs their plain PyTorch versions.  ``precision="exact"`` runs the
@@ -35,9 +44,14 @@ from smfft_tpu_torch import planar
 from smfft_tpu_torch.api import (convolve, convolve_real, fft,
                                  fft_packed_real, ifft, ifft_unordered,
                                  irfft, rfft)
+from smfft_tpu_torch.bluestein import (czt, fft_any, ifft_any, irfft_any,
+                                       rfft_any, zoom_fft)
 from smfft_tpu_torch.params import (FFTParams, SUPPORTED_C2C_SIZES,
                                     SUPPORTED_REAL_SIZES, plan_for)
-from smfft_tpu_torch.signal import fftconvolve, fftcorrelate, oaconvolve
+from smfft_tpu_torch.signal import (envelope, fftconvolve, fftcorrelate,
+                                    get_window, hilbert, istft, oaconvolve,
+                                    periodogram, power_spectrum, resample,
+                                    spectrogram, stft, welch)
 
 __version__ = "0.2.0"
 
@@ -47,15 +61,31 @@ __all__ = [
     "SUPPORTED_REAL_SIZES",
     "convolve",
     "convolve_real",
+    "czt",
+    "envelope",
     "fft",
+    "fft_any",
     "fft_packed_real",
     "fftconvolve",
     "fftcorrelate",
+    "get_window",
+    "hilbert",
     "ifft",
+    "ifft_any",
     "ifft_unordered",
     "irfft",
+    "irfft_any",
+    "istft",
     "oaconvolve",
+    "periodogram",
     "plan_for",
     "planar",
+    "power_spectrum",
+    "resample",
     "rfft",
+    "rfft_any",
+    "spectrogram",
+    "stft",
+    "welch",
+    "zoom_fft",
 ]

@@ -9,8 +9,9 @@ and ``planar.fft`` at N = 1024, 4096, 16384 with 2^27 complex points per
 call, precision "highest", the median of 25 (``fft``) or 15
 CUDA-event-timed calls after a warm-up, beside a same-run ``copy_`` of the
 same bytes.  Prints one JSON line per root and the registers and spills
-ptxas gave each C2C, R2C and C2R kernel instantiation in that root's
-build, whether those are the same in every root, then the card.
+ptxas gave each C2C, R2C, C2R, reuse-loop and convolution kernel
+instantiation in that root's build, whether those are the same in every
+root, then the card.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ import sys
 from pathlib import Path
 
 from smfft_tpu_torch.ops._cuda import register_report
+
+# the kernel instantiations whose registers and spills are compared
+SHARED_KERNELS = ("c2c_kernel", "r2c_kernel", "c2r_kernel",
+                  "c2c_multiple_kernel", "real_multiple_kernel",
+                  "conv_kernel", "conv_real_kernel")
 
 CHILD = r"""
 import json, statistics, sys
@@ -70,18 +76,18 @@ def main(argv=None) -> int:
             print(proc.stdout + proc.stderr)
             return proc.returncode
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        # the single-pass kernels' registers and spills, from this root's
-        # own build
+        # the registers and spills of the kernels every root has, from this
+        # root's own build
         regs = sorted(r for r in register_report(res.pop("ptxas"))
-                      if r.startswith(("c2c_kernel", "r2c_kernel",
-                                       "c2r_kernel")))
+                      if r.startswith(SHARED_KERNELS))
         reports.append(regs)
         print(json.dumps(res), flush=True)
         for r in regs:
             print(f"  ptxas {Path(root).name or root}: {r}")
     reports = [r for r in reports if r]  # a root's older build: no log
-    print(f"c2c / r2c / c2r instantiations report the same registers and "
-          f"spills in the {len(reports)} roots with a ptxas report: "
+    print(f"c2c / r2c / c2r / multiple / conv instantiations report the same "
+          f"registers and spills in the {len(reports)} roots with a ptxas "
+          f"report: "
           f"{bool(reports) and all(r == reports[0] for r in reports)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -42,8 +42,8 @@
 //     227 KB a block may use), so every size keeps each thread's spectrum
 //     points in registers (E = 16 complex, 32 at N = 16384) across the m
 //     loop.  That costs registers, so these kernels take their own
-//     __launch_bounds__ minimum (ConvBudget below) instead of Geometry's,
-//     which would force spills.
+//     __launch_bounds__ minimum (stockham.cuh's ConvBudget) instead of
+//     Geometry's, which would force spills.
 //   * conv_real_kernel: the R2C half-size trick of real.cu.  After the
 //     forward L-point transform Z sits in shared memory; one thread per
 //     pair (k, L-k) splits it (real_pair.cuh) into registers, and for each
@@ -62,15 +62,6 @@
 namespace {
 
 using namespace smfft;
-
-// The blocks per SM the register budget must allow: 128 registers a thread
-// for fp32 at 256 threads (2 blocks), 255 for "exact", and at 512 threads
-// the one block the SM's 65536 registers allow.
-template <int N, bool EXACT>
-struct ConvBudget {
-    static constexpr int MINB =
-        !EXACT && Geometry<N, EXACT>::THREADS <= 256 ? 2 : 1;
-};
 
 template <int N, int TPF, int F, int MINB, typename C, typename S>
 __global__ void __launch_bounds__(TPF * F, MINB)

@@ -2,8 +2,8 @@
 // twiddled butterflies, in-place shared-memory stages, the stage ladder,
 // the revblock index map and its inverse, the hand-off from one transform
 // to the next in shared memory (the reuse loops and the fused
-// convolutions), the block geometry per size and tier, and the view of
-// the data in device memory.
+// convolutions), the block geometry per size and tier, the fused kernels'
+// register budget, and the view of the data in device memory.
 //
 // Contract of the stage functions (N points of one transform in `buf`,
 // TPF threads per transform, thread t):
@@ -13,7 +13,8 @@
 //   * middle_stages runs the radix-8 stages in place in buf;
 //   * last_stage   reads the last stage's butterflies from buf and
 //     returns them in registers: w[q][r] is output point t + q*TPF +
-//     r*N/RL, natural order.  It does not synchronise: a caller that
+//     r*N/RL, natural order (last_stage_then hands each point to a
+//     function instead, unrounded).  Neither synchronises: a caller that
 //     writes buf afterwards synchronises first.
 // Every thread of the block calls each function (they contain barriers).
 //
@@ -231,10 +232,13 @@ __device__ __forceinline__ void middle_stages(S* buf, int t,
     }
 }
 
-template <int N, int TPF, typename C, typename S, typename W>
-__device__ __forceinline__ void last_stage(
-    const S* buf, int t, const C* __restrict__ tw, real_t<C> s,
-    W (&w)[N / TPF / Ladder<N>::RL][Ladder<N>::RL]) {
+// last_stage with an epilogue in place of the result array: fn(q, r, v)
+// receives output point t + q*TPF + r*N/RL in the arithmetic type C, before
+// any rounding to a storage type, one butterfly at a time.
+template <int N, int TPF, typename C, typename S, typename Fn>
+__device__ __forceinline__ void last_stage_then(const S* buf, int t,
+                                                const C* __restrict__ tw,
+                                                real_t<C> s, Fn fn) {
     constexpr int RL = Ladder<N>::RL;
     constexpr int QL = N / TPF / RL;
     S raw[QL][RL];
@@ -250,8 +254,16 @@ __device__ __forceinline__ void last_stage(
         for (int r = 0; r < RL; ++r) v[r] = as<C>(raw[q][r]);
         butterfly<N, RL>(v, t + q * TPF, N / RL, tw, s);
 #pragma unroll
-        for (int r = 0; r < RL; ++r) put(w[q][r], v[r]);
+        for (int r = 0; r < RL; ++r) fn(q, r, v[r]);
     }
+}
+
+template <int N, int TPF, typename C, typename S, typename W>
+__device__ __forceinline__ void last_stage(
+    const S* buf, int t, const C* __restrict__ tw, real_t<C> s,
+    W (&w)[N / TPF / Ladder<N>::RL][Ladder<N>::RL]) {
+    last_stage_then<N, TPF>(buf, t, tw, s,
+                            [&](int q, int r, C v) { put(w[q][r], v); });
 }
 
 // Logical element stored at position pos of a revblock row.
@@ -336,6 +348,17 @@ struct Geometry {
     static unsigned blocks(int64_t batch) {
         return (unsigned)((batch + F - 1) / F);
     }
+};
+
+// The register budget of the fused kernels (conv.cu, chirp.cu), which hold a
+// spectrum in registers across a product and a hand-off: the blocks per SM
+// __launch_bounds__ must allow, 128 registers a thread for fp32 at 256
+// threads (2 blocks), 255 for "exact", and at 512 threads the one block the
+// SM's 65536 registers allow.  Geometry's MINB would force spills.
+template <int N, bool EXACT>
+struct ConvBudget {
+    static constexpr int MINB =
+        !EXACT && Geometry<N, EXACT>::THREADS <= 256 ? 2 : 1;
 };
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory: above 48 KB

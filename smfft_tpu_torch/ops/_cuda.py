@@ -139,7 +139,8 @@ def register_report(log: str | None = None) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             k = re.search(r"(c2c_multiple_kernel|real_multiple_kernel|"
-                          r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel)"
+                          r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel|"
+                          r"power_kernel|bluestein_kernel)"
                           r"I((?:Li\d+E)+)", name)
             label = (f"{k.group(1)}<"
                      f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
@@ -174,9 +175,14 @@ def library() -> ctypes.CDLL:
                                    vp, ci, vp]
         lib.smfft_conv_real.argtypes = [vp, vp, i64, i64, ci, vp, vp, vp, vp,
                                         ci, vp]
+        lib.smfft_power.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp]
+        lib.smfft_bluestein.argtypes = [vp, vp, vp, vp, ci, i64, i64, i64,
+                                        i64, vp, vp, ctypes.c_double, vp, vp,
+                                        ci, vp]
         for fn in (lib.smfft_c2c, lib.smfft_r2c, lib.smfft_c2r,
                    lib.smfft_c2c_multiple, lib.smfft_real_multiple,
-                   lib.smfft_conv, lib.smfft_conv_real):
+                   lib.smfft_conv, lib.smfft_conv_real, lib.smfft_power,
+                   lib.smfft_bluestein):
             fn.restype = ci
         lib.smfft_error_string.argtypes = [ci]
         lib.smfft_error_string.restype = ctypes.c_char_p

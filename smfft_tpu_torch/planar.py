@@ -14,6 +14,9 @@ switch, packing rule and normalization contract as
     JAX package.
   * Convolution: ``(vr, vi)`` (..., N) against a natural-order response
     ``(hr, hi)`` (N,) -> ``ifft(fft(x) * H)``, one fused kernel pass.
+  * Any length n <= 8192 (``fft_any``): rows (..., n_pad), the signal in
+    the first n lanes, n_pad = n rounded up to 128 -> the DFT in the same
+    shape, lanes >= n exactly zero (Bluestein, one kernel pass).
 The kernels read and write the planes directly, with no conversion pass.
 
 Unlike the JAX package's planar API, N = 32 / 64 work: the planes are
@@ -25,8 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from smfft_tpu_torch import api
+from smfft_tpu_torch import api, bluestein
 from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import chirp as CH
 from smfft_tpu_torch.ops import convolve as CV
 from smfft_tpu_torch.ops import real as R
 
@@ -126,3 +130,24 @@ def convolve(vr: torch.Tensor, vi: torch.Tensor, hr: torch.Tensor,
     r, i, batch = _rows(vr, vi)
     o_r, o_i = CV.convolve_planar(r, i, hr, hi, n, exact=exact)
     return o_r.reshape(batch + (n,)), o_i.reshape(batch + (n,))
+
+
+def fft_any(vr: torch.Tensor, vi: torch.Tensor, n: int | None = None,
+            precision: str | None = None):
+    """Planar arbitrary-length DFT (Bluestein, one pass of
+    ``csrc/chirp.cu``): rows are (..., n_pad) with the signal in the first n
+    lanes (n_pad = n rounded up to 128); returns the same shape with lanes
+    >= n exactly zero.  Pass ``n`` when it is not a multiple of 128."""
+    if vr.shape != vi.shape:
+        raise ValueError(f"planar pair shapes differ: {tuple(vr.shape)} vs "
+                         f"{tuple(vi.shape)}")
+    n = n or vr.shape[-1]
+    np_ = CH.n_pad(n)
+    if np_ != vr.shape[-1]:
+        raise ValueError(f"expected padded row width {np_} for n={n}, got "
+                         f"{vr.shape[-1]}")
+    m = bluestein._conv_length(2 * n - 1)
+    batch = vr.shape[:-1]
+    o_r, o_i = CH.bluestein_planar(vr.reshape(-1, np_), vi.reshape(-1, np_),
+                                   n, m, precision=precision)
+    return o_r.reshape(batch + (np_,)), o_i.reshape(batch + (np_,))

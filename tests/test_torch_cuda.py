@@ -519,3 +519,133 @@ def test_new_launchers_refuse_what_they_cannot_take(dev):
         M.launch_real_multiple(rand_r(4, 128, dev), 1)
     with pytest.raises(TypeError, match="complex64"):
         M.launch_multiple(x.to(torch.complex128), loops=1)
+
+
+# ---------------------------------------------------------------------------
+# The power spectrum (csrc/spectral.cu) and Bluestein (csrc/chirp.cu)
+# ---------------------------------------------------------------------------
+
+import smfft_tpu_torch as T  # noqa: E402
+from smfft_tpu_torch.ops import chirp as CH  # noqa: E402
+from smfft_tpu_torch.ops import spectral as SP  # noqa: E402
+
+# chip_smoke.py's sizes, and one for each convolution length m they miss
+# (64, 128, 1024, 8192): every instantiation of the kernel
+BLUESTEIN_SIZES = (3, 17, 40, 100, 129, 300, 1000, 1536, 3000, 4097, 6000,
+                   8191)
+
+
+def conv_len(n):
+    return max(32, 1 << (2 * n - 2).bit_length())
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_power_kernel_matches_plain_and_oracle(dev, n, windowed):
+    """power_kernel on a batch ragged against every rows-per-block count,
+    against its plain version and float64 torch.fft.rfft squared: within
+    2 bound(n) max|X| + bound(n)^2."""
+    L = n // 2
+    b = 4096 // L + 37
+    x = rand_r(b, n, dev, seed=n)
+    w = rand_r(1, n, dev, seed=n + 1)[0] + 0.5 if windowed else None
+    got = SP.launch_power(x, w)
+    plain = SP.power_plain(x, w)
+    spec = torch.fft.rfft(x.double() if w is None else x.double() * w)
+    want = spec.abs().square()[:, :L]
+    want[:, 0] = spec[:, 0].real.square()
+    torch.cuda.synchronize()
+    lim = 2 * bound(n) * spec.abs().max().item() + bound(n) ** 2
+    assert got.shape == (b, L)
+    assert max_err(got, plain) < lim
+    assert max_err(got, want) < lim
+
+
+@pytest.mark.parametrize("n", BLUESTEIN_SIZES)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("exact", [False, True])
+def test_bluestein_kernel_matches_plain_and_oracle(dev, n, inverse, exact):
+    """bluestein_kernel, complex64 rows and planar n_pad-wide rows, ragged
+    batch, forward and inverse (scale 1/n), against its plain version and
+    float64 torch.fft within bound(m); "exact" within 2 ulp of max|X|; the
+    pad lanes exactly 0."""
+    m = conv_len(n)
+    b = 2 * max(1, 4096 // m) + 3
+    x = rand_c(b, n, dev, seed=n)
+    scale = 1.0 / n if inverse else None
+    kw = dict(n=n, m=m, inverse=inverse, scale=scale, exact=exact)
+    got = CH.launch_bluestein(x, **kw)
+    np_ = CH.n_pad(n)
+    vr = torch.full((b, np_), 3.0, device=dev)
+    vi = torch.full((b, np_), -1.0, device=dev)
+    vr[:, :n], vi[:, :n] = x.real, x.imag
+    pr, pi = CH.launch_bluestein(vr, vi, **kw)
+    plain = torch.complex(*CH.bluestein_plain(x.real, x.imag, **kw))
+    x64 = x.to(torch.complex128)
+    want = torch.fft.ifft(x64) if inverse else torch.fft.fft(x64)
+    torch.cuda.synchronize()
+    for y in (got, torch.complex(pr[:, :n], pi[:, :n])):
+        assert max_err(y, plain) < bound(m)
+        assert max_err(y, want) < bound(m)
+        if exact:
+            assert max_err(y, want) <= 2 * ulp(want.abs().max().item())
+    assert not pr[:, n:].any() and not pi[:, n:].any()
+
+
+def test_spectral_and_bluestein_apis_go_through_kernels(dev):
+    """power_spectrum (fp32 tiers), periodogram, welch and spectrogram
+    launch the power kernel once a call; "exact" the R2C kernel; fft_any,
+    ifft_any, planar.fft_any once each and resample twice the Bluestein
+    kernel; nothing else runs."""
+    x = rand_r(64, 1024, dev)
+    before = {k: f.count for k, f in (("power", SP.launch_power),
+                                      ("bluestein", CH.launch_bluestein),
+                                      ("r2c", R.launch_r2c),
+                                      ("c2c", C.launch))}
+
+    def delta():
+        return {k: f.count - before[k] for k, f in (
+            ("power", SP.launch_power), ("bluestein", CH.launch_bluestein),
+            ("r2c", R.launch_r2c), ("c2c", C.launch))}
+    p = T.power_spectrum(x, window=T.get_window("hann", 1024))
+    T.periodogram(x)
+    T.welch(x.reshape(-1), nperseg=512)
+    T.spectrogram(x.reshape(-1), nperseg=256)
+    assert delta() == {"power": 4, "bluestein": 0, "r2c": 0, "c2c": 0}
+    pe = T.power_spectrum(x, window=T.get_window("hann", 1024),
+                          precision="exact")
+    assert delta()["r2c"] == 1
+    assert max_err(p, pe) < 2 * bound(1024) * 32 + bound(1024) ** 2
+    xc = rand_c(32, 1000, dev)
+    y = T.fft_any(xc)
+    back = T.ifft_any(y)
+    vr = torch.zeros((32, 1024), device=dev)
+    vr[:, :1000] = xc.real
+    o_r, o_i = T.planar.fft_any(vr, torch.zeros_like(vr), n=1000)
+    r = T.resample(x[:, :1000].contiguous(), 768)
+    torch.cuda.synchronize()
+    assert delta() == {"power": 4, "bluestein": 5, "r2c": 1, "c2c": 0}
+    assert max_err(back, xc) < bound(2048)
+    assert r.shape == (64, 768)
+
+
+def test_power_and_bluestein_launchers_refuse_what_they_cannot_take(dev):
+    x = rand_r(4, 256, dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        SP.launch_power(x.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        SP.launch_power(x.double())
+    with pytest.raises(ValueError, match="wrong FFT length"):
+        SP.launch_power(rand_r(4, 8192, dev))
+    with pytest.raises(ValueError, match="window"):
+        SP.launch_power(x, torch.ones(128, device=dev))
+    xc = rand_c(4, 100, dev)
+    with pytest.raises(ValueError, match="wrong FFT length"):
+        CH.launch_bluestein(xc, n=100, m=128)
+    with pytest.raises(TypeError, match="complex64"):
+        CH.launch_bluestein(xc.to(torch.complex128), n=100, m=256)
+    with pytest.raises(ValueError, match="ld >= 100"):
+        CH.launch_bluestein(xc[:, :50].contiguous(), n=100, m=256)
+    with pytest.raises(ValueError, match="planar pair"):
+        CH.launch_bluestein(xc.real.contiguous(), xc.imag[:2].contiguous(),
+                            n=100, m=256)
