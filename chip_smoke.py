@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """GPU smoke run of smfft_tpu_torch: builds the kernels, checks them, and
-drives the C2C, real, reuse, convolution, spectral and arbitrary-length
-main paths at the working size on one NVIDIA GPU.
+drives the C2C, real, reuse, convolution, spectral, arbitrary-length and
+huge-N main paths at the working size on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -85,8 +85,23 @@ Phases (each failure exits non-zero at once):
      float32 rows to 768 samples (two Bluestein launches), beside
      ``torch.fft.fft`` / ``ifft`` at the same n; every row against the plain
      version (``resample``: against float64, scipy's semantics).
-  Before each of the main paths 4, 5, 8, 10, 12 and 14 every launch counter
-     is set to 0; right after, the counters must equal the path's calls
+ 15. Huge-N sweep: ``fourstep_pass_kernel`` through the default plan at N =
+     2^15, 2^16, 2^17, 2^18, 2^20, 2^22, 2^24, 2^28 and the named plans
+     "two:fold" and "three" at 2^20, "five" at 2^24 (complex64 and planar,
+     forward and inverse with 1/N, both tiers), and ``real_huge_kernel``
+     through ``rfft_large`` / ``irfft_large`` rows at n = 2^15, 2^20, 2^24
+     (pair and halfc) and 2^29 (halfc), against the plain versions and
+     float64 ``torch.fft``; "exact" within 2 ulp(max|X|).  Then the plan
+     table: every plan's time at N = 2^18..2^28 with 2^27 points a call.
+ 16. The huge-N main path at 2^27 points or samples a call: ``fft_large``
+     at N = 2^15 (4096 rows), 2^20 (128), 2^24 (8), 2^27 (1), ``ifft_large``
+     and an "exact" ``fft_large`` at 2^20, ``planar.rfft_large`` /
+     ``irfft_large`` at n = 2^20 (128 rows, pair) and 2^27 (1 row, halfc),
+     one ``fft_large`` backward at 2^20; beside the same-run ``copy_``, the
+     plain version and ``torch.fft.fft`` / ``rfft`` / ``irfft``.  After the
+     counters are read, the pair split alone at 2^27 samples.
+  Before each of the main paths 4, 5, 8, 10, 12, 14 and 16 every launch
+     counter is set to 0; right after, the counters must equal the path's calls
      (the convolution path runs ``conv`` / ``conv_real`` and, once a
      ``fftconvolve`` call, the R2C or C2C kernel for the taps) and no other
      kernel may have run.
@@ -208,11 +223,15 @@ def launchers() -> dict:
     from smfft_tpu_torch.ops import multiple as M
     from smfft_tpu_torch.ops import real as R
     from smfft_tpu_torch.ops import spectral as SP
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    from smfft_tpu_torch.ops import real_fused as RF
     return {"c2c": C.launch, "r2c": R.launch_r2c, "c2r": R.launch_c2r,
             "c2c_multiple": M.launch_multiple,
             "real_multiple": M.launch_real_multiple,
             "conv": CV.launch_conv, "conv_real": CV.launch_conv_real,
-            "power": SP.launch_power, "bluestein": CH.launch_bluestein}
+            "power": SP.launch_power, "bluestein": CH.launch_bluestein,
+            "fourstep_pass": FF.launch_pass,
+            "real_huge": RF.launch_real_huge}
 
 
 def reset_counts() -> None:
@@ -1620,6 +1639,302 @@ def phase_main_bluestein(card: str):
     return rows, calls, worst
 
 
+HUGE_SIZES = (1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 20, 1 << 22, 1 << 24,
+              1 << 28)
+# the named plans beside the default ones of HUGE_SIZES, one size each
+HUGE_PLANS = ((1 << 20, "two:fold"), (1 << 20, "three"), (1 << 24, "five"))
+REAL_HUGE = ((1 << 15, ("pair", "halfc")), (1 << 20, ("pair", "halfc")),
+             (1 << 24, ("pair", "halfc")), (1 << 29, ("halfc",)))
+# the plan table: the plans timed at each N with 2^27 points a call
+PLAN_TABLE = ((1 << 18, ("two:revisit", "three")),
+              (1 << 20, ("two:revisit", "three")),
+              (1 << 21, ("two:revisit", "three", "five")),
+              (1 << 22, ("three", "five")), (1 << 24, ("three", "five")),
+              (1 << 26, ("three", "five")), (1 << 28, ("three", "five")))
+
+
+def huge_oracle(x: torch.Tensor, inverse: bool, scale: float) -> torch.Tensor:
+    return oracle(x, inverse) * scale
+
+
+def phase_huge_sweep(card: str):
+    """fourstep_pass_kernel through every huge-N plan and size, and
+    real_huge_kernel in both modes, against the plain versions (every row)
+    and float64 torch.fft, both tiers; "exact" within 2 ulp(max|X|).  Then
+    the plan table: each plan's time at 2^27 points a call.  Returns
+    ({kernel: max |kernel - plain|}, worst "exact" ulp, plan table)."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    from smfft_tpu_torch.ops import hugefft
+    from smfft_tpu_torch.ops import real as R
+    from smfft_tpu_torch.ops import real_fused as RF
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    worst = {"fourstep_pass": 0.0, "real_huge": 0.0}
+    worst_ulp = 0.0
+    cases = [(n, None) for n in HUGE_SIZES] + list(HUGE_PLANS)
+    for n, plan in cases:
+        b = max(1, SWEEP_POINTS // n)
+        passes = (FF.default_passes(n) if plan is None
+                  else hugefft.passes(n, plan))
+        x = rand_complex(b, n, gen)
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        line = []
+        for inverse in (False, True):
+            scale = 1.0 / n if inverse else 1.0
+            want = huge_oracle(x[:ORACLE_ROWS], inverse, scale)
+            u = ulp(want.abs().max().item())
+            for exact in (False, True):
+                kw = dict(inverse=inverse, scale=scale, exact=exact)
+                plain = torch.complex(*FF.transform_plain(xr, xi, n, passes,
+                                                          **kw))
+                got_c = FF.run_passes(x, n, passes, **kw)
+                got_p = torch.complex(*FF.run_passes((xr, xi), n, passes,
+                                                     **kw))
+                torch.cuda.synchronize()
+                e = max(max_err(got_c, plain), max_err(got_p, plain))
+                o64 = max(max_err(got_c[:ORACLE_ROWS], want),
+                          max_err(got_p[:ORACLE_ROWS], want))
+                del got_c, got_p, plain
+                lim = bound(n) * (scale if inverse else 1.0)
+                if max(e, o64) > lim:
+                    fail(f"fourstep n={n} plan={plan} inverse={inverse} "
+                         f"exact={exact}: {e:.3e} / {o64:.3e} over {lim:.3e}")
+                if exact and o64 > 2 * u:
+                    fail(f"fourstep n={n} plan={plan}: 'exact' is "
+                         f"{o64 / u:.2f} ulp(max|X|) from float64")
+                worst["fourstep_pass"] = max(worst["fourstep_pass"],
+                                             e / (scale if inverse else 1.0))
+                if exact:
+                    worst_ulp = max(worst_ulp, o64 / u)
+                line.append(f"{'inv' if inverse else 'fwd'} "
+                            f"{'exact' if exact else 'highest'} {e:.2e}/"
+                            f"{o64:.2e} ({o64 / u:.2f} ulp)")
+                torch.cuda.empty_cache()
+        print(f"fourstep N=2^{n.bit_length() - 1} plan "
+              f"{plan or 'default'} {[p.radix for p in passes]} b={b} "
+              "(complex64 and planar; vs plain / vs float64): "
+              + ", ".join(line))
+        del x, xr, xi
+        torch.cuda.empty_cache()
+    for n, modes in REAL_HUGE:
+        b = 1 if n > 1 << 28 else 2
+        x = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+        want = torch.fft.rfft(x[:ORACLE_ROWS].double())
+        u_fwd = ulp(want.abs().max().item())
+        line = []
+        for mode in modes:
+            for exact in (False, True):
+                layout = "numpy" if n == 1 << 20 else "planar"
+                got = RF.rfft_large_rows(x, layout, exact, mode)
+                gt = got if isinstance(got, tuple) else (got, None)
+                plain = RF.rfft_large_plain(x, layout, exact, mode)
+                pt = plain if isinstance(plain, tuple) else (plain,)
+                e = max(max_err(g, q) for g, q in zip(gt, pt))
+                del plain, pt
+                nat = R.to_layout(*R.from_layout(*gt, layout, n // 2),
+                                  "numpy")
+                o64 = max_err(nat[:ORACLE_ROWS], want)
+                del nat
+                back = RF.irfft_large_rows(*gt, n, layout, exact,
+                                           2.0 / n, mode)
+                pback = RF.irfft_large_plain(*gt, n, layout, exact, 2.0 / n,
+                                             mode)
+                torch.cuda.synchronize()
+                e_inv = max_err(back, pback)
+                o_inv = max_err(back, x)
+                del got, gt, back, pback
+                if max(e, o64, e_inv, o_inv) > bound(n):
+                    fail(f"real_huge n={n} {mode} exact={exact}: "
+                         f"{e:.3e} / {o64:.3e} / {e_inv:.3e} / {o_inv:.3e}")
+                if exact and o64 > 2 * u_fwd:
+                    fail(f"real_huge n={n} {mode}: 'exact' is "
+                         f"{o64 / u_fwd:.2f} ulp(max|X|) from float64")
+                worst["real_huge"] = max(worst["real_huge"], e, e_inv)
+                if exact:
+                    worst_ulp = max(worst_ulp, o64 / u_fwd)
+                line.append(f"{mode} {'exact' if exact else 'highest'} "
+                            f"{e:.2e}/{o64:.2e} ({o64 / u_fwd:.2f} ulp), "
+                            f"inverse {e_inv:.2e}/{o_inv:.2e}")
+                torch.cuda.empty_cache()
+        print(f"real_huge n=2^{n.bit_length() - 1} b={b} (vs plain / vs "
+              "float64; inverse vs plain / vs x): " + "; ".join(line))
+        del x, want
+        torch.cuda.empty_cache()
+    table = []
+    for n, plans in PLAN_TABLE:
+        b = max(1, MAIN_POINTS // n)
+        x = rand_complex(b, n, gen)
+        row = {"n": n, "batch": b}
+        for plan in plans:
+            passes = hugefft.passes(n, plan)
+            row[plan] = cuda_ms(lambda: FF.run_passes(x, n, passes),
+                                reps=REPS_CONV)
+        table.append(row)
+        print(f"plan table N=2^{n.bit_length() - 1} batch={b} ({card}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()
+                          if k not in ("n", "batch"))
+              + f" (default {hugefft.default_plan(n)})")
+        del x
+        torch.cuda.empty_cache()
+    print(f"huge-N sweep: max |kernel - plain| fourstep_pass "
+          f"{worst['fourstep_pass']:.3e} (relative to the scale), real_huge "
+          f"{worst['real_huge']:.3e}; 'exact' at most {worst_ulp:.2f} ulp")
+    return worst, worst_ulp, table
+
+
+def phase_main_huge(card: str):
+    """The huge-N main path at 2^27 points or samples a call: fft_large at
+    N = 2^15 / 2^20 / 2^24 / 2^27, ifft_large at 2^20, planar.rfft_large /
+    irfft_large at n = 2^20 / 2^27, one fft_large backward at 2^20.  Every
+    row against the plain version, the first rows against float64.
+    Returns (rows, expected launches, worst error against the plain
+    version)."""
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    from smfft_tpu_torch.ops import real_fused as RF
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = []
+    calls = {"fourstep_pass": 0, "real_huge": 0}
+    worst = {"fourstep_pass": 0.0, "real_huge": 0.0}
+
+    for n in (1 << 15, 1 << 20, 1 << 24, 1 << 27):
+        b = MAIN_POINTS // n
+        x = rand_complex(b, n, gen)
+        xr, xi = x.real.contiguous(), x.imag.contiguous()
+        passes = FF.default_passes(n)
+        plain = torch.complex(*FF.transform_plain(xr, xi, n, passes))
+        y = T.fft_large(x)
+        calls["fourstep_pass"] += len(passes)
+        check_rows(y, x, False, None, f"fft_large N=2^{n.bit_length() - 1}")
+        worst["fourstep_pass"] = max(worst["fourstep_pass"], check_all(
+            y, plain, n, f"fft_large N=2^{n.bit_length() - 1}"))
+        del y, plain
+        what = (f"fft_large N=2^{n.bit_length() - 1} batch={b} "
+                f"({len(passes)} passes {[p.radix for p in passes]})")
+        rows.append(time_path(
+            what, card, lambda: T.fft_large(x),
+            lambda: FF.transform_plain(xr, xi, n, passes),
+            lambda: torch.fft.fft(x), "torch.fft.fft", x,
+            16.0 * MAIN_POINTS, 5.0 * MAIN_POINTS * math.log2(n)))
+        rows[-1]["n"] = n
+        calls["fourstep_pass"] += len(passes) * (1 + REPS_CONV)
+        if n == 1 << 20:
+            y = T.ifft_large(x)
+            calls["fourstep_pass"] += len(passes)
+            check_rows(y, x, True, 1.0 / n, "ifft_large N=2^20")
+            worst["fourstep_pass"] = max(worst["fourstep_pass"], n * check_all(
+                y, torch.complex(*FF.transform_plain(
+                    xr, xi, n, passes, inverse=True, scale=1.0 / n)), n,
+                "ifft_large N=2^20", bound(n) / n))
+            del y
+            rows.append(time_path(
+                f"ifft_large N=2^20 batch={b}", card,
+                lambda: T.ifft_large(x),
+                lambda: FF.transform_plain(xr, xi, n, passes, inverse=True,
+                                           scale=1.0 / n),
+                lambda: torch.fft.ifft(x), "torch.fft.ifft", x,
+                16.0 * MAIN_POINTS, 5.0 * MAIN_POINTS * math.log2(n)))
+            rows[-1]["n"] = n
+            calls["fourstep_pass"] += len(passes) * (1 + REPS_CONV)
+            ms_exact = cuda_ms(lambda: T.fft_large(x, precision="exact"),
+                               reps=REPS_CONV)
+            calls["fourstep_pass"] += len(passes) * (1 + REPS_CONV)
+            rows[-1]["fft_large_exact_ms"] = ms_exact
+            print(f"  fft_large N=2^20 precision='exact' ({card}): "
+                  f"{ms_exact:.4f} ms")
+            # one backward: |fft_large(x)|^2 summed, against torch.fft's
+            xg = x.clone().requires_grad_(True)
+            (T.fft_large(xg).abs() ** 2).sum().backward()
+            calls["fourstep_pass"] += 2 * len(passes)
+            x64 = x[:ORACLE_ROWS].to(torch.complex128).requires_grad_(True)
+            (torch.fft.fft(x64).abs() ** 2).sum().backward()
+            g = xg.grad
+            e = max_err(g[:ORACLE_ROWS], x64.grad) / x64.grad.abs().max()
+            print(f"  fft_large N=2^20 backward: first {ORACLE_ROWS} rows' "
+                  f"gradient within {e.item():.3e} of torch.fft's (relative)")
+            if not e.item() < 1e-5 or g.shape != x.shape:
+                fail("fft_large backward disagrees with torch.fft's")
+            del xg, x64, g
+        del x, xr, xi
+        torch.cuda.empty_cache()
+    for n in (1 << 20, 1 << 27):
+        b = MAIN_POINTS // n
+        L = n // 2
+        x = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+        mode = RF.choose_mode(b, n)
+        npass = len(FF.default_passes(n if mode == "pair" else L))
+        hr, hi = T.planar.rfft_large(x)
+        calls["fourstep_pass"] += npass
+        calls["real_huge"] += 1
+        tag = f"n=2^{n.bit_length() - 1} batch={b} {mode} ({npass} passes)"
+        worst["real_huge"] = max(worst["real_huge"], check_all(
+            (hr, hi), RF.rfft_large_plain(x, "planar", mode=mode), n,
+            f"planar.rfft_large {tag}"))
+        want = torch.fft.rfft(x[:ORACLE_ROWS].double())
+        head = torch.complex(hr[:ORACLE_ROWS], hi[:ORACLE_ROWS])
+        e64 = max((head[:, 1:] - want[:, 1:L]).abs().max().item(),
+                  (hr[:ORACLE_ROWS, 0] - want[:, 0].real).abs().max().item(),
+                  (hi[:ORACLE_ROWS, 0] - want[:, L].real).abs().max().item())
+        print(f"  planar.rfft_large {tag}: first rows vs float64 {e64:.3e}")
+        if e64 > bound(n):
+            fail(f"planar.rfft_large n={n}: over bound against float64")
+        del head, want
+        rows.append(time_path(
+            f"planar.rfft_large {tag}", card, lambda: T.planar.rfft_large(x),
+            lambda: RF.rfft_large_plain(x, "planar", mode=mode),
+            lambda: torch.fft.rfft(x), "torch.fft.rfft", x,
+            8.0 * MAIN_POINTS, MAIN_POINTS * (2.5 * math.log2(n) + 5.0)))
+        rows[-1]["n"] = n
+        calls["fourstep_pass"] += npass * (1 + REPS_CONV)
+        calls["real_huge"] += 1 + REPS_CONV
+        back = T.planar.irfft_large(hr, hi)
+        calls["fourstep_pass"] += npass
+        calls["real_huge"] += 1
+        worst["real_huge"] = max(worst["real_huge"], check_all(
+            back, RF.irfft_large_plain(hr, hi, n, "planar", scale=1.0 / L,
+                                       mode=mode), n,
+            f"planar.irfft_large {tag}"))
+        err = (back - x).abs().max().item()
+        print(f"  planar.rfft_large -> planar.irfft_large: max |x' - x| "
+              f"{err:.3e}")
+        if err > bound(n):
+            fail("huge-N real round trip over bound")
+        del back
+        spec = torch.fft.rfft(x)
+        rows.append(time_path(
+            f"planar.irfft_large {tag}", card,
+            lambda: T.planar.irfft_large(hr, hi),
+            lambda: RF.irfft_large_plain(hr, hi, n, "planar", scale=1.0 / L,
+                                         mode=mode),
+            lambda: torch.fft.irfft(spec, n), "torch.fft.irfft", x,
+            8.0 * MAIN_POINTS, MAIN_POINTS * (2.5 * math.log2(n) + 5.0)))
+        rows[-1]["n"] = n
+        calls["fourstep_pass"] += npass * (1 + REPS_CONV)
+        calls["real_huge"] += 1 + REPS_CONV
+        del x, hr, hi, spec
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows, calls, worst
+
+
+def real_huge_alone(card: str) -> dict:
+    """real_huge_kernel alone on the main path's shapes (the pair split of
+    128 rows of 2^20 samples; timed after the path's counters are read):
+    time, the plain split, the bound (8 bytes a real sample)."""
+    from smfft_tpu_torch.ops import real_fused as RF
+    n, b = 1 << 20, MAIN_POINTS // (1 << 20)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    z = rand_complex(b // 2, n, gen)
+    spec = tuple(torch.empty((b, n // 2), device="cuda") for _ in range(2))
+    row = time_path(
+        f"real_huge pair split alone, 2^27 samples (b={b}, n=2^20)", card,
+        lambda: RF.launch_real_huge("pair_split", z, spec, n),
+        lambda: RF.pair_split_plain(z, b), lambda: None, "none", z,
+        8.0 * MAIN_POINTS, 10.0 * MAIN_POINTS)
+    del z, spec
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)")
@@ -1673,6 +1988,11 @@ def main() -> int:
     reset_counts()
     blue_rows, blue_calls, worst_blue_main = phase_main_bluestein(card)
     blue_counts = check_counts("Bluestein", {"bluestein": blue_calls})
+    worst_huge, _, plan_table = phase_huge_sweep(card)
+    reset_counts()
+    huge_rows, huge_calls, worst_huge_main = phase_main_huge(card)
+    huge_counts = check_counts("huge-N", huge_calls)
+    split_row = real_huge_alone(card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -1776,6 +2096,36 @@ def main() -> int:
                     "bound_ms": blue["bound_ms"],
                     "bound_by": blue["bound_by"],
                     "library_ms": blue["reference_ms"]})
+    print("main path rows: " + json.dumps({"card": card, "huge": huge_rows,
+                                           "plan_table": plan_table,
+                                           "real_huge_alone": split_row}))
+    fs = next(r for r in huge_rows if r["what"].startswith(
+        "fft_large N=2^20"))
+    print("fourstep_pass also replaces smfft_tpu/ops/hugefft.py:100,137,258,"
+          "360 and fourstep_fused.py:113,168 (each plan is launches of it); "
+          "its ms, plain_ms, bound_ms and library_ms are fft_large at N = "
+          "2^20, 128 rows (two passes) against torch.fft.fft.  real_huge "
+          "also replaces real_fused.py:296,409; its numbers are the pair "
+          "split alone on 2^27 samples (no PyTorch call computes it: "
+          "library_ms null)")
+    kernels.append({"name": "fourstep_pass", "route": "cuda",
+                    "source": "smfft_tpu_torch/csrc/fourstep.cu",
+                    "replaces": "smfft_tpu/ops/rowfour.py:231",
+                    "launches": huge_counts["fourstep_pass"],
+                    "max_abs_err": max(worst_huge["fourstep_pass"],
+                                       worst_huge_main["fourstep_pass"]),
+                    "ms": fs["ms"], "plain_ms": fs["plain_ms"],
+                    "bound_ms": fs["bound_ms"], "bound_by": fs["bound_by"],
+                    "library_ms": fs["reference_ms"]})
+    kernels.append({"name": "real_huge", "route": "cuda",
+                    "source": "smfft_tpu_torch/csrc/real_huge.cu",
+                    "replaces": "smfft_tpu/ops/real_fused.py:146",
+                    "launches": huge_counts["real_huge"],
+                    "max_abs_err": max(worst_huge["real_huge"],
+                                       worst_huge_main["real_huge"]),
+                    "ms": split_row["ms"], "plain_ms": split_row["plain_ms"],
+                    "bound_ms": split_row["bound_ms"],
+                    "bound_by": split_row["bound_by"], "library_ms": None})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

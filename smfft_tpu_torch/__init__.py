@@ -5,7 +5,7 @@ The port of ``smfft_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports no JAX: the JAX package stays beside it as the reference the
 port is tested against.
 
-Four slices so far:
+Five slices so far:
 
   * batched fp32 power-of-two C2C transforms, N = 32..16384, forward and
     inverse, natural or revblock order: :func:`fft`, :func:`ifft`,
@@ -33,7 +33,12 @@ Four slices so far:
     :func:`fft_any` / :func:`ifft_any` / :func:`rfft_any` /
     :func:`irfft_any` and ``planar.fft_any`` (Bluestein, ``csrc/chirp.cu``),
     :func:`resample` on them, and :func:`czt` / :func:`zoom_fft` on the
-    fused convolution.
+    fused convolution;
+  * huge N: :func:`fft_large` / :func:`ifft_large` (C2C to 2^28) and
+    :func:`rfft_large` / :func:`irfft_large` (real to 2^29), and the same
+    four in :mod:`smfft_tpu_torch.planar`, as passes of one four-step
+    kernel (``csrc/fourstep.cu``) and a Hermitian split / merge kernel
+    (``csrc/real_huge.cu``).
 
 A CUDA tensor runs the kernels (built with nvcc at first use); a CPU
 tensor runs their plain PyTorch versions.  ``precision="exact"`` runs the
@@ -41,9 +46,10 @@ kernels' fp64-arithmetic instantiation (<= 2 ulp of max|X|).
 """
 
 from smfft_tpu_torch import planar
-from smfft_tpu_torch.api import (convolve, convolve_real, fft,
-                                 fft_packed_real, ifft, ifft_unordered,
-                                 irfft, rfft)
+from smfft_tpu_torch.api import (convolve, convolve_real, fft, fft_large,
+                                 fft_packed_real, ifft, ifft_large,
+                                 ifft_unordered, irfft, irfft_large, rfft,
+                                 rfft_large)
 from smfft_tpu_torch.bluestein import (czt, fft_any, ifft_any, irfft_any,
                                        rfft_any, zoom_fft)
 from smfft_tpu_torch.params import (FFTParams, SUPPORTED_C2C_SIZES,
@@ -65,6 +71,7 @@ __all__ = [
     "envelope",
     "fft",
     "fft_any",
+    "fft_large",
     "fft_packed_real",
     "fftconvolve",
     "fftcorrelate",
@@ -72,9 +79,11 @@ __all__ = [
     "hilbert",
     "ifft",
     "ifft_any",
+    "ifft_large",
     "ifft_unordered",
     "irfft",
     "irfft_any",
+    "irfft_large",
     "istft",
     "oaconvolve",
     "periodogram",
@@ -84,6 +93,7 @@ __all__ = [
     "resample",
     "rfft",
     "rfft_any",
+    "rfft_large",
     "spectrogram",
     "stft",
     "welch",

@@ -41,6 +41,12 @@ as in the JAX package.
 (``csrc/conv.cu``: forward transform, filter product, inverse transform in
 one pass), for one filter or a bank, and are differentiable in both the
 signal and the filter.
+
+``fft_large`` / ``ifft_large`` (N to 2^28) and ``rfft_large`` /
+``irfft_large`` (n to 2^29) run the huge-N passes (``csrc/fourstep.cu``,
+and ``csrc/real_huge.cu``'s split and merge); sizes the row kernels take
+route to ``fft`` / ``rfft`` / ``irfft``.  They are differentiable, the
+packed real layout excepted.
 """
 
 from __future__ import annotations
@@ -54,8 +60,9 @@ from smfft_tpu_torch.models import cooley_tukey
 from smfft_tpu_torch.models import real as real_model
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import convolve as CV
+from smfft_tpu_torch.ops import fourstep as FS
 from smfft_tpu_torch.ops import real as R
-from smfft_tpu_torch.params import SUPPORTED_REAL_SIZES
+from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES, SUPPORTED_REAL_SIZES
 
 Backend = Literal["auto", "spec"]
 
@@ -495,3 +502,150 @@ def convolve_real(x: torch.Tensor, h: torch.Tensor,
                                       + (n // 2 + 1,)) if bank else spec * h
         return irfft(spec, n=n, backend="spec")
     return _Convolve.apply(x, h, exact, True)
+
+
+# ---------------------------------------------------------------------------
+# Huge N.
+# ---------------------------------------------------------------------------
+
+
+class _LargeC2C(torch.autograd.Function):
+    """Huge-N C2C with the kernels in both passes: as for
+    :class:`_OrderedC2C`, the backward of a transform of scale s is the
+    raw transform of the opposite direction at the same scale."""
+
+    @staticmethod
+    def forward(ctx, x, inverse: bool, scale, exact: bool, backend: str):
+        ctx.args = (inverse, scale, exact, backend)
+        return FS.fft_four_step(
+            x, inverse=inverse, backend=backend,
+            precision="exact" if exact else "highest",
+            scale=1.0 if scale is None else scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse, scale, exact, backend = ctx.args
+        return (_LargeC2C.apply(g.contiguous(), not inverse, scale, exact,
+                                backend), None, None, None, None)
+
+
+def fft_large(x: torch.Tensor, backend: Backend = "auto",
+              precision: str | None = None) -> torch.Tensor:
+    """Forward C2C FFT for huge power-of-two N (2**15..2**28), batched over
+    leading axes: the multi-pass four-step (ops/fourstep_fused.py, one
+    launch of ``csrc/fourstep.cu`` per pass).  Sizes <= 16384 route to
+    :func:`fft`.  Differentiable."""
+    n = x.shape[-1]
+    if n in SUPPORTED_C2C_SIZES:
+        return fft(x, backend=backend, precision=precision)
+    FS.split_factors(n)
+    exact = _exact(precision)
+    _check_backend(backend)
+    return _LargeC2C.apply(x, False, None, exact, backend)
+
+
+def ifft_large(x: torch.Tensor, backend: Backend = "auto",
+               precision: str | None = None,
+               norm: str | None = "backward") -> torch.Tensor:
+    """Inverse of :func:`fft_large`.  ``norm="backward"`` divides by N
+    (numpy, folded into the first pass); ``norm=None`` is the reference's
+    raw unnormalized inverse."""
+    if norm not in ("backward", None):
+        raise ValueError(
+            f"ifft_large supports norm='backward' (numpy) or norm=None "
+            f"(raw reference scale); got {norm!r}")
+    n = x.shape[-1]
+    if n in SUPPORTED_C2C_SIZES:
+        return ifft(x, backend=backend, precision=precision, norm=norm)
+    FS.split_factors(n)
+    exact = _exact(precision)
+    _check_backend(backend)
+    return _LargeC2C.apply(x, True, _norm_scale(norm, n), exact, backend)
+
+
+class _RFFTLarge(torch.autograd.Function):
+    """Huge-N R2C (numpy layout); the backward is :class:`_RFFT`'s rule
+    with the huge-N C2R: n * irfft(g * s)."""
+
+    @staticmethod
+    def forward(ctx, x, exact: bool, backend: str):
+        ctx.exact, ctx.backend = exact, backend
+        return FS.rfft_four_step(x, backend=backend,
+                                 precision="exact" if exact else "highest")
+
+    @staticmethod
+    def backward(ctx, g):
+        n = (g.shape[-1] - 1) * 2
+        gs = g * _half_weights(n, 0.5, g)
+        return (FS.irfft_scaled(gs, n, packed=False, backend=ctx.backend,
+                                exact=ctx.exact, scale=2.0), None, None)
+
+
+class _IRFFTLarge(torch.autograd.Function):
+    """Huge-N C2R (numpy layout); the backward is :class:`_IRFFT`'s rule
+    with the huge-N R2C."""
+
+    @staticmethod
+    def forward(ctx, h, n: int, exact: bool, backend: str, scale):
+        ctx.n, ctx.exact, ctx.backend, ctx.scale = n, exact, backend, scale
+        return FS.irfft_scaled(h, n, packed=False, backend=backend,
+                               exact=exact, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = 1.0 if ctx.scale is None else ctx.scale
+        gh = FS.rfft_four_step(g.contiguous(), backend=ctx.backend,
+                               precision="exact" if ctx.exact else "highest")
+        return (gh * (_half_weights(ctx.n, 2.0, gh) * (0.5 * s)), None,
+                None, None, None)
+
+
+def rfft_large(x: torch.Tensor, backend: Backend = "auto",
+               precision: str | None = None,
+               packed: bool = False) -> torch.Tensor:
+    """R2C FFT for huge power-of-two N (2**15..2**29): the huge-N C2C
+    passes and one split pass (ops/real_fused.py; the mode by batch,
+    :func:`~smfft_tpu_torch.ops.real_fused.choose_mode`).  Numpy layout
+    (..., N/2+1), or with ``packed`` the reference's (..., N/2) with
+    out[..., 0] = DC + 1j*Nyquist.  Sizes <= 16384 route to :func:`rfft` /
+    :func:`fft_packed_real`.  The numpy layout is differentiable."""
+    n = x.shape[-1]
+    if n in SUPPORTED_REAL_SIZES:
+        if packed:
+            return fft_packed_real(x, backend=backend, precision=precision)
+        return rfft(x, backend=backend, precision=precision)
+    FS._check_real_n(n)
+    exact = _exact(precision)
+    _check_backend(backend)
+    if packed:
+        return _Packed.apply(x, lambda a: FS.rfft_four_step(
+            a, packed=True, backend=backend,
+            precision="exact" if exact else "highest"))
+    return _RFFTLarge.apply(x, exact, backend)
+
+
+def irfft_large(x: torch.Tensor, n: int | None = None,
+                backend: Backend = "auto", precision: str | None = None,
+                norm: str | None = "backward",
+                packed: bool = False) -> torch.Tensor:
+    """Inverse of :func:`rfft_large`.  ``norm="backward"`` returns the
+    signal (numpy); ``norm=None`` keeps the reference's raw (N/2)-scaled
+    output (SMFFT_Stockham_R2C_C2R/FFT.c:170-171).  The numpy layout is
+    differentiable."""
+    if norm not in ("backward", None):
+        raise ValueError(
+            f"irfft_large supports norm='backward' (numpy) or norm=None "
+            f"(raw reference scale); got {norm!r}")
+    if n is None:
+        n = (x.shape[-1] - 1) * 2 if not packed else x.shape[-1] * 2
+    if n in SUPPORTED_REAL_SIZES:
+        return irfft(x, n=n, backend=backend, precision=precision,
+                     norm=norm, packed=packed)
+    FS._check_real_n(n)
+    exact = _exact(precision)
+    _check_backend(backend)
+    scale = real_norm_scale(norm, n)
+    if packed:
+        return _Packed.apply(x, lambda h: FS.irfft_scaled(
+            h, n, packed=True, backend=backend, exact=exact, scale=scale))
+    return _IRFFTLarge.apply(x, n, exact, backend, scale)

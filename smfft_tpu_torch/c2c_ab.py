@@ -9,9 +9,9 @@ and ``planar.fft`` at N = 1024, 4096, 16384 with 2^27 complex points per
 call, precision "highest", the median of 25 (``fft``) or 15
 CUDA-event-timed calls after a warm-up, beside a same-run ``copy_`` of the
 same bytes.  Prints one JSON line per root and the registers and spills
-ptxas gave each C2C, R2C, C2R, reuse-loop and convolution kernel
-instantiation in that root's build, whether those are the same in every
-root, then the card.
+ptxas gave each C2C, R2C, C2R, reuse-loop, convolution, power and
+Bluestein kernel instantiation in that root's build, whether those are
+the same in every root, then the card.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from smfft_tpu_torch.ops._cuda import register_report
 # the kernel instantiations whose registers and spills are compared
 SHARED_KERNELS = ("c2c_kernel", "r2c_kernel", "c2r_kernel",
                   "c2c_multiple_kernel", "real_multiple_kernel",
-                  "conv_kernel", "conv_real_kernel")
+                  "conv_kernel", "conv_real_kernel", "power_kernel",
+                  "bluestein_kernel")
 
 CHILD = r"""
 import json, statistics, sys
@@ -85,7 +86,8 @@ def main(argv=None) -> int:
         for r in regs:
             print(f"  ptxas {Path(root).name or root}: {r}")
     reports = [r for r in reports if r]  # a root's older build: no log
-    print(f"c2c / r2c / c2r / multiple / conv instantiations report the same "
+    print(f"c2c / r2c / c2r / multiple / conv / power / bluestein "
+          f"instantiations report the same "
           f"registers and spills in the {len(reports)} roots with a ptxas "
           f"report: "
           f"{bool(reports) and all(r == reports[0] for r in reports)}")

@@ -1,6 +1,7 @@
 // The real transforms' work on one pair of bins (k, L-k), L = n/2, shared
 // by real.cu (R2C split, C2R merge), multiple.cu (the real reuse loop:
-// split then merge) and conv.cu (split, filter product, merge).  With
+// split then merge), conv.cu (split, filter product, merge) and
+// real_huge.cu (the huge-N split and merge, W^k from hi/lo tables).  With
 // W = W_n = exp(-2 pi i / n) and wn[k] = W^k:
 //
 //   split (R2C): Z (the L-point spectrum of z[m] = x[2m] + i x[2m+1]) ->
@@ -26,18 +27,24 @@ __device__ __forceinline__ C split_dc(C a) {
     return cmake(a.x + a.y, a.x - a.y);
 }
 
-// X[k], X[L-k] from a = Z[k], b = Z[L-k], 0 < k <= L/2.
+// X[k], X[L-k] from a = Z[k], b = Z[L-k] and w = W^k, 0 < k <= L/2.
 template <typename C>
-__device__ __forceinline__ void split_pair(C a, C b,
-                                           const C* __restrict__ wn, int k,
-                                           C& xk, C& xm) {
+__device__ __forceinline__ void split_pair_w(C a, C b, C w, C& xk, C& xm) {
     using T = real_t<C>;
     const T h = T(0.5);
     const C e = cmake(h * (a.x + b.x), h * (a.y - b.y));
     const C o = cmake(h * (a.y + b.y), h * (b.x - a.x));
-    const C wo = cmul(__ldg(&wn[k]), o);
+    const C wo = cmul(w, o);
     xk = cadd(e, wo);
     xm = cmake(e.x - wo.x, wo.y - e.y);
+}
+
+// split_pair_w with W^k from the table wn.
+template <typename C>
+__device__ __forceinline__ void split_pair(C a, C b,
+                                           const C* __restrict__ wn, int k,
+                                           C& xk, C& xm) {
+    split_pair_w(a, b, __ldg(&wn[k]), xk, xm);
 }
 
 // Z[0] from a = (DC, Nyquist), h = scale / 2.
@@ -46,17 +53,24 @@ __device__ __forceinline__ C merge_dc(C a, real_t<C> h) {
     return cmake(h * (a.x + a.y), h * (a.x - a.y));
 }
 
-// Z[k], Z[L-k] from a = X[k], b = X[L-k], 0 < k <= L/2, h = scale / 2.
+// Z[k], Z[L-k] from a = X[k], b = X[L-k] and w = W^k, 0 < k <= L/2, h =
+// scale / 2.
+template <typename C>
+__device__ __forceinline__ void merge_pair_w(C a, C b, C w, real_t<C> h,
+                                             C& zk, C& zm) {
+    const C e = cmake(h * (a.x + b.x), h * (a.y - b.y));
+    const C d = cmake(h * (a.x - b.x), h * (a.y + b.y));
+    const C o = cmul(d, cmake(w.x, -w.y));  // * W^-k
+    zk = cmake(e.x - o.y, e.y + o.x);
+    zm = cmake(e.x + o.y, o.x - e.y);
+}
+
+// merge_pair_w with W^k from the table wn.
 template <typename C>
 __device__ __forceinline__ void merge_pair(C a, C b,
                                            const C* __restrict__ wn, int k,
                                            real_t<C> h, C& zk, C& zm) {
-    const C e = cmake(h * (a.x + b.x), h * (a.y - b.y));
-    const C d = cmake(h * (a.x - b.x), h * (a.y + b.y));
-    const C w = __ldg(&wn[k]);
-    const C o = cmul(d, cmake(w.x, -w.y));  // * W^-k
-    zk = cmake(e.x - o.y, e.y + o.x);
-    zm = cmake(e.x + o.y, o.x - e.y);
+    merge_pair_w(a, b, __ldg(&wn[k]), h, zk, zm);
 }
 
 }  // namespace smfft

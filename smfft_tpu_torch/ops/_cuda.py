@@ -140,8 +140,9 @@ def register_report(log: str | None = None) -> list[str]:
         if m and name:
             k = re.search(r"(c2c_multiple_kernel|real_multiple_kernel|"
                           r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel|"
-                          r"power_kernel|bluestein_kernel)"
-                          r"I((?:Li\d+E)+)", name)
+                          r"power_kernel|bluestein_kernel|"
+                          r"fourstep_pass_kernel|real_huge_kernel)"
+                          r"I((?:Li\d+E)*)", name)
             label = (f"{k.group(1)}<"
                      f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
                      if k else name)
@@ -179,10 +180,19 @@ def library() -> ctypes.CDLL:
         lib.smfft_bluestein.argtypes = [vp, vp, vp, vp, ci, i64, i64, i64,
                                         i64, vp, vp, ctypes.c_double, vp, vp,
                                         ci, vp]
+        lib.smfft_fourstep_pass.argtypes = [vp, vp, ci, ci, i64, vp, vp, ci,
+                                            ci, i64, ci, i64, i64, i64, i64,
+                                            i64, i64, i64, i64,
+                                            ctypes.c_double, vp, vp, vp, ci,
+                                            ci, ci, vp]
+        lib.smfft_real_huge.argtypes = [ci, vp, ci, vp, vp, ci, i64, i64, i64,
+                                        i64, ctypes.c_double, vp, vp, ci, ci,
+                                        vp]
         for fn in (lib.smfft_c2c, lib.smfft_r2c, lib.smfft_c2r,
                    lib.smfft_c2c_multiple, lib.smfft_real_multiple,
                    lib.smfft_conv, lib.smfft_conv_real, lib.smfft_power,
-                   lib.smfft_bluestein):
+                   lib.smfft_bluestein, lib.smfft_fourstep_pass,
+                   lib.smfft_real_huge):
             fn.restype = ci
         lib.smfft_error_string.argtypes = [ci]
         lib.smfft_error_string.restype = ctypes.c_char_p

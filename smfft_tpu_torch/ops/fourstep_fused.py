@@ -1,0 +1,377 @@
+"""Huge-N C2C FFT as passes of one Hopper kernel, its wrapper, its plain
+version, and the routing behind ``planar.fft_large`` / ``api.fft_large``.
+
+Counterpart of ``smfft_tpu/ops/fourstep_fused.py`` (B22/B23) and, through
+:func:`run_passes`, of the passes of ``ops/rowfour.py`` (B17) and
+``ops/hugefft.py`` (B18-B21).  N = R1 * R2 * ... * Rp, each radix a power
+of two in [16, 2048]; one launch of ``csrc/fourstep.cu``
+(``fourstep_pass_kernel``) does every R-point transform of one factor,
+for every row:
+
+  * the default plan (:func:`plan`) is p - 1 in-place column passes (pass
+    i reads and writes the R_i points of stride S = R_{i+1}...R_p, with the
+    twiddle W_(R_i S)^(s k); the first also takes the scale) and a last
+    pass that reads contiguous rows in digit-reversed order and writes
+    columns of stride N / R_p: natural-order output;
+  * the JAX package's strided two-pass (:func:`factors_plan`, B22/B23):
+    pass 1 reads columns of stride n2, twiddles by W_N^(t2 k1) and writes
+    the rows of Bmat (n2, n1); pass 2 reads and writes columns of stride n1.
+
+A pass is described by a :class:`Pass`: its radix, the index map of its
+input and of its output (``("col", S)`` or ``("rows", radices)``), the
+twiddle's column count (0: none) and whether the scale applies there.  The
+passes exchange complex64 intermediates, complex128 for the "exact" tier,
+so that tier's only fp32 rounding is the output's.
+
+Dispatch is by the tensor's device: a CUDA tensor launches the kernel once
+per pass (:func:`launch_pass`, counted) or raises; a CPU tensor runs
+:func:`passes_plain`, the same maps, ``c2c_plain`` transforms and the same
+hi/lo twiddles in plain PyTorch, never ``torch.fft``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from smfft_tpu_torch import params as P
+from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import fourstep as FS
+
+MIN_RADIX, MAX_RADIX = 16, 2048
+
+
+@dataclass(frozen=True)
+class Pass:
+    """One launch: ``radix``-point transforms read through ``src`` and
+    written through ``dst`` (``("col", S)``: the points of transform c =
+    o*S + s at o*R*S + s + j*S; ``("rows", (R1, ..., Rq))``: the contiguous
+    row ((d1*R2 + d2)*R3 + ...) for c = d1 + R1*(d2 + R2*...)), each output
+    point k times W_(R*tw_s)^((c mod tw_s)*k) when tw_s, the input times the
+    scale when ``scaled``."""
+    radix: int
+    src: tuple
+    dst: tuple
+    tw_s: int
+    scaled: bool
+
+
+def radices(n: int, passes: int) -> tuple[int, ...]:
+    """N split into ``passes`` power-of-two radices, as even as possible,
+    the larger ones first; each must lie in [16, 2048]."""
+    k = n.bit_length() - 1
+    base, rem = divmod(k, passes)
+    rs = tuple(1 << (base + (i < rem)) for i in range(passes))
+    if n != 1 << k or not all(MIN_RADIX <= r <= MAX_RADIX for r in rs):
+        raise ValueError(f"Error wrong FFT length! N={n} does not split into "
+                         f"{passes} passes of {MIN_RADIX}..{MAX_RADIX} points")
+    return rs
+
+
+def plan(rs: tuple[int, ...]) -> tuple[Pass, ...]:
+    """The default p-pass plan over radices rs: column passes (DIF), then
+    the digit-reversed row pass that lands natural order."""
+    n = math.prod(rs)
+    out = []
+    for i, r in enumerate(rs[:-1]):
+        s = math.prod(rs[i + 1:])
+        out.append(Pass(r, ("col", s), ("col", s), s, i == 0))
+    out.append(Pass(rs[-1], ("rows", tuple(rs[:-1])), ("col", n // rs[-1]),
+                    0, len(rs) == 1))
+    return tuple(out)
+
+
+def factors_plan(n1: int, n2: int) -> tuple[Pass, ...]:
+    """The JAX package's strided two-pass for N = n1 * n2 (B22, B23):
+    pass 1 writes the twiddled Bmat rows (n2, n1)."""
+    for r in (n1, n2):
+        if not MIN_RADIX <= r <= MAX_RADIX or r & (r - 1):
+            raise ValueError(f"factor {r} is not a power of two in "
+                             f"[{MIN_RADIX}, {MAX_RADIX}]")
+    return (Pass(n1, ("col", n2), ("rows", (n2,)), n2, True),
+            Pass(n2, ("col", n1), ("col", n1), 0, False))
+
+
+def default_passes(n: int) -> tuple[Pass, ...]:
+    """The plan an N = 2^8..2^28 transform runs: rowfour's two factors
+    for its sizes (ops/rowfour.FACTORS), hugefft's default plan above
+    them, two even radices below."""
+    from smfft_tpu_torch.ops import hugefft, rowfour
+    if n in rowfour.FACTORS:
+        return plan(rowfour.FACTORS[n])
+    if n > 1 << 17:
+        return hugefft.passes(n, None)
+    return plan(radices(n, 2))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version.
+# ---------------------------------------------------------------------------
+
+
+def _gather(x: torch.Tensor, r: int, m: tuple) -> torch.Tensor:
+    """(B, N) -> (B, N/r, r): transform c's r points in order."""
+    b, n = x.shape
+    if m[0] == "col":
+        s = m[1]
+        return x.reshape(b, n // (r * s), r, s).transpose(2, 3).reshape(
+            b, n // r, r)
+    rad = m[1]
+    q = len(rad)
+    dims = (0,) + tuple(range(q, 0, -1)) + (q + 1,)
+    return x.reshape((b,) + rad + (r,)).permute(dims).reshape(b, n // r, r)
+
+
+def _scatter(y: torch.Tensor, r: int, m: tuple) -> torch.Tensor:
+    """The inverse of :func:`_gather`: (B, N/r, r) -> (B, N)."""
+    b, t, _ = y.shape
+    n = t * r
+    if m[0] == "col":
+        s = m[1]
+        return y.reshape(b, n // (r * s), s, r).transpose(2, 3).reshape(b, n)
+    rad = m[1]
+    q = len(rad)
+    dims = (0,) + tuple(range(q, 0, -1)) + (q + 1,)
+    return y.reshape((b,) + rad[::-1] + (r,)).permute(dims).reshape(b, n)
+
+
+def _pass_twiddle(n: int, p: Pass, inverse: bool,
+                  dtype: torch.dtype, device) -> torch.Tensor:
+    """(N/R, R) twiddles of a pass: W_N^((c mod tw_s) * k * N/(R tw_s))."""
+    r = p.radix
+    c = torch.arange(n // r, device=device)
+    k = torch.arange(r, device=device)
+    m = ((c % p.tw_s) * (n // (r * p.tw_s)))[:, None] * k[None, :]
+    return FS.roots(m, n, inverse, dtype)
+
+
+def pass_plain(x: torch.Tensor, n: int, p: Pass, inverse: bool = False,
+               scale: float = 1.0) -> torch.Tensor:
+    """One pass of :func:`launch_pass` in plain PyTorch: complex (B, N) ->
+    complex (B, N), in x's precision."""
+    b, r = x.shape[0], p.radix
+    a = _gather(x, r, p.src)
+    if p.scaled and scale != 1.0:
+        a = a * scale
+    yr, yi = C.c2c_plain(a.real.reshape(-1, r), a.imag.reshape(-1, r),
+                         inverse=inverse)
+    y = torch.complex(yr, yi).reshape(b, n // r, r)
+    if p.tw_s:
+        y = y * _pass_twiddle(n, p, inverse, y.dtype, y.device)
+    return _scatter(y, r, p.dst)
+
+
+def passes_plain(x: torch.Tensor, n: int, passes: tuple[Pass, ...],
+                 inverse: bool = False, scale: float = 1.0) -> torch.Tensor:
+    """Every pass of a plan in plain PyTorch (complex in, complex out)."""
+    for p in passes:
+        x = pass_plain(x, n, p, inverse, scale)
+    return x
+
+
+def transform_plain(xr: torch.Tensor, xi: torch.Tensor, n: int,
+                    passes: tuple[Pass, ...], inverse: bool = False,
+                    scale: float = 1.0, exact: bool = False):
+    """:func:`run_passes`'s function in plain PyTorch on any device:
+    planar (B, N) in, planar out, at the tier's precision
+    (``c2c.at_tier``: "exact" in float64, rounded once)."""
+    def run(ar, ai):
+        y = passes_plain(torch.complex(ar, ai), n, passes, inverse, scale)
+        return y.real, y.imag
+    return C.at_tier(run, exact, xr, xi)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper.
+# ---------------------------------------------------------------------------
+
+
+def _operand(t, n: int, name: str):
+    """(pointer a, pointer b, kind) of a CUDA operand: a complex64 (kind
+    0) or complex128 (kind 2) (B, N) tensor, or a planar float32 pair
+    (kind 1)."""
+    planes = t if isinstance(t, tuple) else (t,)
+    for u in planes:
+        if u.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {u.device}")
+        if u.dim() != 2 or u.shape[1] != n or not u.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (batch, {n}), got "
+                             f"{tuple(u.shape)}")
+    if isinstance(t, tuple):
+        if t[0].shape != t[1].shape or any(u.dtype != torch.float32
+                                           for u in t):
+            raise ValueError(f"{name}: planar pair must be two float32 "
+                             "tensors of one shape")
+        return t[0].data_ptr(), t[1].data_ptr(), 1
+    kinds = {torch.complex64: 0, torch.complex128: 2}
+    if t.dtype not in kinds:
+        raise TypeError(f"{name} must be complex64 or complex128, got "
+                        f"{t.dtype}")
+    if t.data_ptr() % t.element_size():
+        raise ValueError(f"{name} must be aligned to its element size")
+    return t.data_ptr(), None, kinds[t.dtype]
+
+
+def _map_args(m: tuple):
+    if m[0] == "col":
+        return 0, m[1]
+    return 1, 0
+
+
+def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
+                scale: float = 1.0, exact: bool = False) -> None:
+    """Launch ``fourstep_pass_kernel`` of ``csrc/fourstep.cu`` once on the
+    current CUDA stream: pass ``p`` from ``src`` into ``dst`` (each a
+    complex64 / complex128 (B, N) tensor or a planar float32 pair; they may
+    be the same tensor for a column pass in place).  ``exact`` runs the
+    fp64 instantiation.  Each launch adds one to ``launch_pass.count``."""
+    from smfft_tpu_torch.ops import _cuda
+
+    ia, ib, ik = _operand(src, n, "src")
+    oa, ob, ok = _operand(dst, n, "dst")
+    first = src[0] if isinstance(src, tuple) else src
+    rows = first.shape[0]
+    rows_out = (dst[0] if isinstance(dst, tuple) else dst).shape[0]
+    if rows_out != rows:
+        raise ValueError(f"src has {rows} rows, dst {rows_out}")
+    rad = next((m[1] for m in (p.src, p.dst) if m[0] == "rows"), ())
+    if len(rad) > 4:
+        raise ValueError("a row map takes at most 4 radices")
+    rad = tuple(rad) + (0,) * (4 - len(rad))
+    nr = sum(1 for v in rad if v)
+    lib = _cuda.library()
+    dev = first.device
+    with torch.cuda.device(dev):
+        tw = C.device_twiddles(p.radix, bool(inverse), bool(exact), dev)
+        lo, hi = FS.device_roots(n, bool(inverse), bool(exact), dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.smfft_fourstep_pass(
+            ia, ib, ik, *_map_args(p.src), oa, ob, ok, *_map_args(p.dst),
+            nr, *rad, rows, n, p.radix, p.tw_s,
+            float(scale) if p.scaled else 1.0, tw.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), FS.lo_bits(n), int(inverse), int(exact), stream)
+    _cuda.check(err, f"fourstep pass launch (n={n}, radix={p.radix}, "
+                     f"batch={rows})")
+    launch_pass.count += 1
+
+
+launch_pass.count = 0
+
+
+def _alloc(like: torch.Tensor, rows: int, n: int, planar: bool):
+    if planar:
+        return tuple(torch.empty((rows, n), device=like.device)
+                     for _ in range(2))
+    return torch.empty((rows, n), dtype=torch.complex64, device=like.device)
+
+
+def run_passes(src, n: int, passes: tuple[Pass, ...], *,
+               inverse: bool = False, scale: float = 1.0,
+               exact: bool = False, dst=None, planar_out: bool | None = None):
+    """The transform of a plan: ``src`` a complex (B, N) tensor or a
+    planar pair.  Writes into ``dst`` when given (a complex64 /
+    complex128 tensor or a planar pair), else returns a new result in
+    src's form (complex64, or planar float32 when ``planar_out``).
+
+    CUDA: one launch a pass, the middle passes in place on one
+    intermediate (complex64, complex128 for ``exact``).  CPU: the plain
+    version at the tier's precision (``c2c.at_tier``)."""
+    planar_in = isinstance(src, tuple)
+    planar_out = planar_in if planar_out is None else planar_out
+    first = src[0] if planar_in else src
+    if C.is_cpu(first):
+        planes = src if planar_in else (src.real, src.imag)
+        yr, yi = transform_plain(*planes, n, passes, inverse, scale, exact)
+        if dst is None:
+            return (yr, yi) if planar_out else torch.complex(yr, yi)
+        if isinstance(dst, tuple):
+            dst[0].copy_(yr)
+            dst[1].copy_(yi)
+        else:
+            dst.copy_(torch.complex(yr, yi))
+        return dst
+    rows = first.shape[0]
+    if dst is None:
+        dst = _alloc(first, rows, n, planar_out)
+    tmp = torch.empty((rows, n) if len(passes) > 1 else (0,),
+                      device=first.device,
+                      dtype=torch.complex128 if exact else torch.complex64)
+    cur = src
+    for i, p in enumerate(passes):
+        out = dst if i == len(passes) - 1 else tmp
+        launch_pass(cur, out, n, p, inverse=inverse, scale=scale,
+                    exact=exact)
+        cur = tmp
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's planar entry points.
+# ---------------------------------------------------------------------------
+
+
+def _pair(vr: torch.Tensor, vi: torch.Tensor):
+    if vr.shape != vi.shape:
+        raise ValueError(f"planar pair shapes differ: {tuple(vr.shape)} vs "
+                         f"{tuple(vi.shape)}")
+    n = vr.shape[-1]
+    return (vr.to(torch.float32).reshape(-1, n).contiguous(),
+            vi.to(torch.float32).reshape(-1, n).contiguous())
+
+
+def dispatch_planar(vr: torch.Tensor, vi: torch.Tensor, *,
+                    inverse: bool = False, precision: str | None = None,
+                    scale: float = 1.0):
+    """Planar huge-N C2C dispatch behind planar.fft_large: row sizes (N <=
+    16384) go to the row kernel (``csrc/c2c.cu``), N = 2**15..2**17 to
+    rowfour's two passes, N = 2**18..2**28 to hugefft's plan."""
+    from smfft_tpu_torch import planar
+    from smfft_tpu_torch.ops import hugefft, rowfour
+    n = vr.shape[-1]
+    if n in P.SUPPORTED_C2C_SIZES:
+        return planar._run(vr, vi, precision, inverse=inverse, ordered=True,
+                           scale=scale if scale != 1.0 else None)
+    if n in rowfour.FACTORS:
+        return rowfour.fft_rowfour_planar(vr, vi, inverse=inverse,
+                                          precision=precision, scale=scale)
+    return hugefft.fft_huge_planar(vr, vi, inverse=inverse,
+                                   precision=precision, scale=scale)
+
+
+def fft_large_planar(vr: torch.Tensor, vi: torch.Tensor, *,
+                     inverse: bool = False, precision: str = "highest",
+                     scale: float = 1.0,
+                     factors: tuple[int, int] | None = None):
+    """Huge-N C2C over the last axis, planar fp32 in and out, natural
+    order, unnormalized unless ``scale``.  With ``factors`` = (n1, n2) the
+    JAX package's strided two-pass (B22, B23: the factors must lie in
+    [16, 2048]); without, the default plan (:func:`default_passes`)."""
+    from smfft_tpu_torch import api
+    n = vr.shape[-1]
+    if factors is not None:
+        n1, n2 = factors
+        if n1 * n2 != n:
+            raise ValueError(f"factors {n1}*{n2} != N={n}")
+        passes = factors_plan(n1, n2)
+    else:
+        FS.split_factors(n, 128)
+        passes = default_passes(n)
+    o_r, o_i = run_passes(_pair(vr, vi), n, passes, inverse=inverse,
+                          scale=scale, exact=api._exact(precision))
+    return o_r.reshape(vr.shape), o_i.reshape(vi.shape)
+
+
+def large_pass1_planar(vr: torch.Tensor, vi: torch.Tensor, n1: int, n2: int,
+                       *, inverse: bool = False, precision: str = "highest",
+                       scale: float = 1.0):
+    """Pass 1 of the strided two-pass alone (B22's function): (..., N)
+    planar -> the twiddled Bmat as planar (b * n2, n1), Bmat[b, t2, k1] =
+    scale * W_N^(t2 k1) * sum_t1 x[b, t1 n2 + t2] W_n1^(t1 k1)."""
+    from smfft_tpu_torch import api
+    n = n1 * n2
+    src = _pair(vr, vi)
+    o_r, o_i = run_passes(src, n, factors_plan(n1, n2)[:1], inverse=inverse,
+                          scale=scale, exact=api._exact(precision))
+    return o_r.reshape(-1, n1), o_i.reshape(-1, n1)

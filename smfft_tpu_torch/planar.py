@@ -17,6 +17,9 @@ switch, packing rule and normalization contract as
   * Any length n <= 8192 (``fft_any``): rows (..., n_pad), the signal in
     the first n lanes, n_pad = n rounded up to 128 -> the DFT in the same
     shape, lanes >= n exactly zero (Bluestein, one kernel pass).
+  * Huge N (``fft_large`` / ``ifft_large`` to 2^28, ``rfft_large`` /
+    ``irfft_large`` from 2^15 to 2^29): the same C2C and packed real
+    contracts, natural order, through the multi-pass kernels.
 The kernels read and write the planes directly, with no conversion pass.
 
 Unlike the JAX package's planar API, N = 32 / 64 work: the planes are
@@ -32,7 +35,11 @@ from smfft_tpu_torch import api, bluestein
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import chirp as CH
 from smfft_tpu_torch.ops import convolve as CV
+from smfft_tpu_torch.ops import fourstep as FS
+from smfft_tpu_torch.ops import fourstep_fused as FF
 from smfft_tpu_torch.ops import real as R
+from smfft_tpu_torch.ops import real_fused as RF
+from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES, SUPPORTED_REAL_SIZES
 
 
 def _rows(vr: torch.Tensor, vi: torch.Tensor):
@@ -151,3 +158,71 @@ def fft_any(vr: torch.Tensor, vi: torch.Tensor, n: int | None = None,
     o_r, o_i = CH.bluestein_planar(vr.reshape(-1, np_), vi.reshape(-1, np_),
                                    n, m, precision=precision)
     return o_r.reshape(batch + (np_,)), o_i.reshape(batch + (np_,))
+
+
+def _check_pair(vr: torch.Tensor, vi: torch.Tensor) -> None:
+    if vr.shape != vi.shape:
+        raise ValueError(f"planar pair shapes differ: {tuple(vr.shape)} vs "
+                         f"{tuple(vi.shape)}")
+
+
+def fft_large(vr: torch.Tensor, vi: torch.Tensor,
+              precision: str | None = None):
+    """Planar huge-N forward C2C FFT (N = 2**15..2**28, natural order) with
+    no conversion pass: the first pass reads the planes, the last writes
+    them.  Row sizes (N <= 16384) route to the row kernel."""
+    _check_pair(vr, vi)
+    n = vr.shape[-1]
+    if n not in SUPPORTED_C2C_SIZES:
+        FS.split_factors(n)   # raises the reference-style size error
+    return FF.dispatch_planar(vr, vi, precision=precision)
+
+
+def ifft_large(vr: torch.Tensor, vi: torch.Tensor,
+               precision: str | None = None,
+               norm: str | None = "backward"):
+    """Planar huge-N inverse C2C FFT; ``norm="backward"`` folds the 1/N
+    into the first pass, ``norm=None`` is the raw unnormalized inverse."""
+    _check_pair(vr, vi)
+    if norm not in ("backward", None):
+        raise ValueError(f"ifft_large supports norm='backward' or norm=None; "
+                         f"got {norm!r}")
+    n = vr.shape[-1]
+    if n not in SUPPORTED_C2C_SIZES:
+        FS.split_factors(n)
+    return FF.dispatch_planar(vr, vi, inverse=True, precision=precision,
+                              scale=1.0 / n if norm == "backward" else 1.0)
+
+
+def rfft_large(x: torch.Tensor, precision: str | None = None):
+    """Planar huge-N R2C (N = 2**15..2**29): real (..., N) -> packed planar
+    half-spectrum pair (..., N/2), slot 0 = (DC, Nyquist); unnormalized.
+    Sizes 256..16384 route to :func:`rfft`."""
+    n = x.shape[-1]
+    if n in SUPPORTED_REAL_SIZES and n >= 256:
+        return rfft(x, precision=precision)
+    FS._check_real_n(n)
+    if n < 1 << 15:
+        raise ValueError(f"Error wrong FFT length! N={n}; planar rfft_large "
+                         f"starts at 32768 (use rfft below)")
+    return RF.rfft_large_planar(x, precision=precision)
+
+
+def irfft_large(vr: torch.Tensor, vi: torch.Tensor, n: int | None = None,
+                precision: str | None = None,
+                norm: str | None = "backward"):
+    """Planar huge-N C2R: packed half-spectrum pair (..., N/2) -> real
+    (..., N).  ``norm="backward"`` gives the signal (the 1/(N/2) folded
+    into the merge), ``norm=None`` the reference's raw scale."""
+    _check_pair(vr, vi)
+    n = n or vr.shape[-1] * 2
+    if norm not in ("backward", None):
+        raise ValueError(f"irfft_large supports norm='backward' or "
+                         f"norm=None; got {norm!r}")
+    if n in SUPPORTED_REAL_SIZES and n >= 256:
+        return irfft(vr, vi, n=n, precision=precision, norm=norm)
+    FS._check_real_n(n)
+    if n < 1 << 15:
+        raise ValueError(f"Error wrong FFT length! N={n}")
+    return RF.irfft_large_planar(vr, vi, n, precision=precision,
+                                 normalize=norm == "backward")

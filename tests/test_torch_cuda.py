@@ -649,3 +649,146 @@ def test_power_and_bluestein_launchers_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="planar pair"):
         CH.launch_bluestein(xc.real.contiguous(), xc.imag[:2].contiguous(),
                             n=100, m=256)
+
+
+# ---------------------------------------------------------------------------
+# Huge N: fourstep_pass_kernel (csrc/fourstep.cu) and real_huge_kernel
+# (csrc/real_huge.cu).
+# ---------------------------------------------------------------------------
+
+from smfft_tpu_torch.ops import fourstep_fused as FF  # noqa: E402
+from smfft_tpu_torch.ops import hugefft  # noqa: E402
+from smfft_tpu_torch.ops import real_fused as RFU  # noqa: E402
+
+# every plan at a size, and every radix 16..2048 among their passes
+HUGE_CASES = [(1 << 15, None), (1 << 17, None), (1 << 18, "two:revisit"),
+              (1 << 18, "three"), (1 << 20, None), (1 << 21, "two:fold"),
+              (1 << 21, "five"), (1 << 22, None)]
+
+
+def huge_plain(x, n, passes, inverse, scale, exact):
+    """The plan's plain version on the card (complex in and out)."""
+    def run(xr, xi):
+        y = FF.passes_plain(torch.complex(xr, xi), n, passes, inverse, scale)
+        return y.real, y.imag
+    return torch.complex(*C.at_tier(run, exact, x.real, x.imag))
+
+
+@pytest.mark.parametrize("n,plan", HUGE_CASES)
+@pytest.mark.parametrize("exact", [False, True])
+def test_fourstep_pass_matches_plain_and_oracle(dev, n, plan, exact):
+    b = 3
+    x = rand_c(b, n, dev, seed=n % 1009)
+    passes = FF.default_passes(n) if plan is None else hugefft.passes(n,
+                                                                     plan)
+    for inverse in (False, True):
+        want = oracle(x, inverse) * 0.5
+        plain = huge_plain(x, n, passes, inverse, 0.5, exact)
+        got_c = FF.run_passes(x, n, passes, inverse=inverse, scale=0.5,
+                              exact=exact)
+        gr, gi = FF.run_passes((x.real.contiguous(), x.imag.contiguous()), n,
+                               passes, inverse=inverse, scale=0.5,
+                               exact=exact)
+        torch.cuda.synchronize()
+        for got in (got_c, torch.complex(gr, gi)):
+            assert max_err(got, plain) < bound(n)
+            assert max_err(got, want) < bound(n)
+            if exact:
+                assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+def test_fourstep_factors_plan_and_pass1(dev):
+    """The strided two-pass (B22/B23) and its pass-1 intermediate."""
+    n1 = n2 = 512
+    n = n1 * n2
+    x = rand_c(2, n, dev, seed=5)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    o_r, o_i = FF.fft_large_planar(xr, xi, factors=(n1, n2), scale=0.25)
+    assert max_err(torch.complex(o_r, o_i), oracle(x, False) * 0.25) \
+        < bound(n)
+    br, bi = FF.large_pass1_planar(xr, xi, n1, n2, scale=0.25)
+    want = huge_plain(x, n, FF.factors_plan(n1, n2)[:1], False, 0.25,
+                      False).reshape(-1, n1)
+    assert max_err(torch.complex(br, bi), want) < bound(n1)
+
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 18])
+@pytest.mark.parametrize("mode", ["pair", "halfc"])
+@pytest.mark.parametrize("layout", ["planar", "packed", "numpy"])
+@pytest.mark.parametrize("exact", [False, True])
+def test_real_huge_matches_plain_and_oracle(dev, n, mode, layout, exact):
+    for b in (1, 4):
+        x = rand_r(b, n, dev, seed=b)
+        got = RFU.rfft_large_rows(x, layout, exact, mode)
+        plain = RFU.rfft_large_rows(x.cpu(), layout, exact, mode)
+        pr, pi = R.from_layout(*(got if isinstance(got, tuple)
+                                 else (got, None)), layout, n // 2)
+        spec = R.to_layout(pr, pi, "numpy")
+        want = torch.fft.rfft(x.double())
+        back = RFU.irfft_large_rows(*(got if isinstance(got, tuple)
+                                      else (got, None)), n, layout, exact,
+                                    2.0 / n, mode)
+        torch.cuda.synchronize()
+        got_t = got if isinstance(got, tuple) else (got,)
+        plain_t = plain if isinstance(plain, tuple) else (plain,)
+        assert max(max_err(g, p.to(dev)) for g, p in zip(got_t, plain_t)) \
+            < bound(n)
+        assert max_err(spec, want) < bound(n)
+        assert max_err(back, x) < bound(n)
+        if exact:
+            assert max_err(spec, want) <= 2 * ulp(want.abs().max().item())
+
+
+def test_large_apis_go_through_kernels_and_backward(dev):
+    """fft_large / ifft_large launch the pass kernel once a pass and
+    nothing else; rfft_large / irfft_large add one real_huge launch; sizes
+    <= 16384 run the row kernels; the backward of fft_large is a kernel
+    run too."""
+    import smfft_tpu_torch as T
+    n = 1 << 18
+    x = rand_c(2, n, dev, seed=3)
+    xr = rand_r(4, 1 << 16, dev, seed=4)
+    fs = {"pass": FF.launch_pass, "real": RFU.launch_real_huge,
+          "c2c": C.launch, "r2c": R.launch_r2c}
+    before = {k: f.count for k, f in fs.items()}
+
+    def delta():
+        return {k: f.count - before[k] for k, f in fs.items()}
+    y = T.fft_large(x)
+    back = T.ifft_large(y)
+    hr, hi = T.planar.rfft_large(xr)
+    xb = T.planar.irfft_large(hr, hi)
+    torch.cuda.synchronize()
+    two = len(FF.default_passes(n))
+    assert delta() == {"pass": 2 * two + 4, "real": 2, "c2c": 0, "r2c": 0}
+    assert max_err(back, x) < bound(n)
+    assert max_err(xb, xr) < bound(1 << 16)
+    T.fft_large(x[:, :16384].contiguous())
+    T.rfft_large(xr[:, :4096].contiguous())
+    assert delta()["c2c"] == 1 and delta()["r2c"] == 1
+    xg = x.clone().requires_grad_(True)
+    (T.fft_large(xg).abs() ** 2).sum().backward()
+    x64 = x.to(torch.complex128).requires_grad_(True)
+    (torch.fft.fft(x64).abs() ** 2).sum().backward()
+    rel = (xg.grad - x64.grad).abs().max() / x64.grad.abs().max()
+    assert rel.item() < 1e-5
+
+
+def test_huge_launchers_refuse_what_they_cannot_take(dev):
+    n = 1 << 15
+    x = rand_c(2, n, dev)
+    p = FF.default_passes(n)[0]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FF.launch_pass(x.cpu(), x, n, p)
+    with pytest.raises(TypeError, match="complex64 or complex128"):
+        FF.launch_pass(x.real.contiguous(), x, n, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        FF.launch_pass(x[:, ::2], x, n, p)
+    with pytest.raises(ValueError, match="rows"):
+        FF.launch_pass(x, x[:1].contiguous(), n, p)
+    with pytest.raises(ValueError, match="unknown mode"):
+        RFU.launch_real_huge("split", x, x, n)
+    with pytest.raises(ValueError, match="do not match"):
+        RFU.launch_real_huge("halfc_split", x[:, :n // 2].contiguous(),
+                             torch.empty((3, n // 2), dtype=torch.complex64,
+                                         device=dev), n)
