@@ -97,7 +97,9 @@ Phases (each failure exits non-zero at once):
      at N = 2^15 (4096 rows), 2^20 (128), 2^24 (8), 2^27 (1), ``ifft_large``
      and an "exact" ``fft_large`` at 2^20, ``planar.rfft_large`` /
      ``irfft_large`` at n = 2^20 (128 rows, pair) and 2^27 (1 row, halfc),
-     one ``fft_large`` backward at 2^20; beside the same-run ``copy_``, the
+     one ``fft_large`` backward at 2^20, the JAX package's strided two-pass
+     ``fft_large_planar(factors=(1024, 1024))`` at 2^20 (B22 + B23);
+     beside the same-run ``copy_``, the
      plain version and ``torch.fft.fft`` / ``rfft`` / ``irfft``.  After the
      counters are read, the pair split alone at 2^27 samples.
   Before each of the main paths 4, 5, 8, 10, 12, 14 and 16 every launch
@@ -1854,6 +1856,27 @@ def phase_main_huge(card: str):
             if not e.item() < 1e-5 or g.shape != x.shape:
                 fail("fft_large backward disagrees with torch.fft's")
             del xg, x64, g
+            # the JAX package's strided two-pass (B22 / B23), 1024 x 1024
+            fac = FF.factors_plan(1024, 1024)
+            o_r, o_i = FF.fft_large_planar(xr, xi, factors=(1024, 1024))
+            calls["fourstep_pass"] += len(fac)
+            got = torch.complex(o_r, o_i)
+            del o_r, o_i
+            check_rows(got, x, False, None,
+                       "fft_large_planar factors=(1024, 1024) N=2^20")
+            worst["fourstep_pass"] = max(worst["fourstep_pass"], check_all(
+                got, torch.complex(*FF.transform_plain(xr, xi, n, fac)), n,
+                "fft_large_planar factors=(1024, 1024) N=2^20"))
+            del got
+            rows.append(time_path(
+                f"fft_large_planar factors=(1024, 1024) N=2^20 batch={b} "
+                "(B22 + B23)", card,
+                lambda: FF.fft_large_planar(xr, xi, factors=(1024, 1024)),
+                lambda: FF.transform_plain(xr, xi, n, fac),
+                lambda: torch.fft.fft(x), "torch.fft.fft", x,
+                16.0 * MAIN_POINTS, 5.0 * MAIN_POINTS * math.log2(n)))
+            rows[-1]["n"] = n
+            calls["fourstep_pass"] += len(fac) * (1 + REPS_CONV)
         del x, xr, xi
         torch.cuda.empty_cache()
     for n in (1 << 20, 1 << 27):

@@ -125,6 +125,12 @@ class _OrderedC2C(torch.autograd.Function):
                 None, None, None)
 
 
+def _as_complex(x: torch.Tensor) -> torch.Tensor:
+    """A real input as complex64, as the JAX package promotes it; complex
+    tensors (complex128 included) pass unchanged."""
+    return x if x.is_complex() else x.to(torch.complex64)
+
+
 def _exact(precision: str | None) -> bool:
     """Resolve the tier; True when it runs the "exact" instantiation."""
     return _resolve_precision(precision) == "exact"
@@ -132,6 +138,7 @@ def _exact(precision: str | None) -> bool:
 
 def _c2c(x: torch.Tensor, inverse: bool, ordered: bool, backend: str,
          precision: str | None, scale: float | None) -> torch.Tensor:
+    x = _as_complex(x)
     n = x.shape[-1]
     C.check_size(n)
     exact = _exact(precision)
@@ -152,8 +159,9 @@ def fft(x: torch.Tensor, ordered: bool = True, backend: Backend = "auto",
     Args:
       x: complex64 (..., N), N in ``SUPPORTED_C2C_SIZES``.  For N < 128 the
         batch must be a multiple of 128/N (the reference's packing rule).
-        CPU tensors may also be complex128 (the plain version is
-        dtype-generic); the CUDA kernel takes complex64 only.
+        A real tensor is promoted to complex64.  CPU tensors may also be
+        complex128 (the plain version is dtype-generic); the CUDA kernel
+        takes complex64 only.
       ordered: natural-order output (reference ``fft_reorder=1``); False
         returns revblock (``fft_reorder=0``).  Only the ordered form is
         differentiable.
@@ -179,6 +187,7 @@ def ifft_unordered(x: torch.Tensor, backend: Backend = "auto",
     """Inverse C2C FFT consuming the layout ``fft(ordered=False)`` produces
     (revblock; bit-reversed for ``backend="spec"``) and returning natural
     order in one kernel pass: the relayout-free convolution round trip."""
+    x = _as_complex(x)
     n = x.shape[-1]
     C.check_size(n)
     exact = _exact(precision)
@@ -338,6 +347,7 @@ def irfft(x: torch.Tensor, n: int | None = None, backend: Backend = "auto",
     ``norm=None`` returns the reference's raw (N/2)-scaled output
     (SMFFT_Stockham_R2C_C2R/FFT.c:170-171).  The numpy-layout form is
     differentiable."""
+    x = _as_complex(x)
     if n is None:
         n = (x.shape[-1] - 1) * 2 if not packed else x.shape[-1] * 2
     R.check_size(n)
@@ -458,8 +468,7 @@ def convolve(x: torch.Tensor, h: torch.Tensor, backend: Backend = "auto",
                          f"{tuple(h.shape)}")
     exact = _exact(precision)
     _check_backend(backend)
-    if not x.is_complex():
-        x = x.to(torch.complex64)
+    x = _as_complex(x)
     if backend == "spec":
         spec = fft(x, backend="spec")
         spec = spec[None] * h.reshape((h.shape[0],) + (1,) * (x.dim() - 1)
@@ -534,7 +543,8 @@ def fft_large(x: torch.Tensor, backend: Backend = "auto",
     """Forward C2C FFT for huge power-of-two N (2**15..2**28), batched over
     leading axes: the multi-pass four-step (ops/fourstep_fused.py, one
     launch of ``csrc/fourstep.cu`` per pass).  Sizes <= 16384 route to
-    :func:`fft`.  Differentiable."""
+    :func:`fft`.  A real input is promoted to complex64.  Differentiable."""
+    x = _as_complex(x)
     n = x.shape[-1]
     if n in SUPPORTED_C2C_SIZES:
         return fft(x, backend=backend, precision=precision)
@@ -550,6 +560,7 @@ def ifft_large(x: torch.Tensor, backend: Backend = "auto",
     """Inverse of :func:`fft_large`.  ``norm="backward"`` divides by N
     (numpy, folded into the first pass); ``norm=None`` is the reference's
     raw unnormalized inverse."""
+    x = _as_complex(x)
     if norm not in ("backward", None):
         raise ValueError(
             f"ifft_large supports norm='backward' (numpy) or norm=None "

@@ -1,17 +1,22 @@
-"""Time the C2C kernel of one or more checkouts of smfft_tpu_torch on one
-GPU, in turns, so that two versions are compared on the same card in one
-run.
+"""Time the C2C, Bluestein and huge-N paths of one or more checkouts of
+smfft_tpu_torch on one GPU, in turns, so that two versions are compared
+on the same card in one run.
 
     python -m smfft_tpu_torch.c2c_ab PARENT_ROOT . . PARENT_ROOT
 
-Each root runs in its own process (each builds its own kernels): ``fft``
-and ``planar.fft`` at N = 1024, 4096, 16384 with 2^27 complex points per
-call, precision "highest", the median of 25 (``fft``) or 15
-CUDA-event-timed calls after a warm-up, beside a same-run ``copy_`` of the
-same bytes.  Prints one JSON line per root and the registers and spills
-ptxas gave each C2C, R2C, C2R, reuse-loop, convolution, power and
-Bluestein kernel instantiation in that root's build, whether those are
-the same in every root, then the card.
+Each root runs in its own process (each builds its own kernels), with
+about 2^27 complex points per call, precision "highest":
+
+  * ``fft`` and ``planar.fft`` at N = 1024, 4096, 16384, the median of 25
+    (``fft``) or 15 CUDA-event-timed calls after a warm-up, beside a
+    same-run ``copy_`` of the same bytes;
+  * ``fft_any`` at n = 1000 (131072 rows) and 4097 (32768 rows), and
+    ``fft_large`` at N = 2^15, 2^20, 2^24, 2^27, the median of 15.
+
+Prints one JSON line per root and the registers and spills ptxas gave each
+instantiation of the kernels this change leaves alone (C2C, R2C, C2R,
+reuse loops, convolution, power, huge-N real) in that root's build,
+whether those are the same in every root, then the card.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from smfft_tpu_torch.ops._cuda import register_report
 SHARED_KERNELS = ("c2c_kernel", "r2c_kernel", "c2r_kernel",
                   "c2c_multiple_kernel", "real_multiple_kernel",
                   "conv_kernel", "conv_real_kernel", "power_kernel",
-                  "bluestein_kernel")
+                  "real_huge_kernel")
 
 CHILD = r"""
 import json, statistics, sys
@@ -60,6 +65,20 @@ for n in (1024, 4096, 16384):
                         "copy_ms": ms(lambda: dst.copy_(x))})
     del x, xr, xi, dst
     torch.cuda.empty_cache()
+for n, b in ((1000, 1 << 17), (4097, 1 << 15)):
+    x = torch.complex(torch.rand((b, n), generator=gen, device="cuda"),
+                      torch.rand((b, n), generator=gen, device="cuda"))
+    out["rows"].append({"n": n, "fft_any_ms": ms(lambda: T.fft_any(x))})
+    del x
+    torch.cuda.empty_cache()
+for n in (1 << 15, 1 << 20, 1 << 24, 1 << 27):
+    x = torch.complex(torch.rand(((1 << 27) // n, n), generator=gen,
+                                 device="cuda"),
+                      torch.rand(((1 << 27) // n, n), generator=gen,
+                                 device="cuda"))
+    out["rows"].append({"n": n, "fft_large_ms": ms(lambda: T.fft_large(x))})
+    del x
+    torch.cuda.empty_cache()
 print(json.dumps(out), flush=True)
 """
 
@@ -86,7 +105,7 @@ def main(argv=None) -> int:
         for r in regs:
             print(f"  ptxas {Path(root).name or root}: {r}")
     reports = [r for r in reports if r]  # a root's older build: no log
-    print(f"c2c / r2c / c2r / multiple / conv / power / bluestein "
+    print(f"c2c / r2c / c2r / multiple / conv / power / real_huge "
           f"instantiations report the same "
           f"registers and spills in the {len(reports)} roots with a ptxas "
           f"report: "

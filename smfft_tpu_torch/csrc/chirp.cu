@@ -21,88 +21,131 @@
 // 2048) 131072 rows move 2.1 GB, 0.63 ms at 3.35 TB/s, against 0.44 ms of
 // fp32 operations at 67 TFLOP/s; at n = 4097 (m = 16384) 32768 rows take
 // 1.12 ms of operations against 0.64 of bytes.  The zero-extended signal
-// and the convolution exist only in shared memory and registers.
+// and the convolution exist only in shared memory and registers, so the
+// kernel follows its in-block core.
 //
-// Design: conv_kernel (conv.cu) at one filter, with a row width that is
-// not the transform length:
+// Design, on the Hopper core of hcore.cuh:
+//   * one row a block from m = 512 up (F rows below, 128 threads), so a
+//     barrier waits for one row's warps only; E = 16 points a thread (32 at
+//     m >= 8192), two row buffers (one barrier a stage) where they take at
+//     most 72 KB, else one in place; the blocks an SM and the register cap
+//     follow from the shared memory (BlueGeometry::MINB);
 //   * the load reads the n points of a row through stockham.cuh's Io
-//     (interleaved or planar, stride ld) and multiplies the pre-chirp in;
-//     points n..m-1 are zeros that exist only in the first stage's
-//     registers;
-//   * the forward m-point core leaves the spectrum in registers in natural
-//     order, so H is read in natural order (no revblock re-index, unlike
-//     the TPU kernel), multiplied, and handed to the inverse core through
-//     shared memory (stockham.cuh::handoff);
-//   * the inverse core's last stage gives natural points; the first n are
-//     multiplied by the post-chirp and the scale and stored, the rest of
-//     the row (lanes n..ld-1) is stored as zeros.  Both last stages hand
-//     their butterflies' outputs to the product unrounded
-//     (stockham.cuh::last_stage_then), which keeps the "exact" tier at m = 16384, whose
-//     shared memory is fp32, two roundings closer to float64.
-//   * The spectrum is held in registers across the product as in
-//     conv_kernel, so the kernel takes ConvBudget's register budget.
+//     (interleaved or planar, stride ld) straight into the registers of the
+//     first stage and multiplies the pre-chirp in.  The points j >= m/2 are
+//     zeros (m >= 2n - 1), so the first forward stage reads and transforms
+//     only its operands r < 8;
+//   * thread t holds the points t + s*TPF both after the forward core's
+//     last stage and before the inverse core's first, so the product with
+//     H (natural order, coalesced __ldg) happens in registers and the
+//     inverse core starts at once: no hand-off through shared memory, and
+//     with two buffers not even a barrier between the two cores;
+//   * the inverse core's last stage computes only the points k < m/2 (n <=
+//     m/2 are stored): the first n times the post-chirp and the scale, the
+//     rest of the row (lanes n..ld-1) as zeros;
+//   * both products (H, the post-chirp) take the last stages' outputs
+//     unrounded; the registers between the stages hold the storage type
+//     (fp32 for "exact" at m = 16384, whose registers could not hold 32
+//     fp64 points a thread at 512 threads without spilling);
+//   * the stage twiddles are read from the block's table in shared memory
+//     (filled from the forward W_m table; the inverse core conjugates);
 //   * "exact": fp64 arithmetic, chirps, response and twiddles, fp64 shared
-//     memory up to m = 8192 and fp32 at 16384 (Geometry), as conv.cu.
-//   * 64-bit offsets; the ragged tail of the batch is masked; the launcher
-//     returns cudaGetLastError() right after the launch.
+//     memory up to m = 8192 and fp32 at 16384 (as Geometry);
+//   * 64-bit offsets; rows past the batch compute on zeros and store
+//     nothing; the launcher returns cudaGetLastError() right after the
+//     launch.
 
-#include "stockham.cuh"
+#include "hcore.cuh"
 
 namespace {
 
 using namespace smfft;
 
-template <int M, int TPF, int F, int MINB, typename C, typename S>
-__global__ void __launch_bounds__(TPF * F, MINB)
+// The block layout of an m-point Bluestein row.
+template <int M, bool EXACT>
+struct BlueGeometry {
+    using C = typename std::conditional<EXACT, double2, float2>::type;
+    using S = typename std::conditional<EXACT && M <= 8192, double2,
+                                        float2>::type;
+    static constexpr int E = M >= 8192 ? 32 : 16;
+    static constexpr int TPF = M / E;
+    static constexpr int F = TPF >= 128 ? 1 : 128 / TPF;  // rows a block
+    static constexpr int THREADS = TPF * F;
+    static constexpr int SLOT = M + M / 16;                // padded row
+    static constexpr bool PP = 2 * SLOT * sizeof(S) <= 72 * 1024;
+    using Core = hc::Core<M, TPF, true, PP>;
+    static constexpr size_t SMEM =
+        (PP ? 2 : 1) * F * SLOT * sizeof(S) + Core::TAB * sizeof(C);
+    // blocks an SM: what the shared memory allows (1 KB of it reserved a
+    // block), at most 20 warps for fp32 (102 registers a thread), 8 for
+    // "exact" (255); __launch_bounds__ derives the register cap from it
+    static constexpr int BY_SMEM = (int)(233472 / (SMEM + 1024));
+    static constexpr int BY_WARPS = (EXACT ? 256 : 640) / THREADS;
+    static constexpr int MINB =
+        BY_SMEM < BY_WARPS ? (BY_SMEM > 0 ? BY_SMEM : 1)
+                           : (BY_WARPS > 0 ? BY_WARPS : 1);
+    static unsigned blocks(int64_t batch) {
+        return (unsigned)((batch + F - 1) / F);
+    }
+};
+
+template <int M, bool EXACT>
+__global__ void __launch_bounds__(BlueGeometry<M, EXACT>::THREADS,
+                                  BlueGeometry<M, EXACT>::MINB)
 bluestein_kernel(Io io, int64_t batch, int n, int64_t ld,
-                 const C* __restrict__ chirp, const C* __restrict__ h,
-                 const C* __restrict__ tw_f, const C* __restrict__ tw_i,
+                 const typename BlueGeometry<M, EXACT>::C* __restrict__ chirp,
+                 const typename BlueGeometry<M, EXACT>::C* __restrict__ h,
+                 const typename BlueGeometry<M, EXACT>::C* __restrict__ tw,
                  double scale) {
+    using G = BlueGeometry<M, EXACT>;
+    using C = typename G::C;
+    using S = typename G::S;
+    using Core = typename G::Core;
     using T = real_t<C>;
+    constexpr int E = G::E, TPF = G::TPF;
     S* smem = shared_buffer<S>();
-    constexpr int E = M / TPF;  // points per thread
-    constexpr int RL = Ladder<M>::RL;
-    const int64_t first = (int64_t)blockIdx.x * F;  // first row
+    C* tab = reinterpret_cast<C*>(smem + (G::PP ? 2 : 1) * G::F * G::SLOT);
+    Core::fill(tab, tw, threadIdx.x, G::THREADS);
     const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
-    const bool live = first + f < batch;
-    const int64_t row = (first + f) * ld;  // this row's first point
-    S* buf = smem + f * M;
+    const int64_t first = (int64_t)blockIdx.x * G::F + f;  // this row
+    const bool live = first < batch;
+    const int64_t row = first * ld;  // this row's first point
+    S* a = smem + f * (G::PP ? 2 : 1) * G::SLOT;
+    S* b = G::PP ? a + G::SLOT : a;
 
-    // x[j] w[j] for j < n, zeros up to m
-    constexpr int Q0 = E / 8;
-    S u[Q0][8];
+    // x[j] w[j] for j = t + s*TPF < n, held in the storage type; the
+    // points j >= M/2 (s >= E/2) are zeros that the first stage never reads
+    S u[E];
 #pragma unroll
-    for (int q = 0; q < Q0; ++q)
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-            const int j = t + q * TPF + r * (M / 8);
-            C v = cmake(T(0), T(0));
-            if (live && j < n)
-                v = cmul(as<C>(io.load(row + j)), __ldg(&chirp[j]));
-            put(u[q][r], v);
-        }
-    first_stage<M, TPF>(u, buf, t, tw_f, T(-1), T(1));
-    middle_stages<M, TPF>(buf, t, tw_f, T(-1));
-    // the spectrum times H, bin t + q*TPF + r*M/RL, natural order
-    constexpr int QL = E / RL;
-    S g[QL][RL];
-    last_stage_then<M, TPF>(buf, t, tw_f, T(-1), [&](int q, int r, C v) {
-        put(g[q][r], cmul(v, __ldg(&h[t + q * TPF + r * (M / RL)])));
-    });
-    handoff<M, TPF>(buf, t, g, false, u);
-    first_stage<M, TPF>(u, buf, t, tw_i, T(1), T(1));
-    middle_stages<M, TPF>(buf, t, tw_i, T(1));
-    if (!live) return;  // no barrier follows
-
-    // point k of the convolution, k < n, times the post-chirp and the scale
-    const T s = T(scale);
-    last_stage_then<M, TPF>(buf, t, tw_i, T(1), [&](int q, int r, C v) {
-        const int k = t + q * TPF + r * (M / RL);
-        if (k < n) {
+    for (int s = 0; s < E / 2; ++s) {
+        const int j = t + s * TPF;
+        C v = cmake(T(0), T(0));
+        if (live && j < n) v = cmul(as<C>(io.load(row + j)), __ldg(&chirp[j]));
+        put(u[s], v);
+    }
+    __syncthreads();  // the twiddle table
+    // the forward core; each spectrum point t + s*TPF times H, unrounded,
+    // into the registers that the inverse core's first stage takes
+    Core::template run_regs<true, false>(
+        u, a, b, t, tab, false, T(-1),
+        [&](int s, C v) { return cmul(v, __ldg(&h[t + s * TPF])); });
+    if (!Core::LAST_READS_B) __syncthreads();
+    // the inverse core; point k = t + s*TPF < n times the post-chirp and
+    // the scale, unrounded (the lower half, s < E/2, holds every k < M/2)
+    const T sc = T(scale);
+    Core::template run_regs<false, true>(
+        u, a, b, t, tab, true, T(1), [&](int s, C v) {
+            const int k = t + s * TPF;
+            if (k >= n) return v;
             v = cmul(v, __ldg(&chirp[k]));
-            io.store(row + k, as<float2>(cmake(s * v.x, s * v.y)));
-        }
-    });
+            return cmake(sc * v.x, sc * v.y);
+        });
+    if (!live) return;  // no barrier follows
+#pragma unroll
+    for (int s = 0; s < E / 2; ++s) {
+        const int k = t + s * TPF;
+        if (k < n) io.store(row + k, as<float2>(u[s]));
+    }
     for (int64_t k = n + t; k < ld; k += TPF)
         io.store(row + k, make_float2(0.0f, 0.0f));
 }
@@ -110,18 +153,16 @@ bluestein_kernel(Io io, int64_t batch, int n, int64_t ld,
 template <int M, bool EXACT>
 cudaError_t launch_bluestein(const Io& io, int64_t batch, int n, int64_t ld,
                              const void* chirp, const void* h,
-                             const void* tw_f, const void* tw_i, double scale,
+                             const void* tw_f, double scale,
                              cudaStream_t stream) {
-    using G = Geometry<M, EXACT>;
+    using G = BlueGeometry<M, EXACT>;
     using C = typename G::C;
-    auto kernel = bluestein_kernel<M, G::TPF, G::F, ConvBudget<M, EXACT>::MINB,
-                                   C, typename G::S>;
+    auto kernel = bluestein_kernel<M, EXACT>;
     cudaError_t err = allow_smem(kernel, G::SMEM);
     if (err != cudaSuccess) return err;
     kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(
         io, batch, n, ld, static_cast<const C*>(chirp),
-        static_cast<const C*>(h), static_cast<const C*>(tw_f),
-        static_cast<const C*>(tw_i), scale);
+        static_cast<const C*>(h), static_cast<const C*>(tw_f), scale);
     return cudaGetLastError();
 }
 
@@ -134,14 +175,14 @@ extern "C" {
 // scale in lanes 0..n-1, zeros in lanes n..ld-1.  m: the circular length,
 // a power of two in 32..16384 with m >= 2n - 1.  chirp (n,): w[j] (its
 // conjugate for the inverse); h (m,): DFT_m(b) / m in natural order (its
-// conjugate for the inverse); tw_f, tw_i = W_m^{-+j}, j < m; all complex
-// (re, im) pairs, float32, or float64 when exact != 0.  Returns a
-// cudaError_t (0 on success).
+// conjugate for the inverse); tw_f = W_m^{-j}, j < m (the inverse core
+// conjugates it); all complex (re, im) pairs, float32, or float64 when
+// exact != 0.  Returns a cudaError_t (0 on success).
 int smfft_bluestein(const void* in_re, const void* in_im, void* out_re,
                     void* out_im, int interleaved, int64_t batch, int64_t n,
                     int64_t ld, int64_t m, const void* chirp, const void* h,
-                    double scale, const void* tw_f, const void* tw_i,
-                    int exact, void* stream) {
+                    double scale, const void* tw_f, int exact,
+                    void* stream) {
     if (batch <= 0) return (int)cudaSuccess;
     if (n < 1 || ld < n || 2 * n - 1 > m) return (int)cudaErrorInvalidValue;
     Io io;
@@ -156,10 +197,10 @@ int smfft_bluestein(const void* in_re, const void* in_im, void* out_re,
     case MM:                                                                \
         return (int)(exact ? launch_bluestein<MM, true>(io, batch, nn, ld,  \
                                                         chirp, h, tw_f,     \
-                                                        tw_i, scale, st)    \
+                                                        scale, st)          \
                            : launch_bluestein<MM, false>(io, batch, nn, ld, \
                                                          chirp, h, tw_f,    \
-                                                         tw_i, scale, st));
+                                                         scale, st));
     switch (m) {
         SMFFT_CASE(32)
         SMFFT_CASE(64)

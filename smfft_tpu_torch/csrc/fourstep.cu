@@ -35,187 +35,366 @@
 // intermediates) against ~5 R log2 R flops a transform, so a pass is bound
 // by device memory, and a p-pass plan costs p times the bytes of a
 // single-pass row kernel.  The design keeps each pass at one read and one
-// write of device memory:
-//   * a block holds T transforms of R points in shared memory (T = 8 at R
-//     >= 1024, 4 for "exact", and 4096/R below: 64-128 KB at the largest
-//     radices), one padded slot of R + 1 points each, so that the
-//     column-major staging does not hit one bank;
-//   * the load and the store are cooperative: with stride 1 consecutive
-//     threads take consecutive points of a row, otherwise consecutive
-//     transforms (the T adjacent columns), so every warp reads or writes
-//     T * 8 >= 32 contiguous bytes for complex64;
-//   * between the load and the store the transform runs through the
-//     Stockham core of stockham.cuh (first stage with the scale, radix-8
-//     middle stages, last stage), and the twiddle is applied to the last
-//     stage's outputs unrounded, from an exact integer exponent and two
-//     small float64-computed tables (huge.cuh's root): no sincos of an fp32
-//     angle;
-//   * the passes of a plan run in place on one intermediate buffer (blocks
-//     own disjoint sets of points and read all of theirs before writing);
+// write of device memory and keeps both moving while the block computes:
+//   * a tile is T transforms of R points (PassTile): T = 16 for complex64
+//     and 8 for complex128 (128 contiguous bytes a row of a column tile;
+//     more at small R), one slot of LD points each in shared memory;
+//   * a persistent grid (as many blocks as fit on the card) walks the
+//     tiles, with two tile buffers: tile i+1 is in flight while tile i is
+//     transformed and stored.  At R = 1024 two tiles of a 128-byte segment
+//     do not fit in 227 KB, so it takes two of half a segment (64 bytes a
+//     row; one buffer of a full segment measured 2.2 ms a pass at 2^20
+//     against 1.2 at R = 512 with two); at R = 2048 even that does not fit,
+//     and one buffer of half a segment overlaps tile i+1's load with tile
+//     i's store only;
+//   * the loads are 16-, 8- or 4-byte cp.async straight into the slots
+//     (the element is the load: a complex128, a complex64, or one plane of
+//     a planar pair into its half), issued by every thread in the layout
+//     the index map gives contiguous addresses (transform-fastest for a
+//     column map, point-fastest for a row map); no register staging.  TMA
+//     was not chosen: its tensor maps would be encoded on the host per
+//     operand and shape, its boxes cannot follow the digit-reversed row
+//     map, and a slot is padded per transform, which an 8-byte copy
+//     addresses freely.  Where the element types differ (the "exact"
+//     tier's complex64 or planar input) the load is a plain load and a
+//     widening store;
+//   * the transform runs on hcore.cuh's core straight from the staged slot
+//     (its first stage reads the tile, its last returns registers) with
+//     the lanes of a warp across FW adjacent transforms (16 complex64, 8
+//     complex128), so every stage's shared-memory access is conflict-free
+//     by the slot stride LD = R + 1 alone (R >= 1024: padded points), and
+//     the last stage's registers store straight to a column map, 128
+//     contiguous bytes a half warp; only a row map out (B22's pass 1)
+//     goes back through the slot;
+//   * the twiddle is applied to the last stage's outputs unrounded, from an
+//     exact integer exponent and two small float64-computed tables
+//     (huge.cuh's root): no sincos of an fp32 angle.  W_N^(mul k) for k = t
+//     + s*TPF is W_N^(mul t), one root a thread, times W_N^(mul TPF s) from
+//     a per-tile table in shared memory, so the scattered reads of the root
+//     tables are a few a thread, not two a point;
+//   * the passes of a plan run in place on one intermediate buffer (a tile
+//     owns its transforms' points, and a prefetched tile is disjoint from
+//     the one being stored);
 //   * "exact": fp64 arithmetic, shared memory and tables, and complex128
 //     intermediates between the passes (ops/fourstep_fused.py), so the only
 //     fp32 rounding is the output's;
-//   * 64-bit offsets (b * N passes 2^31 points at N = 2^28, b = 8); the
-//     ragged tail of the transforms is masked; the launcher returns
-//     cudaGetLastError() right after the launch.
+//   * index maps by shifts (every size is a power of two), 64-bit offsets
+//     (b * N passes 2^31 points at N = 2^28, b = 8); the ragged tail of the
+//     transforms is masked; the launcher returns cudaGetLastError() right
+//     after the launch.
 
+#include "hcore.cuh"
 #include "huge.cuh"
 
 namespace {
 
 using namespace smfft;
 
-// One side of a pass: the operand and its index map (0 column of stride s,
-// 1 digit-reversed row).
-struct Side {
-    Cells cells;
-    int map;
-    int64_t s;
-};
-
-// The radices of a digit-reversed row map, d1's first.
-struct Digits {
+// One pass: the operands, their index maps (0 column of stride 2^ls, 1
+// digit-reversed row over the radices 2^lr[i]) and the twiddle.
+struct PassArgs {
+    Cells in, out;
+    int in_map, out_map;
+    int in_ls, out_ls;
     int nr;
-    int64_t r[4];
+    int lr[4];
+    int log_n, log_pr;   // log2 N, log2 (N / R)
+    int64_t total;       // transforms: batch * N / R
+    int64_t tw_mask;     // tw_s - 1, or -1 without the twiddle
+    int log_tw_step;     // log2 (N / (R tw_s))
+    int lo_bits;
 };
 
-// Block layout of a pass of radix R: T transforms a block, E points a
-// thread (32 at R = 2048, 16 below), TPF = R / E threads a transform.
+// The largest t <= t0 (halving) whose t slots of `slot` bytes fit `budget`.
+constexpr int fit_tile(int t0, int slot, int budget) {
+    return t0 > 1 && t0 * slot > budget ? fit_tile(t0 / 2, slot, budget)
+                                        : t0;
+}
+
+// The tile layout of a pass of radix R (models/hcore.py pass_geometry):
+// T transforms a tile (at least a 128-byte segment, more at small R, as
+// many as fit 140 KB), two tile buffers where they fit, else two of half a
+// segment (R = 1024) where that fits, else one (R = 2048); points padded
+// inside a slot where a tile is narrower than a segment.
 template <int R, bool EXACT>
-struct PassGeometry {
+struct PassTile {
     using C = typename std::conditional<EXACT, double2, float2>::type;
-    static constexpr int TMIN = EXACT ? 4 : 8;
-    static constexpr int T = 4096 / R > TMIN ? 4096 / R : TMIN;
-    static constexpr int E = R >= 2048 ? 32 : 16;
+    static constexpr int ELEM = sizeof(C);
+    static constexpr int SEG = 128 / ELEM;  // transforms in 128 bytes
+    static constexpr int BUDGET = 140 * 1024;  // bytes of tile buffers
+    static constexpr int T0 = (EXACT ? 2048 : 4096) / R;
+    static constexpr int T1 = fit_tile(T0 > SEG ? T0 : SEG, (R + 1) * ELEM,
+                                       BUDGET);
+    static constexpr bool TWO = 2 * T1 * (R + 1) * ELEM <= BUDGET;
+    static constexpr bool HALVE = !TWO && T1 / 2 >= SEG / 2;
+    static constexpr int T = HALVE ? T1 / 2 : T1;
+    static constexpr int NB = TWO || HALVE ? 2 : 1;
+    static constexpr bool PAD = T < SEG;
+    static constexpr int LD = PAD ? R + R / 16 + (EXACT ? 0 : 2) : R + 1;
+    static constexpr int E = T * R / 16 <= (EXACT ? 256 : 512) ? 16 : 32;
     static constexpr int TPF = R / E;
-    static constexpr int THREADS = TPF * T;
-    static constexpr int LD = R + 1;
+    static constexpr int FW = T < SEG ? T : SEG;
+    static constexpr int THREADS = T * TPF;
+    using Core = hc::Core<R, TPF, PAD, false>;
+    // the tiles, the stage twiddles, and a tile's W_N^(mul TPF s) (T * E)
     static constexpr size_t SMEM =
-        sizeof(C) * LD * T + 3 * T * sizeof(int64_t);
+        ((size_t)NB * T * LD + Core::TAB + T * E) * ELEM;
+    static_assert(NB * T * LD * ELEM <= BUDGET, "tiles over budget");
+    static constexpr int BY_SMEM = (int)(233472 / (SMEM + 1024));
+    static constexpr int MINB = BY_SMEM < 2 ? 1 : 2;
 };
 
-__device__ __forceinline__ int64_t first_point(const Side& d,
-                                               const Digits& dg, int64_t c,
-                                               int r) {
-    if (d.map == 0) {
-        const int64_t o = c / d.s;
-        return o * r * d.s + (c - o * d.s);
+// Where transform g's points start: its row's offset plus the map's first
+// point.
+__device__ __forceinline__ int64_t transform_at(const PassArgs& a, int map,
+                                                int ls, int log_r,
+                                                int64_t g) {
+    const int64_t b = g >> a.log_pr;
+    const int64_t c = g & ((int64_t(1) << a.log_pr) - 1);
+    int64_t p;
+    if (map == 0) {
+        p = ((c >> ls) << (log_r + ls)) + (c & ((int64_t(1) << ls) - 1));
+    } else {
+        int64_t pos = 0, rest = c;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // unrolled: no local copy of a.lr
+            if (i < a.nr) {
+                pos = (pos << a.lr[i]) |
+                      (rest & ((int64_t(1) << a.lr[i]) - 1));
+                rest >>= a.lr[i];
+            }
+        }
+        p = pos << log_r;
     }
-    int64_t pos = 0, rest = c;
-    for (int i = 0; i < dg.nr; ++i) {
-        const int64_t di = rest % dg.r[i];
-        rest /= dg.r[i];
-        pos = pos * dg.r[i] + di;
-    }
-    return pos * r;
+    return (b << a.log_n) + p;
 }
 
-template <int R, int T, int THREADS, typename C>
-__global__ void __launch_bounds__(THREADS, 1)
-fourstep_pass_kernel(Side in, Side out, Digits dg, int64_t batch, int64_t n,
-                     int64_t tw_s, double scale, const C* __restrict__ tw,
-                     const C* __restrict__ tw_lo, const C* __restrict__ tw_hi,
-                     int lo_bits, int inverse) {
-    using Tr = real_t<C>;
-    constexpr int TPF = THREADS / T;
-    constexpr int E = R / TPF;
-    constexpr int LD = R + 1;
-    constexpr int RL = Ladder<R>::RL;
-    C* smem = shared_buffer<C>();
-    int64_t* in_at = reinterpret_cast<int64_t*>(smem + LD * T);
-    int64_t* out_at = in_at + T;
-    int64_t* tw_mul = out_at + T;
-    const Tr sgn = inverse ? Tr(1) : Tr(-1);
-    const int64_t per_row = n / R;
-    const int64_t first = (int64_t)blockIdx.x * T;
-    const int64_t left = batch * per_row - first;
-    const int valid = left < T ? (int)left : T;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Point j of a transform at offset `at` of the input into slot element d.
+template <bool EXACT, typename C>
+__device__ __forceinline__ void stage_point(C* d, const Cells& in,
+                                            int64_t at) {
+    if (EXACT && in.kind == 2) {
+        cp_async16(d, static_cast<const double2*>(in.a) + at);
+    } else if (!EXACT && in.kind == 0) {
+        cp_async8(d, static_cast<const float2*>(in.a) + at);
+    } else if (!EXACT && in.kind == 1) {
+        float* f = reinterpret_cast<float*>(d);
+        cp_async4(f, static_cast<const float*>(in.a) + at);
+        cp_async4(f + 1, static_cast<const float*>(in.b) + at);
+    } else {
+        *d = in.load<C>(at);  // widening: a plain load
+    }
+}
+
+// Issue the loads of tile `tile` into buf (T slots of LD points).
+template <int R, bool EXACT>
+__device__ __forceinline__ void issue_tile(
+    const PassArgs& a, int64_t tile, typename PassTile<R, EXACT>::C* buf) {
+    using G = PassTile<R, EXACT>;
+    constexpr int LOG_R = ilog2(R);
     const int tid = threadIdx.x;
-
-    // where each transform of the block starts, and its twiddle multiplier
-    // (the exponent of W_N per output point k)
-    if (tid < valid) {
-        const int64_t g = first + tid;
-        const int64_t b = g / per_row, c = g - b * per_row;
-        in_at[tid] = b * n + first_point(in, dg, c, R);
-        out_at[tid] = b * n + first_point(out, dg, c, R);
-        tw_mul[tid] = tw_s ? (c % tw_s) * (n / (R * tw_s)) : 0;
-    }
-    __syncthreads();
-
-    // cooperative load into the padded slots: row-wise when the points are
-    // contiguous, else across the T transforms (adjacent columns)
-    const int64_t in_stride = in.map == 0 ? in.s : 1;
-    {
-        C v[E];
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-            const int e = tid + i * THREADS;
-            const int f = in_stride == 1 ? e / R : e % T;
-            const int j = in_stride == 1 ? e % R : e / T;
-            v[i] = f < valid ? in.cells.load<C>(in_at[f] + j * in_stride)
-                             : cmake(Tr(0), Tr(0));
+    const int64_t g0 = tile * G::T;
+    if (a.in_map == 0) {
+        // transform-fastest: thread tid takes transform tid % T, points
+        // tid / T + k * TPF
+        const int f = tid % G::T;
+        if (g0 + f >= a.total) return;
+        const int64_t at = transform_at(a, 0, a.in_ls, LOG_R, g0 + f);
+#pragma unroll 8
+        for (int k = 0; k < G::E; ++k) {
+            const int j = tid / G::T + k * G::TPF;
+            stage_point<EXACT>(buf + f * G::LD + G::Core::pos(j), a.in,
+                               at + ((int64_t)j << a.in_ls));
         }
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-            const int e = tid + i * THREADS;
-            const int f = in_stride == 1 ? e / R : e % T;
-            const int j = in_stride == 1 ? e % R : e / T;
-            smem[f * LD + j] = v[i];
+    } else {
+        // point-fastest: element e = tid + k * THREADS is point e % R of
+        // transform e / R
+#pragma unroll 4
+        for (int k = 0; k < G::E; ++k) {
+            const int e = tid + k * G::THREADS;
+            const int f = e >> LOG_R, j = e & (R - 1);
+            if (g0 + f >= a.total) continue;
+            const int64_t at = transform_at(a, 1, 0, LOG_R, g0 + f);
+            stage_point<EXACT>(buf + f * G::LD + G::Core::pos(j), a.in,
+                               at + j);
         }
-    }
-    __syncthreads();
-
-    const int f = tid / TPF, t = tid % TPF;
-    C* buf = smem + f * LD;
-    C u[E / 8][8];
-    load_first<R, TPF>(buf, t, u);
-    __syncthreads();
-    first_stage<R, TPF>(u, buf, t, tw, sgn, Tr(scale));
-    middle_stages<R, TPF>(buf, t, tw, sgn);
-    C w[E / RL][RL];
-    const int64_t mul = f < valid ? tw_mul[f] : 0;
-    last_stage_then<R, TPF>(buf, t, tw, sgn, [&](int q, int r, C v) {
-        if (mul) {
-            const int64_t k = t + q * TPF + r * (R / RL);
-            v = cmul(v, root(tw_lo, tw_hi, mul * k, lo_bits));
-        }
-        w[q][r] = v;
-    });
-    __syncthreads();  // every read of the last stage is done
-#pragma unroll
-    for (int q = 0; q < E / RL; ++q)
-#pragma unroll
-        for (int r = 0; r < RL; ++r) buf[t + q * TPF + r * (R / RL)] = w[q][r];
-    __syncthreads();
-
-    const int64_t out_stride = out.map == 0 ? out.s : 1;
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-        const int e = tid + i * THREADS;
-        const int g = out_stride == 1 ? e / R : e % T;
-        const int j = out_stride == 1 ? e % R : e / T;
-        if (g < valid)
-            out.cells.store(out_at[g] + j * out_stride, smem[g * LD + j]);
     }
 }
 
 template <int R, bool EXACT>
-cudaError_t launch(const Side& in, const Side& out, const Digits& dg,
-                   int64_t batch, int64_t n, int64_t tw_s, double scale,
-                   const void* tw, const void* lo, const void* hi,
-                   int lo_bits, int inverse, cudaStream_t stream) {
-    using G = PassGeometry<R, EXACT>;
+__global__ void __launch_bounds__(PassTile<R, EXACT>::THREADS,
+                                  PassTile<R, EXACT>::MINB)
+fourstep_pass_kernel(PassArgs a, double scale,
+                     const typename PassTile<R, EXACT>::C* __restrict__ tw,
+                     const typename PassTile<R, EXACT>::C* __restrict__ lo,
+                     const typename PassTile<R, EXACT>::C* __restrict__ hi,
+                     int inverse) {
+    using G = PassTile<R, EXACT>;
     using C = typename G::C;
-    auto kernel = fourstep_pass_kernel<R, G::T, G::THREADS, C>;
+    using Tr = real_t<C>;
+    using Core = typename G::Core;
+    constexpr int LOG_R = ilog2(R);
+    constexpr int E = G::E, TPF = G::TPF;
+    C* smem = shared_buffer<C>();
+    C* tab = smem + G::NB * G::T * G::LD;
+    C* steps = tab + Core::TAB;  // [s][f]: W_N^(mul_f * TPF * s)
+    const int tid = threadIdx.x;
+    const Tr sgn = inverse ? Tr(1) : Tr(-1);
+    const int64_t ntiles = (a.total + G::T - 1) / G::T;
+    // the lanes of a warp across FW adjacent transforms
+    const int f = tid % G::FW + G::FW * (tid / (G::FW * TPF));
+    const int t = (tid / G::FW) % TPF;
+
+    Core::fill(tab, tw, tid, G::THREADS);
+    constexpr int64_t SLOTS = (int64_t)G::T * G::LD;
+    const int64_t step = gridDim.x;
+    // NB buffers: NB - 1 tiles in flight ahead of the one transformed
+    // (with one buffer the next tile's load starts after the transform)
+    int64_t tile = blockIdx.x;
+#pragma unroll
+    for (int k = 0; k < (G::NB > 1 ? G::NB - 1 : 1); ++k) {
+        if (tile + k * step < ntiles)
+            issue_tile<R, EXACT>(a, tile + k * step, smem + k * SLOTS);
+        cp_commit();
+    }
+    // the exponent of W_N per output point k of transform g (0: none)
+    auto tw_mul = [&](int64_t g) -> int64_t {
+        return a.tw_mask >= 0
+                   ? ((g & ((int64_t(1) << a.log_pr) - 1)) & a.tw_mask)
+                         << a.log_tw_step
+                   : 0;
+    };
+    for (int it = 0; tile < ntiles; tile += step, ++it) {
+        C* cur = smem + (it % G::NB) * SLOTS;
+        const int64_t next = tile + step;
+        // W_N^(mul * k), k = t + s*TPF, is W_N^(mul t) (one root a thread)
+        // times W_N^(mul TPF s) from this table (one root a transform and
+        // s): two reads of the root tables a thread and a tile's few
+        // entries, not two a point
+        if (a.tw_mask >= 0) {
+            for (int e = tid; e < G::T * E; e += G::THREADS) {
+                const int ff = e % G::T, s = e / G::T;
+                steps[e] = root(lo, hi, tw_mul(tile * G::T + ff) * TPF * s,
+                                a.lo_bits);
+            }
+        }
+        if (G::NB > 1) {
+            const int64_t ahead = tile + (G::NB - 1) * step;
+            if (ahead < ntiles)
+                issue_tile<R, EXACT>(a, ahead,
+                                     smem + ((it + G::NB - 1) % G::NB) *
+                                                SLOTS);
+            cp_commit();
+            cp_wait<G::NB - 1>();
+        } else {
+            cp_wait<0>();
+        }
+        __syncthreads();
+
+        const int64_t g = tile * G::T + f;
+        const bool valid = g < a.total;
+        const bool twid = a.tw_mask >= 0;
+        const C base = twid ? root(lo, hi, tw_mul(g) * t, a.lo_bits)
+                            : cmake(Tr(1), Tr(0));
+        C u[E];
+        Core::run_smem(cur + f * G::LD, u, t, tab, false, sgn, Tr(scale),
+                       [&](int s, C v) {
+                           return twid ? cmul(v, cmul(base,
+                                                      steps[s * G::T + f]))
+                                       : v;
+                       });
+        if (a.out_map == 0) {
+            if (G::NB == 1) {
+                __syncthreads();  // every read of the slot is done
+                if (next < ntiles) issue_tile<R, EXACT>(a, next, smem);
+                cp_commit();
+            }
+            if (valid) {
+                const int64_t at =
+                    transform_at(a, 0, a.out_ls, LOG_R, g);
+#pragma unroll
+                for (int s = 0; s < E; ++s)
+                    a.out.store(at + ((int64_t)(t + s * TPF) << a.out_ls),
+                                u[s]);
+            }
+        } else {
+            // a row map out: through the slot, then point-fastest
+            __syncthreads();
+#pragma unroll
+            for (int s = 0; s < E; ++s)
+                cur[f * G::LD + Core::pos(t + s * TPF)] = u[s];
+            __syncthreads();
+#pragma unroll 4
+            for (int k = 0; k < E; ++k) {
+                const int e = tid + k * G::THREADS;
+                const int ff = e >> LOG_R, j = e & (R - 1);
+                const int64_t gg = tile * G::T + ff;
+                if (gg < a.total)
+                    a.out.store(transform_at(a, 1, 0, LOG_R, gg) + j,
+                                cur[ff * G::LD + Core::pos(j)]);
+            }
+            if (G::NB == 1) {
+                __syncthreads();
+                if (next < ntiles) issue_tile<R, EXACT>(a, next, smem);
+                cp_commit();
+            }
+        }
+        if (G::NB > 1) __syncthreads();  // cur is refilled at it + NB
+    }
+    cp_wait<0>();
+}
+
+__host__ int ilog2_64(int64_t v) {
+    int k = 0;
+    while ((int64_t(1) << (k + 1)) <= v) ++k;
+    return k;
+}
+
+template <int R, bool EXACT>
+cudaError_t launch(const PassArgs& args, double scale, const void* tw,
+                   const void* lo, const void* hi, int inverse,
+                   cudaStream_t stream) {
+    using G = PassTile<R, EXACT>;
+    using C = typename G::C;
+    auto kernel = fourstep_pass_kernel<R, EXACT>;
     cudaError_t err = allow_smem(kernel, G::SMEM);
     if (err != cudaSuccess) return err;
-    const int64_t blocks = (batch * (n / R) + G::T - 1) / G::T;
-    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-    kernel<<<(unsigned)blocks, G::THREADS, G::SMEM, stream>>>(
-        in, out, dg, batch, n, tw_s, scale, static_cast<const C*>(tw),
-        static_cast<const C*>(lo), static_cast<const C*>(hi), lo_bits,
-        inverse);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, G::THREADS, G::SMEM);
+    if (err != cudaSuccess) return err;
+    const int64_t ntiles = (args.total + G::T - 1) / G::T;
+    int64_t grid = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    if (grid > ntiles) grid = ntiles;
+    kernel<<<(unsigned)grid, G::THREADS, G::SMEM, stream>>>(
+        args, scale, static_cast<const C*>(tw), static_cast<const C*>(lo),
+        static_cast<const C*>(hi), inverse);
     return cudaGetLastError();
 }
 
@@ -226,7 +405,8 @@ extern "C" {
 // One pass over batch rows of n points.  in_kind / out_kind: 0 complex64,
 // 1 planar fp32 (in_b / out_b the imaginary planes), 2 complex128; in_map /
 // out_map: 0 column of stride in_s / out_s, 1 digit-reversed row over the
-// nr radices r0..r3.  The pass's radix must divide n; tw_s = 0 omits the
+// nr radices r0..r3.  n, the radix, the strides, tw_s and the row map's
+// radices are powers of two; the radix divides n; tw_s = 0 omits the
 // twiddle.  tw: W_radix^m, m < radix; lo, hi: W_n^j, j < 2^lo_bits, and
 // W_n^(i * 2^lo_bits); all three (re, im) float32 pairs, or float64 when
 // exact != 0.  Returns a cudaError_t (0 on success).
@@ -239,17 +419,36 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                         int lo_bits, int inverse, int exact, void* stream) {
     if (batch <= 0) return (int)cudaSuccess;
     if (nr < 0 || nr > 4 || n % radix) return (int)cudaErrorInvalidValue;
-    const Side in{{in_a, in_b, in_kind}, in_map, in_s};
-    const Side out{{out_a, out_b, out_kind}, out_map, out_s};
-    const Digits dg{nr, {r0, r1, r2, r3}};
+    const int64_t rs[4] = {r0, r1, r2, r3};
+    const int64_t pow2[5] = {n, radix, in_map == 0 ? in_s : 1,
+                             out_map == 0 ? out_s : 1, tw_s ? tw_s : 1};
+    for (int64_t v : pow2)
+        if (v < 1 || (v & (v - 1))) return (int)cudaErrorInvalidValue;
+    PassArgs args{};
+    args.in = Cells{in_a, in_b, in_kind};
+    args.out = Cells{out_a, out_b, out_kind};
+    args.in_map = in_map;
+    args.out_map = out_map;
+    args.in_ls = in_map == 0 ? ilog2_64(in_s) : 0;
+    args.out_ls = out_map == 0 ? ilog2_64(out_s) : 0;
+    args.nr = nr;
+    for (int i = 0; i < nr; ++i) {
+        if (rs[i] < 1 || (rs[i] & (rs[i] - 1)))
+            return (int)cudaErrorInvalidValue;
+        args.lr[i] = ilog2_64(rs[i]);
+    }
+    args.log_n = ilog2_64(n);
+    args.log_pr = ilog2_64(n / radix);
+    args.total = batch * (n / radix);
+    args.tw_mask = tw_s ? tw_s - 1 : -1;
+    args.log_tw_step = tw_s ? ilog2_64(n / (radix * tw_s)) : 0;
+    args.lo_bits = lo_bits;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SMFFT_CASE(RR)                                                      \
-    case RR:                                                                \
-        return exact ? (int)launch<RR, true>(in, out, dg, batch, n, tw_s,   \
-                                             scale, tw, lo, hi, lo_bits,    \
-                                             inverse, st)                   \
-                     : (int)launch<RR, false>(in, out, dg, batch, n, tw_s,  \
-                                              scale, tw, lo, hi, lo_bits,   \
+#define SMFFT_CASE(RR)                                                     \
+    case RR:                                                               \
+        return exact ? (int)launch<RR, true>(args, scale, tw, lo, hi,      \
+                                             inverse, st)                  \
+                     : (int)launch<RR, false>(args, scale, tw, lo, hi,     \
                                               inverse, st);
     switch (radix) {
         SMFFT_CASE(16)

@@ -1,0 +1,401 @@
+// The in-block FFT core for Hopper of bluestein_kernel (chirp.cu) and
+// fourstep_pass_kernel (fourstep.cu): an M-point transform (M = 16..16384)
+// by TPF threads, E = M / TPF points a thread, in shared memory and
+// registers.  The other kernels keep stockham.cuh; this header only
+// borrows its complex helpers.
+//
+// Thread t holds the points t + s*TPF (s < E) of its transform in u[s],
+// natural order, before the first stage (Core::run_regs) and after the
+// last.  Stages (models/hcore.py writes the same index maps out):
+//   * the ladder is radix-16 stages (p = 1, 16, 256, ...) and one last
+//     stage of radix RL = 2, 4, 8 or 16: m = 2048 is 16*16*8, two
+//     exchanges through shared memory where stockham.cuh's radix-8 ladder
+//     takes three;
+//   * stage 0 takes its operands from registers (run_regs) or from a
+//     staged tile in shared memory (run_smem); the middle stages go shared
+//     memory to shared memory; the last stage returns its outputs to u;
+//   * with two buffers a stage reads one and writes the other (one barrier
+//     a stage); with one it reads, synchronises and writes in place (two);
+//   * PAD stores point idx at idx + idx/16 (one pad element after every
+//     16), which with the kernels' slot strides keeps every access of a
+//     warp at the minimum of 2 wavefronts for 8-byte elements and 4 for
+//     16-byte ones (tests/test_torch_hcore.py counts them);
+//   * the stage twiddles come from a block-local table in shared memory,
+//     W_(p*R)^k for k < p per stage (Core::TAB entries, filled once a
+//     block from the W_M table), one read a butterfly; the powers W^(r*k)
+//     are products in registers (at most four deep);
+//   * HALF skips the first stage's operands r >= 8 (inputs j >= M/2 that
+//     are zero), LOWER computes only the last stage's outputs r < RL/2
+//     (the points k < M/2);
+//   * the last stage hands each output to an epilogue unrounded (a
+//     product, a twiddle) before it is stored in the registers' type.
+// Two number types as in stockham.cuh: C the arithmetic, S the storage.
+
+#pragma once
+
+#include "stockham.cuh"
+
+namespace smfft {
+namespace hc {
+
+template <typename C>
+__device__ __forceinline__ C conj_if(C w, bool cj) {
+    return cj ? cmake(w.x, -w.y) : w;
+}
+
+// W_16^e = exp(s * 2 pi i e / 16) applied to a, for the exponents the
+// radix-8 and radix-16 DFTs use.
+template <int E, typename C>
+__device__ __forceinline__ C w16(C a, real_t<C> s) {
+    using T = real_t<C>;
+    static_assert(E == 1 || E == 2 || E == 3 || E == 4 || E == 6 || E == 9,
+                  "an exponent the DFTs below use");
+    if (E == 4) return mul_si(a, s);
+    const T c1 = static_cast<T>(0.92387953251128675613);  // cos(pi/8)
+    const T s1 = static_cast<T>(0.38268343236508977173);  // sin(pi/8)
+    const T h = static_cast<T>(0.70710678118654752440);   // cos(pi/4)
+    const T re = E == 1 ? c1 : E == 2 ? h : E == 3 ? s1 : E == 6 ? -h : -c1;
+    const T im = E == 1 ? s1 : E == 2 ? h : E == 3 ? c1 : E == 6 ? h : -s1;
+    return cmul(a, cmake(re, s * im));
+}
+
+// In-register DFT of R points, natural order, sign s.  HALF (radix 4 and
+// 16): u[R/2..] are zeros and are not read; LOWER: only u[0..R/2) are
+// computed (the rest is left as it was).
+template <int R, bool HALF, bool LOWER> struct Dft;
+
+template <bool HALF, bool LOWER> struct Dft<2, HALF, LOWER> {
+    static_assert(!HALF, "only the first stage, radix 16, skips inputs");
+    template <typename C>
+    static __device__ __forceinline__ void run(C* u, real_t<C>) {
+        const C a = u[0], b = u[1];
+        u[0] = cadd(a, b);
+        if (!LOWER) u[1] = csub(a, b);
+    }
+};
+
+template <bool HALF, bool LOWER> struct Dft<4, HALF, LOWER> {
+    template <typename C>
+    static __device__ __forceinline__ void run(C* u, real_t<C> s) {
+        if (HALF) {
+            const C a = u[0], b = u[1];
+            const C sb = mul_si(b, s);
+            u[0] = cadd(a, b);
+            u[1] = cadd(a, sb);
+            if (!LOWER) {
+                u[2] = csub(a, b);
+                u[3] = csub(a, sb);
+            }
+            return;
+        }
+        const C t0 = cadd(u[0], u[2]), t1 = csub(u[0], u[2]);
+        const C t2 = cadd(u[1], u[3]);
+        const C t3 = mul_si(csub(u[1], u[3]), s);
+        u[0] = cadd(t0, t2);
+        u[1] = cadd(t1, t3);
+        if (!LOWER) {
+            u[2] = csub(t0, t2);
+            u[3] = csub(t1, t3);
+        }
+    }
+};
+
+template <bool HALF, bool LOWER> struct Dft<8, HALF, LOWER> {
+    static_assert(!HALF, "only the first stage, radix 16, skips inputs");
+    template <typename C>
+    static __device__ __forceinline__ void run(C* u, real_t<C> s) {
+        C e[4] = {u[0], u[2], u[4], u[6]};
+        C o[4] = {u[1], u[3], u[5], u[7]};
+        Dft<4, false, false>::run(e, s);
+        Dft<4, false, false>::run(o, s);
+        o[1] = w16<2>(o[1], s);
+        o[2] = w16<4>(o[2], s);
+        o[3] = w16<6>(o[3], s);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            u[k] = cadd(e[k], o[k]);
+            if (!LOWER) u[k + 4] = csub(e[k], o[k]);
+        }
+    }
+};
+
+// 16 = 4 x 4: n = 4 n1 + n2, k = k1 + 4 k2.
+template <bool HALF, bool LOWER> struct Dft<16, HALF, LOWER> {
+    template <typename C>
+    static __device__ __forceinline__ void run(C* u, real_t<C> s) {
+        C y[4][4];
+#pragma unroll
+        for (int n2 = 0; n2 < 4; ++n2) {
+            y[n2][0] = u[n2];
+            y[n2][1] = u[4 + n2];
+            if (!HALF) {
+                y[n2][2] = u[8 + n2];
+                y[n2][3] = u[12 + n2];
+            }
+            Dft<4, HALF, false>::run(y[n2], s);
+        }
+        y[1][1] = w16<1>(y[1][1], s);
+        y[1][2] = w16<2>(y[1][2], s);
+        y[1][3] = w16<3>(y[1][3], s);
+        y[2][1] = w16<2>(y[2][1], s);
+        y[2][2] = w16<4>(y[2][2], s);
+        y[2][3] = w16<6>(y[2][3], s);
+        y[3][1] = w16<3>(y[3][1], s);
+        y[3][2] = w16<6>(y[3][2], s);
+        y[3][3] = w16<9>(y[3][3], s);
+#pragma unroll
+        for (int k1 = 0; k1 < 4; ++k1) {
+            C v[4] = {y[0][k1], y[1][k1], y[2][k1], y[3][k1]};
+            Dft<4, false, LOWER>::run(v, s);
+            u[k1] = v[0];
+            u[k1 + 4] = v[1];
+            if (!LOWER) {
+                u[k1 + 8] = v[2];
+                u[k1 + 12] = v[3];
+            }
+        }
+    }
+};
+
+// v[r] *= w^r, r = 1..R-1, the powers as products of powers of two (w^(2^j)
+// by squaring, the rest w^r = w^(r - 2^j) * w^(2^j)).
+template <int R, typename C>
+__device__ __forceinline__ void twiddle(C (&v)[R], C w) {
+    static_assert(R <= 16, "radix 16 at most");
+    C p[R];
+    p[1] = w;
+#pragma unroll
+    for (int r = 2; r < R; ++r) {
+        // the highest power of two <= r, a constant once unrolled
+        const int hb = r >= 8 ? 8 : (r >= 4 ? 4 : 2);
+        p[r] = hb == r ? cmul(p[r / 2], p[r / 2]) : cmul(p[r - hb], p[hb]);
+    }
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], p[r]);
+}
+
+__host__ __device__ constexpr int pow16(int s) {
+    return s == 0 ? 1 : 16 * pow16(s - 1);
+}
+// stages of an M-point ladder, the radix of stage s, and where its
+// twiddles start in the block's table
+__host__ __device__ constexpr int nstages(int m) {
+    return (ilog2(m) + 3) / 4;
+}
+__host__ __device__ constexpr int stage_radix(int m, int s) {
+    return s < nstages(m) - 1 ? 16 : (ilog2(m) % 4 ? 1 << (ilog2(m) % 4) : 16);
+}
+__host__ __device__ constexpr int tab_off(int s) {
+    return (pow16(s) - 16) / 15;
+}
+
+// The transform of one M-point row by TPF threads.  PAD: the padded
+// positions inside a buffer; PP: two buffers a, b (one barrier a stage),
+// else in place in a.
+template <int M, int TPF, bool PAD, bool PP>
+struct Core {
+    static constexpr int E = M / TPF;
+    static constexpr int NS = nstages(M);
+    static constexpr int RL = stage_radix(M, NS - 1);
+    // twiddle table entries: 16 + 256 + ... for stages 1..NS-1
+    static constexpr int TAB = tab_off(NS);
+    // whether run_regs's last stage reads b, so that a may be written at
+    // once after it
+    static constexpr bool LAST_READS_B = PP && NS % 2 == 1;
+    static_assert(E >= 16 && E % 16 == 0, "a thread holds 16k points");
+
+    static __device__ __forceinline__ int pos(int idx) {
+        return PAD ? idx + (idx >> 4) : idx;
+    }
+
+    // The stage tables from the W_M table tw: stage s (p = 16^s, radix
+    // R_s) at tab_off(s), W_(p R_s)^k = W_M^(k M / (p R_s)), k < p.
+    template <typename C, typename W>
+    static __device__ __forceinline__ void fill(C* tab,
+                                                const W* __restrict__ tw,
+                                                int tid, int nthreads) {
+        fill_stage<1>(tab, tw, tid, nthreads);
+    }
+    template <int SI, typename C, typename W>
+    static __device__ __forceinline__ void fill_stage(
+        C* tab, const W* __restrict__ tw, int tid, int nthreads) {
+        if constexpr (SI < NS) {
+            constexpr int P = pow16(SI), OFF = tab_off(SI);
+            constexpr int STEP = M / (P * stage_radix(M, SI));
+            for (int k = tid; k < P; k += nthreads)
+                tab[OFF + k] = as<C>(__ldg(&tw[k * STEP]));
+            fill_stage<SI + 1>(tab, tw, tid, nthreads);
+        }
+    }
+
+    // Twiddle (stages s >= 1) and DFT of butterfly i of stage SI.
+    template <int SI, bool LOWER, typename C>
+    static __device__ __forceinline__ void butterfly(
+        C (&v)[stage_radix(M, SI)], int i, const C* tab, bool cj,
+        real_t<C> sg) {
+        constexpr int P = pow16(SI), OFF = tab_off(SI);
+        if (SI > 0) twiddle(v, conj_if(tab[OFF + (i & (P - 1))], cj));
+        Dft<stage_radix(M, SI), false, LOWER>::run(v, sg);
+    }
+
+    // Middle stage SI (radix 16): reads src, writes dst in Stockham order,
+    // then synchronises; in place (src == dst) all reads finish first.
+    template <int SI, bool INPLACE, typename C, typename S>
+    static __device__ __forceinline__ void middle(const S* src, S* dst,
+                                                  int t, const C* tab,
+                                                  bool cj, real_t<C> sg) {
+        constexpr int P = pow16(SI);
+        constexpr int Q = E / 16;
+        constexpr int STEP = M / 16;
+        S raw[Q][16];
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+#pragma unroll
+            for (int r = 0; r < 16; ++r)
+                raw[q][r] = src[pos(t + q * TPF + r * STEP)];
+        if (INPLACE) __syncthreads();
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int i = t + q * TPF;
+            C v[16];
+#pragma unroll
+            for (int r = 0; r < 16; ++r) v[r] = as<C>(raw[q][r]);
+            butterfly<SI, false>(v, i, tab, cj, sg);
+            const int k = i & (P - 1);
+#pragma unroll
+            for (int r = 0; r < 16; ++r)
+                put(dst[pos((i - k) * 16 + k + r * P)], v[r]);
+        }
+        __syncthreads();
+    }
+
+    // The middle stages SI..NS-2, reading a first; returns the buffer the
+    // last stage reads.
+    template <int SI, typename C, typename S>
+    static __device__ __forceinline__ const S* middles(S* a, S* b, int t,
+                                                       const C* tab, bool cj,
+                                                       real_t<C> sg) {
+        if constexpr (SI >= NS - 1) {
+            return a;
+        } else if constexpr (PP) {
+            middle<SI, false>(a, b, t, tab, cj, sg);
+            return middles<SI + 1>(b, a, t, tab, cj, sg);
+        } else {
+            middle<SI, true>(a, a, t, tab, cj, sg);
+            return middles<SI + 1>(a, a, t, tab, cj, sg);
+        }
+    }
+
+    // Stage 0 (radix 16, p = 1) from registers into a.  HALF: only the
+    // operands r < 8 are read.
+    template <bool HALF, typename C, typename S, typename U>
+    static __device__ __forceinline__ void first_regs(const U (&u)[E], S* a,
+                                                      int t, real_t<C> sg) {
+#pragma unroll
+        for (int q = 0; q < E / 16; ++q) {
+            C v[16];
+#pragma unroll
+            for (int r = 0; r < (HALF ? 8 : 16); ++r)
+                v[r] = as<C>(u[q + r * (E / 16)]);
+            Dft<16, HALF, false>::run(v, sg);
+            const int i = t + q * TPF;
+#pragma unroll
+            for (int r = 0; r < 16; ++r) put(a[pos(i * 16 + r)], v[r]);
+        }
+        __syncthreads();
+    }
+
+    // Stage 0 from the staged tile in a (each operand times scale), in
+    // place: all reads finish before the writes.
+    template <typename C, typename S>
+    static __device__ __forceinline__ void first_smem(S* a, int t,
+                                                      real_t<C> sg,
+                                                      real_t<C> scale) {
+        constexpr int Q = E / 16;
+        S raw[Q][16];
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+#pragma unroll
+            for (int r = 0; r < 16; ++r)
+                raw[q][r] = a[pos(t + q * TPF + r * (M / 16))];
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            C v[16];
+#pragma unroll
+            for (int r = 0; r < 16; ++r) {
+                v[r] = as<C>(raw[q][r]);
+                v[r] = cmake(v[r].x * scale, v[r].y * scale);
+            }
+            Dft<16, false, false>::run(v, sg);
+            const int i = t + q * TPF;
+#pragma unroll
+            for (int r = 0; r < 16; ++r) put(a[pos(i * 16 + r)], v[r]);
+        }
+        __syncthreads();
+    }
+
+    // The last stage from src: u[s] = epi(s, point t + s*TPF), the
+    // epilogue on the unrounded output (LOWER: only the points < M/2).
+    template <bool LOWER, typename C, typename S, typename U, typename Epi>
+    static __device__ __forceinline__ void last(const S* src, U (&u)[E],
+                                                int t, const C* tab, bool cj,
+                                                real_t<C> sg, Epi epi) {
+        constexpr int Q = E / RL;
+        constexpr int STEP = M / RL;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int i = t + q * TPF;
+            C v[RL];
+#pragma unroll
+            for (int r = 0; r < RL; ++r) v[r] = as<C>(src[pos(i + r * STEP)]);
+            butterfly<NS - 1, LOWER>(v, i, tab, cj, sg);
+#pragma unroll
+            for (int r = 0; r < (LOWER ? RL / 2 : RL); ++r)
+                put(u[q + r * (E / RL)], epi(q + r * (E / RL), v[r]));
+        }
+    }
+
+    // The transform of u, registers in and out (held in the storage type
+    // U), through a (and b with PP); epi(s, v) maps each unrounded output
+    // point t + s*TPF before it is put back into u.  Synchronises after
+    // every write to shared memory; a caller that writes a buffer
+    // afterwards synchronises first (a needs none when LAST_READS_B).
+    template <bool HALF, bool LOWER, typename C, typename S, typename U,
+              typename Epi>
+    static __device__ __forceinline__ void run_regs(U (&u)[E], S* a, S* b,
+                                                    int t, const C* tab,
+                                                    bool cj, real_t<C> sg,
+                                                    Epi epi) {
+        static_assert(NS > 1, "Bluestein's convolutions start at 32");
+        first_regs<HALF, C>(u, a, t, sg);
+        last<LOWER>(middles<1>(a, b, t, tab, cj, sg), u, t, tab, cj, sg, epi);
+    }
+
+    // The transform of the staged tile in a (times scale), in place, into
+    // u.  The caller synchronises before writing a again.
+    template <typename C, typename S, typename Epi>
+    static __device__ __forceinline__ void run_smem(S* a, C (&u)[E], int t,
+                                                    const C* tab, bool cj,
+                                                    real_t<C> sg,
+                                                    real_t<C> scale,
+                                                    Epi epi) {
+        if constexpr (NS == 1) {
+#pragma unroll
+            for (int r = 0; r < 16; ++r) {
+                u[r] = as<C>(a[pos(t + r * TPF)]);
+                u[r] = cmake(u[r].x * scale, u[r].y * scale);
+            }
+            Dft<16, false, false>::run(u, sg);
+#pragma unroll
+            for (int r = 0; r < 16; ++r) u[r] = epi(r, u[r]);
+        } else {
+            first_smem<C>(a, t, sg, scale);
+            last<false>(middles<1>(a, a, t, tab, cj, sg), u, t, tab, cj, sg,
+                        epi);
+        }
+    }
+};
+
+}  // namespace hc
+}  // namespace smfft

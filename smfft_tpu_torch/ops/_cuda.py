@@ -142,11 +142,14 @@ def register_report(log: str | None = None) -> list[str]:
                           r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel|"
                           r"power_kernel|bluestein_kernel|"
                           r"fourstep_pass_kernel|real_huge_kernel)"
-                          r"I((?:Li\d+E)*)", name)
+                          r"I((?:Li\d+E)*)(Lb1E)?", name)
             label = (f"{k.group(1)}<"
                      f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
                      if k else name)
-            kind = "fp64" if "double2" in name else "fp32"
+            # the "exact" instantiations compute in double2, or carry the
+            # template flag EXACT = true after the sizes
+            kind = ("fp64" if "double2" in name or (k and k.group(3))
+                    else "fp32")
             lines.append(f"{label} {kind}: {m.group(1)} registers, {spill} "
                          "bytes of spill stores")
             name = None
@@ -178,8 +181,8 @@ def library() -> ctypes.CDLL:
                                         ci, vp]
         lib.smfft_power.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp]
         lib.smfft_bluestein.argtypes = [vp, vp, vp, vp, ci, i64, i64, i64,
-                                        i64, vp, vp, ctypes.c_double, vp, vp,
-                                        ci, vp]
+                                        i64, vp, vp, ctypes.c_double, vp, ci,
+                                        vp]
         lib.smfft_fourstep_pass.argtypes = [vp, vp, ci, ci, i64, vp, vp, ci,
                                             ci, i64, ci, i64, i64, i64, i64,
                                             i64, i64, i64, i64,

@@ -7,19 +7,23 @@ length m >= 2n - 1, and a second chirp multiply:
 
     X_k = w_k sum_j (x_j w_j) conj(w)_{k-j},   w_j = exp(-i pi j^2 / n).
 
-The hand-written CUDA kernel (``csrc/chirp.cu``, ``bluestein_kernel``) does
-all of it per row in shared memory and registers: the pre-chirp at the
-load, the m-point forward core, the product with the chirp filter's
-response (1/m folded in), the m-point inverse core, and the post-chirp at
-the store.  Device memory sees only the caller's n-point rows; the
+The hand-written CUDA kernel (``csrc/chirp.cu``, ``bluestein_kernel``, on
+the Hopper core ``csrc/hcore.cuh``) does all of it per row in shared memory
+and registers: the pre-chirp at the load, the m-point forward core (whose
+first stage skips the zero half), the product with the chirp filter's
+response (1/m folded in) in the registers where the forward core leaves
+the spectrum, the m-point inverse core (whose last stage computes only the
+points below m/2), and the post-chirp at the store.  Device memory sees only the caller's n-point rows; the
 zero-extended m-point signal never leaves the block.  The inverse DFT is
 the same kernel with the chirps and the response conjugated.
 
 Rows: complex64 (B, n), or planar fp32 (B, n_pad) with the signal in the
 first n lanes (n_pad = n rounded up to 128, the JAX package's lane
 granule); the kernel writes lanes >= n as exact zeros.  The TPU kernel
-re-indexes the response to its revblock spectrum order; here the forward
-core leaves the spectrum in natural order, so the response stays natural.
+re-indexes the response to its revblock spectrum order; here thread t of
+the forward core ends holding the spectrum points t + s*TPF, which are the
+inverse core's first operands, so the response stays in natural order and
+no hand-off through shared memory remains.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel
 (:func:`launch_bluestein`) or raises; a CPU tensor runs the plain version
@@ -178,13 +182,11 @@ def launch_bluestein(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     with torch.cuda.device(x.device):
         w, h = device_consts(n, m, bool(inverse), bool(exact), x.device)
         tw_f = C.device_twiddles(m, False, bool(exact), x.device)
-        tw_i = C.device_twiddles(m, True, bool(exact), x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.smfft_bluestein(*ptrs, int(xi is None), b, n, ld, m,
                                   w.data_ptr(), h.data_ptr(),
                                   1.0 if scale is None else float(scale),
-                                  tw_f.data_ptr(), tw_i.data_ptr(),
-                                  int(exact), stream)
+                                  tw_f.data_ptr(), int(exact), stream)
     _cuda.check(err, f"bluestein kernel launch (n={n}, m={m}, batch={b})")
     launch_bluestein.count += 1
     return out

@@ -41,8 +41,9 @@ FIVE_PASS_MAX = 1 << 28
 #: passes of each named plan.
 PLAN_PASSES = {"two:revisit": 2, "two:fold": 2, "three": 3, "five": 5}
 
-#: the default plan: two passes up to this N, three above.
-DEFAULT_TWO_MAX = 1 << 21
+#: the default plan: two passes up to this N, three above (at 2^21 the two
+#: passes are 2048 x 1024, and a radix-2048 pass holds one tile buffer).
+DEFAULT_TWO_MAX = 1 << 20
 
 
 def default_plan(n: int) -> str:

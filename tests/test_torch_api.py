@@ -468,3 +468,33 @@ def test_exact_tier_c2c_cpu(rng, n):
     want = np.fft.ifft(x.astype(np.complex128)) * n
     assert max_abs_err(o_r.numpy() + 1j * o_i.numpy(), want) <= np.spacing(
         np.float32(np.abs(want).max()))
+
+
+# A real input to the C2C entry points and a real spectrum to irfft: the
+# port promotes it to complex64, as the JAX package does.  The JAX side
+# runs its pallas backend (interpret mode) at n = 256 and "xla" at 2^15.
+REAL_INPUT_CASES = {
+    "fft": (T.fft, smfft_tpu.fft, 256, "pallas"),
+    "ifft": (T.ifft, smfft_tpu.ifft, 256, "pallas"),
+    "ifft_unordered": (T.ifft_unordered, smfft_tpu.ifft_unordered, 256,
+                       "pallas"),
+    "fft_large": (T.fft_large, smfft_tpu.fft_large, 1 << 15, "xla"),
+    "ifft_large": (T.ifft_large, smfft_tpu.ifft_large, 1 << 15, "xla"),
+    "irfft": (T.irfft, smfft_tpu.irfft, 129, "pallas"),
+}
+
+
+@pytest.mark.parametrize("entry", list(REAL_INPUT_CASES))
+def test_real_input_promoted(rng, entry):
+    """A float32 input gives exactly the output of its complex64 copy, and
+    the JAX function's output on the same numpy input within 2 tol(n)."""
+    port, ref, width, be = REAL_INPUT_CASES[entry]
+    rows = 1 if width > 1 << 14 else 2
+    x = (rng.random((rows, width)) - 0.5).astype(np.float32)
+    got = port(torch.from_numpy(x))
+    same = port(torch.from_numpy(x.astype(np.complex64)))
+    assert got.dtype == same.dtype
+    assert torch.equal(got, same)
+    want = np.asarray(ref(jnp.asarray(x), backend=be))
+    n = 256 if entry == "irfft" else width
+    assert max_abs_err(got.numpy(), want) < 2 * tol(n)

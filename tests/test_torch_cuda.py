@@ -792,3 +792,49 @@ def test_huge_launchers_refuse_what_they_cannot_take(dev):
         RFU.launch_real_huge("halfc_split", x[:, :n // 2].contiguous(),
                              torch.empty((3, n // 2), dtype=torch.complex64,
                                          device=dev), n)
+
+
+# Tile edges of the pass kernel's persistent grid: fewer tiles than SMs, a
+# ragged last tile, many tiles a block, a one-buffer radix (1024 / 2048).
+TILE_EDGES = [(1 << 11, 3, (32, 64)), (1 << 15, 1, (256, 128)),
+              (1 << 15, 64, (256, 128)), (1 << 16, 5, (2048, 32)),
+              (1 << 20, 2, (1024, 1024))]
+
+
+@pytest.mark.parametrize("n,b,rs", TILE_EDGES)
+@pytest.mark.parametrize("exact", [False, True])
+def test_fourstep_tile_edges(dev, n, b, rs, exact):
+    x = rand_c(b, n, dev, seed=b)
+    passes = FF.plan(rs)
+    for inverse in (False, True):
+        got = FF.run_passes(x, n, passes, inverse=inverse, scale=0.5,
+                            exact=exact)
+        plain = huge_plain(x, n, passes, inverse, 0.5, exact)
+        want = oracle(x, inverse) * 0.5
+        torch.cuda.synchronize()
+        assert max_err(got, plain) < bound(n)
+        assert max_err(got, want) < bound(n)
+        if exact:
+            assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+@pytest.mark.parametrize("entry", ["fft", "ifft", "ifft_unordered",
+                                   "fft_large", "ifft_large", "irfft"])
+def test_real_input_promoted_on_card(dev, entry):
+    """A float32 input gives exactly the output of its complex64 copy (the
+    kernels are deterministic), within bound(n) of float64."""
+    import smfft_tpu_torch as T
+    n = {"fft_large": 1 << 15, "ifft_large": 1 << 15}.get(entry, 256)
+    x = rand_r(4, n // 2 + 1 if entry == "irfft" else n, dev, seed=7)
+    fn = getattr(T, entry)
+    got = fn(x)
+    same = fn(x.to(torch.complex64))
+    x64 = x.to(torch.complex128)
+    if entry == "ifft_unordered":
+        # revblock in: position k2*128 + k1 holds X[k1*2 + k2]
+        x64 = x64.reshape(4, 2, 128).transpose(1, 2).reshape(4, n)
+    ref = {"fft": torch.fft.fft, "fft_large": torch.fft.fft,
+           "irfft": torch.fft.irfft}.get(entry, torch.fft.ifft)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    assert max_err(got, ref(x64)) < bound(n)

@@ -1,0 +1,146 @@
+"""The CPU model of the Hopper core (``csrc/hcore.cuh``) and of the pass
+kernel's tile schedule (``csrc/fourstep.cu``): ``models/hcore.py``.
+
+What a CPU can check of the two kernels on that core: the stage ladder and
+its index maps give numpy's DFT at every size the kernels instantiate, the
+Bluestein order of H and its two shortcuts (the first stage's zero half,
+the last stage's lower half) change nothing, every shared-memory access of
+a stage needs the fewest wavefronts a warp can (2 for 8-byte elements, 4
+for 16-byte ones; the shared core of ``stockham.cuh`` is counted the same
+way), the paddings are bijections, and the persistent grid covers every
+tile once.  Tolerance: 1e-9 * M against complex128 numpy (the model runs
+in float64).
+"""
+
+import numpy as np
+import pytest
+
+from smfft_tpu_torch import bluestein as TB
+from smfft_tpu_torch.models import hcore as H
+
+BLUESTEIN_M = [32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+PASS_R = [16, 32, 64, 128, 256, 512, 1024, 2048]
+
+
+def rand_c(rng, *shape):
+    return rng.random(shape) - 0.5 + 1j * (rng.random(shape) - 0.5)
+
+
+@pytest.mark.parametrize("kernel,m", [("bluestein", m) for m in BLUESTEIN_M]
+                         + [("pass", r) for r in PASS_R])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ladder_gives_the_dft(rng, m, kernel, inverse):
+    tpf = (m // H.points_per_thread(m) if kernel == "bluestein"
+           else H.pass_geometry(m, False)["TPF"])
+    x = rand_c(rng, 3, m)
+    want = np.fft.ifft(x) * m if inverse else np.fft.fft(x)
+    assert np.abs(H.core(x, tpf, inverse) - want).max() < 1e-9 * m
+    assert np.prod(H.radices(m)) == m
+
+
+@pytest.mark.parametrize("m", BLUESTEIN_M)
+def test_zero_half_and_lower_half_change_nothing(rng, m):
+    tpf = m // H.points_per_thread(m)
+    x = rand_c(rng, 2, m)
+    x[:, m // 2:] = 0
+    full = H.core(x, tpf)
+    np.testing.assert_allclose(H.core(x, tpf, zero_half=True), full,
+                               atol=1e-9 * m)
+    low = H.core(x, tpf, True, lower_half=True)
+    np.testing.assert_allclose(low[:, :m // 2],
+                               H.core(x, tpf, True)[:, :m // 2],
+                               atol=1e-9 * m)
+    assert not low[:, m // 2:].any()
+
+
+@pytest.mark.parametrize("n", [3, 17, 100, 129, 1000, 1536, 4097, 8191])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_bluestein_in_register_order(rng, n, inverse):
+    """H multiplied in the registers where the forward core leaves the
+    spectrum (natural order) gives the DFT; H in any other order does
+    not."""
+    m = TB._conv_length(2 * n - 1)
+    x = rand_c(rng, 2, n)
+    want = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
+    got = H.bluestein(x, n, m, inverse)
+    assert np.abs(got - want).max() < 1e-9 * m
+    if n >= 100:
+        j = np.arange(n)
+        w = np.exp(-1j * np.pi * ((j * j) % (2 * n)) / n)
+        b = np.zeros(m, complex)
+        b[:n] = np.conj(w)
+        b[m - n + 1:] = np.conj(w[1:][::-1])
+        h = np.fft.fft(b) / m
+        wrong = H.bluestein(x, n, m, False, h_order=h[::-1].copy())
+        assert np.abs(wrong - np.fft.fft(x)).max() > 1e-3
+
+
+@pytest.mark.parametrize("m", BLUESTEIN_M)
+@pytest.mark.parametrize("elem", [8, 16])
+def test_bluestein_banks(m, elem):
+    """Every stage access and twiddle read of a Bluestein block at the
+    minimum wavefronts: 2 for complex64 storage, 4 for complex128."""
+    waves = [w for _, w in H.bluestein_patterns(m, elem)]
+    assert waves and max(waves) <= elem // 4
+
+
+@pytest.mark.parametrize("r", PASS_R)
+@pytest.mark.parametrize("exact", [False, True])
+def test_pass_banks(r, exact):
+    """The pass kernel's tile copies (column and row maps), every stage
+    from the staged tile, the row-out staging and the twiddle reads at the
+    minimum wavefronts."""
+    g = H.pass_geometry(r, exact)
+    waves = [w for _, w in H.pass_patterns(r, exact)]
+    assert max(waves) <= g["elem"] // 4
+
+
+def test_old_core_first_stage_store_counts_16_wavefronts():
+    """stockham.cuh's first_stage stores buf[i * 8 + r]: lanes 64 bytes
+    apart, 16 wavefronts for an 8-byte store where 2 would do."""
+    assert H.wavefronts([(i * 8 + 0) * 8 for i in range(32)], 8) == 16
+    assert H.wavefronts([i * 8 for i in range(32)], 8) == 2
+
+
+@pytest.mark.parametrize("m", BLUESTEIN_M)
+def test_padding_is_a_bijection(m):
+    pos = H.pad16(np.arange(m))
+    assert len(np.unique(pos)) == m and pos.max() < H.slot_elems(m)
+
+
+@pytest.mark.parametrize("r", PASS_R)
+@pytest.mark.parametrize("exact", [False, True])
+def test_pass_tile_layout(r, exact):
+    """Slots of a tile are disjoint and fit the shared memory; the lanes
+    map onto (transform, thread) one to one; a column tile's row is at
+    least 128 contiguous bytes, 64 at R = 1024 / 2048 (where two tiles of
+    128 do not fit)."""
+    g = H.pass_geometry(r, exact)
+    pad = H.pad16 if g["pad"] else (lambda i: i)
+    f, j = np.meshgrid(np.arange(g["T"]), np.arange(r), indexing="ij")
+    pos = f * g["LD"] + pad(j)
+    assert len(np.unique(pos)) == g["T"] * r
+    assert pos.max() < g["T"] * g["LD"]
+    assert g["NB"] * g["T"] * g["LD"] * g["elem"] <= 140 * 1024
+    lanes = {H.pass_lane(tid, g) for tid in range(g["threads"])}
+    assert lanes == {(a, b) for a in range(g["T"]) for b in range(g["TPF"])}
+    assert g["T"] * g["elem"] >= (64 if r >= 1024 else 128)
+
+
+@pytest.mark.parametrize("total,t,per_sm", [
+    (128, 16, 1),      # fewer tiles than SMs (2^15 points, radix 256)
+    (3 * 64, 128, 2),  # a ragged last tile (2048 points, radix 32, b = 3)
+    (8192, 16, 1),     # many tiles a block
+    (1, 16, 2),        # one transform
+    (2 ** 21, 16, 2),  # 2^28 points, radix 128
+])
+def test_tile_schedule_covers_every_transform_once(total, t, per_sm):
+    n_tiles = -(-total // t)
+    grid = H.grid_size(n_tiles, 132, per_sm)
+    tiles = H.tile_schedule(n_tiles, grid)
+    assert len(tiles) == grid <= n_tiles
+    flat = sorted(x for b in tiles for x in b)
+    assert flat == list(range(n_tiles))
+    covered = [g for tile in flat for g in range(tile * t, tile * t + t)
+               if g < total]
+    assert covered == list(range(total))
