@@ -1,22 +1,29 @@
-"""Time the C2C, Bluestein and huge-N paths of one or more checkouts of
-smfft_tpu_torch on one GPU, in turns, so that two versions are compared
+"""Time the C2C, R2C, Bluestein and huge-N paths of one or more checkouts
+of smfft_tpu_torch on one GPU, in turns, so that two versions are compared
 on the same card in one run.
 
     python -m smfft_tpu_torch.c2c_ab PARENT_ROOT . . PARENT_ROOT
 
 Each root runs in its own process (each builds its own kernels), with
-about 2^27 complex points per call, precision "highest":
+about 2^27 complex points or real samples per call, precision "highest":
 
   * ``fft`` and ``planar.fft`` at N = 1024, 4096, 16384, the median of 25
     (``fft``) or 15 CUDA-event-timed calls after a warm-up, beside a
-    same-run ``copy_`` of the same bytes;
+    same-run ``copy_`` of the same bytes and ``torch.fft.fft``;
+  * ``planar.rfft`` and ``rfft`` (numpy layout) at n = 1024, 4096, 16384,
+    the median of 15, beside a same-run ``copy_`` of the real bytes and
+    ``torch.fft.rfft``;
   * ``fft_any`` at n = 1000 (131072 rows) and 4097 (32768 rows), and
-    ``fft_large`` at N = 2^15, 2^20, 2^24, 2^27, the median of 15.
+    ``fft_large`` at N = 2^15, 2^20, 2^24, 2^27, the median of 15;
+  * the fp32 error of ``fft`` / ``ifft`` (64 rows, every N) and of ``rfft``
+    (64 rows, every n) against float64 ``torch.fft``, in ulp(max|X|).
 
 Prints one JSON line per root and the registers and spills ptxas gave each
-instantiation of the kernels this change leaves alone (C2C, R2C, C2R,
-reuse loops, convolution, power, huge-N real) in that root's build,
-whether those are the same in every root, then the card.
+instantiation of the kernels both roots build the same way (C2R, reuse
+loops, convolution, power, huge-N real, and Bluestein and the four-step
+pass, which share the Hopper core hcore.cuh with the redesigned C2C and
+R2C kernels) in that root's build, whether those are the same in every
+root, then the card.
 """
 
 from __future__ import annotations
@@ -30,13 +37,13 @@ from pathlib import Path
 from smfft_tpu_torch.ops._cuda import register_report
 
 # the kernel instantiations whose registers and spills are compared
-SHARED_KERNELS = ("c2c_kernel", "r2c_kernel", "c2r_kernel",
-                  "c2c_multiple_kernel", "real_multiple_kernel",
-                  "conv_kernel", "conv_real_kernel", "power_kernel",
-                  "real_huge_kernel")
+SHARED_KERNELS = ("c2r_kernel", "c2c_multiple_kernel",
+                  "real_multiple_kernel", "conv_kernel", "conv_real_kernel",
+                  "power_kernel", "real_huge_kernel", "bluestein_kernel",
+                  "fourstep_pass_kernel")
 
 CHILD = r"""
-import json, statistics, sys
+import json, math, statistics, sys
 root = sys.argv[1]
 sys.path.insert(0, root)
 import torch
@@ -52,7 +59,11 @@ def ms(fn, reps=15):
         a.record(); fn(); b.record(); b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
-out = {"root": root, "rows": [], "ptxas": _cuda.build_log}
+def ulps(y, want):
+    u = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 23)
+    return (y.to(want.dtype) - want).abs().max().item() / u
+out = {"root": root, "rows": [], "ptxas": _cuda.build_log,
+       "ulp_fp32": {"fft": {}, "rfft": {}}}
 gen = torch.Generator(device="cuda").manual_seed(1234)
 for n in (1024, 4096, 16384):
     b = (1 << 27) // n
@@ -62,9 +73,31 @@ for n in (1024, 4096, 16384):
     dst = torch.empty_like(x)
     out["rows"].append({"n": n, "fft_ms": ms(lambda: T.fft(x), 25),
                         "planar_fft_ms": ms(lambda: T.planar.fft(xr, xi)),
-                        "copy_ms": ms(lambda: dst.copy_(x))})
+                        "copy_ms": ms(lambda: dst.copy_(x)),
+                        "torch_fft_ms": ms(lambda: torch.fft.fft(x))})
     del x, xr, xi, dst
     torch.cuda.empty_cache()
+for n in (1024, 4096, 16384):
+    x = torch.rand(((1 << 27) // n, n), generator=gen, device="cuda") - 0.5
+    dst = torch.empty_like(x)
+    out["rows"].append({"n": n, "planar_rfft_ms": ms(lambda: T.planar.rfft(x)),
+                        "rfft_ms": ms(lambda: T.rfft(x)),
+                        "copy_real_ms": ms(lambda: dst.copy_(x)),
+                        "torch_rfft_ms": ms(lambda: torch.fft.rfft(x))})
+    del x, dst
+    torch.cuda.empty_cache()
+for n in (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
+    # both parts centred: a DC bin of N/2 would set max|X| for every kernel
+    x = torch.complex(torch.rand((64, n), generator=gen, device="cuda") - 0.5,
+                      torch.rand((64, n), generator=gen, device="cuda") - 0.5)
+    x64 = x.to(torch.complex128)
+    out["ulp_fp32"]["fft"][n] = max(
+        ulps(T.fft(x), torch.fft.fft(x64)),
+        ulps(T.ifft(x), torch.fft.ifft(x64)))
+    if 2 * n <= 16384:
+        xr = torch.cat([x.real, x.imag], dim=1)
+        out["ulp_fp32"]["rfft"][2 * n] = ulps(
+            T.rfft(xr), torch.fft.rfft(xr.double()))
 for n, b in ((1000, 1 << 17), (4097, 1 << 15)):
     x = torch.complex(torch.rand((b, n), generator=gen, device="cuda"),
                       torch.rand((b, n), generator=gen, device="cuda"))
@@ -105,8 +138,8 @@ def main(argv=None) -> int:
         for r in regs:
             print(f"  ptxas {Path(root).name or root}: {r}")
     reports = [r for r in reports if r]  # a root's older build: no log
-    print(f"c2c / r2c / c2r / multiple / conv / power / real_huge "
-          f"instantiations report the same "
+    print(f"c2r / multiple / conv / power / real_huge / bluestein / "
+          f"fourstep_pass instantiations report the same "
           f"registers and spills in the {len(reports)} roots with a ptxas "
           f"report: "
           f"{bool(reports) and all(r == reports[0] for r in reports)}")

@@ -15,168 +15,160 @@
 //
 // What bounds it on the H100: every complex point is read once and written
 // once (8 bytes in, 8 bytes out; 16 bytes per point), against ~5 N log2 N
-// flops per transform, so the kernel is bound by device memory bandwidth.
-// The design goal is one read and one write of device memory per call: the
-// whole transform stays in shared memory and registers between the load and
-// the store, as in the reference's one-FFT-per-thread-block design.
+// flops per transform, so the kernel is bound by device memory bandwidth:
+// 2^27 points move 2.1 GB, 0.64 ms at 3.35 TB/s.  The design goal is one
+// read and one write of device memory per call: the whole transform stays
+// in shared memory and registers between the load and the store, as in
+// the reference's one-FFT-per-thread-block design, and the in-block work
+// has to keep up with the memory.
 //
-// Design:
-//   * One transform (F transforms for N <= 2048) per thread block, resident
-//     in dynamic shared memory as float2.  TPF = N/E threads serve one
-//     transform, E = 16 (32 at N = 16384) points per thread; blocks have
-//     256 threads (512 at N >= 8192).  That layout, the register budget
-//     and the shared-memory size per tier are stockham.cuh's Geometry,
-//     which the real kernels share.
-//   * Stockham auto-sort radix-8 stages, closed by one radix-4 or radix-2
-//     stage when log2 N is not a multiple of 3.  Each stage reads all of
-//     its butterfly inputs into registers, synchronises, and writes its
-//     outputs back into the same buffer: the exchange runs in place through
-//     registers.  That is what lets N = 16384 fit: the transform alone is
-//     128 KB, and a ping-pong pair of buffers (256 KB) would exceed the
-//     227 KB a block may use.
-//   * Natural-order input feeds the first stage straight from device
-//     memory, and the last stage writes natural-order output straight back
-//     (both coalesced: butterfly i touches points i + r*N/R).  Revblock
-//     layouts are index maps applied while staging through shared memory,
-//     so global loads and stores stay coalesced there too.
-//   * Every thread issues all E of its loads before it uses any: the
-//     memory-level parallelism a streaming kernel needs (one load at a
-//     time ran at half the copy rate).  __launch_bounds__ caps registers
-//     at 64 a thread so that 4 blocks of 256 threads share an SM.
-//   * Shared memory above 48 KB (N >= 8192) is dynamic only, after
-//     cudaFuncSetAttribute(MaxDynamicSharedMemorySize); the launcher sets it.
-//   * N = 32 / 64: F = 128 / 64 transforms share one block of 256 threads,
-//     the analogue of the reference's 4x32 / 2x64 packing.  The API keeps
-//     the reference's batch rule ("batch must be a multiple of 128/N"); the
-//     kernel itself masks any ragged tail of the batch.
-//   * Two data layouts, chosen by a runtime flag: interleaved complex64
+// Design, on the Hopper core of hcore.cuh (RowGeometry gives the block):
+//   * F rows a block of TPF = N/E threads each, E = 16 points a thread (32
+//     at N = 16384): 256 threads up to N = 4096, F = 128 / 64 rows at N =
+//     32 / 64 (the reference's 4x32 / 2x64 packing; the API keeps its batch
+//     rule, the kernel masks any ragged tail), one row of 512 threads at
+//     8192 and 16384;
+//   * the radix-16 ladder of hcore.cuh: two exchanges through shared
+//     memory at N = 1024 and 4096 (the radix-8 ladder of stockham.cuh took
+//     three), three at 16384; padded slots (one element in 16) keep every
+//     access at the minimum wavefronts;
+//   * 24 warps an SM for fp32 (3 blocks of 256 threads, 80 registers, no
+//     spills; at 32 warps the 64-register cap spilled 100-128 bytes), two
+//     buffers a row (one barrier a stage) where those blocks still fit
+//     (N = 64..8192), else one in place;
+//   * natural input goes from device memory straight into the registers
+//     the first stage takes (thread t holds points t + s*TPF: coalesced),
+//     natural output from the last stage's registers straight back; the
+//     scale multiplies the last stage's unrounded outputs;
+//   * revblock layouts (N >= 256; natural order below) are staged through
+//     the row's buffer with the index map: a warp stores or loads
+//     consecutive positions (coalesced), a thread takes or gives its
+//     logical points, and RowGeometry::stage's padding keeps both sides at
+//     the minimum wavefronts.  Revblock output comes straight from the
+//     last stage's epilogue into the staging (Core::run_regs_out);
+//   * the stage twiddles come from the block's table in shared memory,
+//     filled once a block from the direction's W_N table (computed in
+//     float64 and rounded once on the host, params.twiddle_table; no
+//     __sinf / fast math); the radix-16 and radix-8 stages keep W^(4k)
+//     beside W^k, so every power W^(rk) is at most three products from
+//     two table entries (on the H100, products four deep from one had 3x
+//     the stockham kernel's fp32 error; each power read from the W_N table
+//     in device memory matched it but took 1.20-1.26 ms for 2^27 points
+//     at N = 4096 against 0.84);
+//   * N = 8192 and 16384 run one block of 512 threads (16 warps) an SM:
+//     at 16384 the padded row alone is 136 KB (139264 bytes), so a second
+//     block cannot fit (a cluster of two blocks
+//     splitting the row over distributed shared memory is the way past
+//     it, not taken here); the block holds 32 points a thread in place;
+//   * shared memory above 48 KB is dynamic only, after
+//     cudaFuncSetAttribute(MaxDynamicSharedMemorySize); the launcher sets
+//     it and returns cudaGetLastError() right after the launch;
+//   * two data layouts, chosen by a runtime flag: interleaved complex64
 //     (one float2 load or store per point; the complex API hands over its
 //     tensor with no conversion pass) or two contiguous fp32 planes (the
-//     planar API).
-//   * Twiddles come from a table W_N^m, m = 0..N-1, computed in float64 and
-//     rounded once to fp32 on the host (params.twiddle_table).  No
-//     __sinf / fast math.  The radix-8 butterfly's constant sqrt(1/2) is the
-//     same fp32 number as the table's W_8.
-//   * Offsets into the batch are 64-bit: batch * N reaches past 2^31 floats
-//     at the working sizes (2^27 points per plane).
-//   * The launcher returns cudaGetLastError() right after the launch, so a
-//     launch refused for its shared memory or block size is reported.
-//   * The precision tier "exact" (<= 2 ulp of max|X|) has its own
+//     planar API);
+//   * offsets into the batch are 64-bit: batch * N reaches past 2^31
+//     floats at the working sizes (2^27 points per plane);
+//   * the precision tier "exact" (<= 2 ulp of max|X|) has its own
 //     instantiation: butterflies and twiddle products in fp64 registers
-//     from an fp64 twiddle table, fp64 shared memory where the transform
-//     fits (N <= 8192), fp32 shared memory at N = 16384 (128 KB; fp64 would
-//     need 256 KB).  Its only fp32 rounding is the output's, plus the
-//     stage outputs at N = 16384.  fp64 runs at about half the fp32 rate
-//     outside the tensor cores, and the FFT's ~5 N log2 N flops stay below
-//     the memory time, so the tier stays memory-bound.  Every other tier
-//     runs the fp32 instantiation.
+//     from an fp64 twiddle table, fp64 shared memory up to N = 8192 (139 KB
+//     padded), fp32 at 16384.  Input and output are fp32, so the registers
+//     between the load, the stages and the store hold float2 in both
+//     tiers.  Every other tier runs the fp32 instantiation.
 //
-// The Stockham core (stockham.cuh) is shared with the real kernels
-// (real.cu).  Templated on N and the tier (the reference's static size
-// switch); layouts, direction and scale are runtime arguments.
+// Templated on N and the tier (the reference's static size switch);
+// layouts, direction and scale are runtime arguments.
 
-#include "stockham.cuh"
+#include "hcore.cuh"
 
 namespace {
 
 using namespace smfft;
 
-// Stockham stages (stockham.cuh).  With natural input the first stage
-// reads its butterflies straight from device memory (point i + r*N/8:
-// consecutive threads, consecutive addresses), and with natural output
-// the last stage writes straight to device memory (point i + r*N/RL);
-// revblock layouts are staged through shared memory with the index map.
-// Each thread first issues all E of its loads, then computes.
-template <int N, int TPF, int F, int MINB, typename C, typename S>
-__global__ void __launch_bounds__(TPF * F, MINB)
-c2c_kernel(Io io, int64_t batch, int inverse, int in_rev, int out_rev,
-           float scale, const C* __restrict__ tw) {
-    using T = real_t<C>;
-    S* smem = shared_buffer<S>();
-    constexpr int THREADS = TPF * F;
-    constexpr int E = N / TPF;  // points per thread
-    constexpr int CB = N >= 128 ? N / 128 : 1;
-    constexpr int RL = Ladder<N>::RL;
-    const T s = inverse ? T(1) : T(-1);
-    const int64_t first = (int64_t)blockIdx.x * F;  // first transform
-    const int64_t valid = (batch - first) * N;      // points left in batch
-    const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
-    const bool live = first + f < batch;
-    const int64_t row = (first + f) * N;  // this transform's first point
-    S* buf = smem + f * N;
+// 24 warps an SM: at 32 (64 registers a thread) ptxas spills 100-128 bytes
+template <int N, bool EXACT>
+using RowGeometry = hc::RowGeometry<N, EXACT, 24>;
 
-    // first stage: radix 8, p = 1, from the E input points a thread holds
-    constexpr int Q0 = E / 8;
-    float2 u[Q0][8];
-    if (!in_rev) {
+template <int N, bool EXACT>
+__global__ void __launch_bounds__(RowGeometry<N, EXACT>::THREADS,
+                                  RowGeometry<N, EXACT>::MINB)
+c2c_kernel(Io io, int64_t batch, int inverse, int in_rev, int out_rev,
+           float scale,
+           const typename RowGeometry<N, EXACT>::C* __restrict__ tw) {
+    using G = RowGeometry<N, EXACT>;
+    using C = typename G::C;
+    using S = typename G::S;
+    using Core = typename G::Core;
+    using T = real_t<C>;
+    constexpr int E = G::E, TPF = G::TPF, THREADS = G::THREADS;
+    S* smem = shared_buffer<S>();
+    C* tab = reinterpret_cast<C*>(smem + G::F * G::BUF);
+    Core::fill(tab, tw, threadIdx.x, THREADS);
+    const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
+    const int64_t first = (int64_t)blockIdx.x * G::F;  // first row
+    const int64_t valid = (batch - first) * N;         // points left
+    const bool live = first + f < batch;
+    const int64_t row = (first + f) * N;  // this row's first point
+    S* a = smem + f * G::BUF;
+    S* b = G::PP ? a + G::SLOT : a;
+    const T sg = inverse ? T(1) : T(-1);
+    const T sc = T(scale);
+    const bool rin = G::CB > 1 && in_rev, rout = G::CB > 1 && out_rev;
+
+    // the points t + s*TPF of this row, as the first stage takes them
+    float2 u[E];
+    if (!rin) {
 #pragma unroll
-        for (int q = 0; q < Q0; ++q)
-#pragma unroll
-            for (int r = 0; r < 8; ++r)
-                u[q][r] = live ? io.load(row + t + q * TPF + r * (N / 8))
-                               : make_float2(0.0f, 0.0f);
+        for (int s = 0; s < E; ++s)
+            u[s] = live ? io.load(row + t + s * TPF)
+                        : make_float2(0.0f, 0.0f);
     } else {
-        // coalesced loads of the block's F*N points, scattered into shared
-        // memory at their logical index
-        float2 v[E];
+        // coalesced by position into the staging, then by logical point
 #pragma unroll
         for (int j = 0; j < E; ++j) {
             const int e = threadIdx.x + j * THREADS;
-            v[j] = e < valid ? io.load(first * N + e)
+            u[j] = e < valid ? io.load(first * N + e)
                              : make_float2(0.0f, 0.0f);
         }
 #pragma unroll
         for (int j = 0; j < E; ++j) {
             const int e = threadIdx.x + j * THREADS;
-            put(smem[(e / N) * N + revblock_index(e % N, CB)], v[j]);
+            put(smem[(e / N) * G::BUF + G::stage(e % N)], u[j]);
         }
         __syncthreads();
         // fp32 input values: exact in either storage type
 #pragma unroll
-        for (int q = 0; q < Q0; ++q)
-#pragma unroll
-            for (int r = 0; r < 8; ++r)
-                put(u[q][r], buf[t + q * TPF + r * (N / 8)]);
+        for (int s = 0; s < E; ++s)
+            put(u[s], a[G::stage(revblock_pos(t + s * TPF, G::CB))]);
         __syncthreads();
     }
-    // one first stage for both layouts: an inlined copy per layout changed
-    // ptxas's register allocation and cost 2-5 % at N = 1024 / 4096
-    first_stage<N, TPF>(u, buf, t, tw, s, T(scale));
 
-    middle_stages<N, TPF>(buf, t, tw, s);
-
-    // last stage: radix RL, p = N / RL, so butterfly i writes point
-    // i + r*p
-    constexpr int QL = E / RL;
-    float2 w[QL][RL];
-    last_stage<N, TPF>(buf, t, tw, s, w);
-    if (!out_rev) {
+    if (!rout) {
+        // the last stage's outputs times the scale, unrounded, into u
+        Core::template run_regs<false, false>(
+            u, a, b, t, tab, false, sg,
+            [&](int, C v) { return cmake(v.x * sc, v.y * sc); });
         if (live) {
 #pragma unroll
-            for (int q = 0; q < QL; ++q)
-#pragma unroll
-                for (int r = 0; r < RL; ++r)
-                    io.store(row + t + q * TPF + r * (N / RL), w[q][r]);
+            for (int s = 0; s < E; ++s) io.store(row + t + s * TPF, u[s]);
         }
         return;
     }
-    __syncthreads();  // every read of the last stage is done
-#pragma unroll
-    for (int q = 0; q < QL; ++q)
-#pragma unroll
-        for (int r = 0; r < RL; ++r)
-            put(buf[t + q * TPF + r * (N / RL)], w[q][r]);
-    __syncthreads();
-    float2 v[E];
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-        const int e = threadIdx.x + j * THREADS;
-        put(v[j], smem[(e / N) * N + revblock_index(e % N, CB)]);
-    }
+    // revblock out: each output point k times the scale into the staging
+    // at its position, then stored by position
+    S* dst = Core::run_regs_out(
+        u, a, b, t, tab, false, sg, [&](S* d, int k, C v) {
+            put(d[G::stage(revblock_pos(k, G::CB))],
+                cmake(v.x * sc, v.y * sc));
+        });
+    const int off = (int)(dst - a);
 #pragma unroll
     for (int j = 0; j < E; ++j) {
         const int e = threadIdx.x + j * THREADS;
-        if (e < valid) io.store(first * N + e, v[j]);
+        if (e < valid)
+            io.store(first * N + e,
+                     as<float2>(smem[(e / N) * G::BUF + off +
+                                     G::stage(e % N)]));
     }
 }
 
@@ -184,9 +176,9 @@ template <int N, bool EXACT>
 cudaError_t launch(const Io& io, int64_t batch, int inverse, int in_rev,
                    int out_rev, float scale, const void* tw,
                    cudaStream_t stream) {
-    using G = Geometry<N, EXACT>;
+    using G = RowGeometry<N, EXACT>;
     using C = typename G::C;
-    auto kernel = c2c_kernel<N, G::TPF, G::F, G::MINB, C, typename G::S>;
+    auto kernel = c2c_kernel<N, EXACT>;
     cudaError_t err = allow_smem(kernel, G::SMEM);
     if (err != cudaSuccess) return err;
     kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(

@@ -1,8 +1,8 @@
-// The in-block FFT core for Hopper of bluestein_kernel (chirp.cu) and
-// fourstep_pass_kernel (fourstep.cu): an M-point transform (M = 16..16384)
-// by TPF threads, E = M / TPF points a thread, in shared memory and
-// registers.  The other kernels keep stockham.cuh; this header only
-// borrows its complex helpers.
+// The in-block FFT core for Hopper of bluestein_kernel (chirp.cu),
+// fourstep_pass_kernel (fourstep.cu), c2c_kernel (c2c.cu) and the R2C
+// kernel (real.cu): an M-point transform (M = 16..16384) by TPF threads,
+// E = M / TPF points a thread, in shared memory and registers.  The other
+// kernels keep stockham.cuh; this header only borrows its complex helpers.
 //
 // Thread t holds the points t + s*TPF (s < E) of its transform in u[s],
 // natural order, before the first stage (Core::run_regs) and after the
@@ -23,12 +23,17 @@
 //   * the stage twiddles come from a block-local table in shared memory,
 //     W_(p*R)^k for k < p per stage (Core::TAB entries, filled once a
 //     block from the W_M table), one read a butterfly; the powers W^(r*k)
-//     are products in registers (at most four deep);
+//     are products in registers (at most four deep).  With ANCH (the row
+//     kernels) the radix-8 and radix-16 stages also keep W^(4k), and each
+//     power is at most three products from a table entry;
 //   * HALF skips the first stage's operands r >= 8 (inputs j >= M/2 that
 //     are zero), LOWER computes only the last stage's outputs r < RL/2
 //     (the points k < M/2);
 //   * the last stage hands each output to an epilogue unrounded (a
-//     product, a twiddle) before it is stored in the registers' type.
+//     product, a twiddle) before it is stored in the registers' type, or
+//     (Core::run_regs_out) to a store into shared memory;
+//   * RowGeometry lays out the row kernels' blocks (F rows of TPF
+//     threads) and their revblock staging.
 // Two number types as in stockham.cuh: C the arithmetic, S the storage.
 
 #pragma once
@@ -189,16 +194,47 @@ __host__ __device__ constexpr int tab_off(int s) {
     return (pow16(s) - 16) / 15;
 }
 
+// v[r] *= w^r, r = 1..R-1 (R = 8 or 16), from two table entries w and
+// w4 = w^4: w^(4a+b) = (w^4)^a w^b, a, b < 4, so that no power is more
+// than three products from a table entry (twiddle's squarings carry the
+// rounding of w to w^8 eightfold).
+template <int R, typename C>
+__device__ __forceinline__ void twiddle_anchored(C (&v)[R], C w, C w4) {
+    static_assert(R == 8 || R == 16, "radix 8 or 16");
+    const C w2 = cmul(w, w);
+    const C lo[4] = {w, w, w2, cmul(w2, w)};  // lo[b] = w^b, b >= 1
+    const C w8 = cmul(w4, w4);
+    const C hi[4] = {w4, w4, w8, cmul(w8, w4)};  // hi[a] = w^(4a), a >= 1
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+        const int a = r >> 2, b = r & 3;
+        v[r] = cmul(v[r], a == 0 ? lo[b] : (b == 0 ? hi[a]
+                                                   : cmul(hi[a], lo[b])));
+    }
+}
+
 // The transform of one M-point row by TPF threads.  PAD: the padded
 // positions inside a buffer; PP: two buffers a, b (one barrier a stage),
-// else in place in a.
-template <int M, int TPF, bool PAD, bool PP>
+// else in place in a.  ANCH: the radix-8 and radix-16 stages keep W^(4k)
+// beside W^k in the table and take their powers by twiddle_anchored (the
+// fp32 error of the products four deep was up to 3.3x the stockham.cuh
+// kernels', which read every power from the W_M table).
+template <int M, int TPF, bool PAD, bool PP, bool ANCH = false>
 struct Core {
     static constexpr int E = M / TPF;
     static constexpr int NS = nstages(M);
     static constexpr int RL = stage_radix(M, NS - 1);
-    // twiddle table entries: 16 + 256 + ... for stages 1..NS-1
-    static constexpr int TAB = tab_off(NS);
+    // whether stage s keeps its anchors W^(4k), and where its entries start
+    // in the table: 16 + 256 + ... for stages 1..NS-1 (twice for anchors)
+    __host__ __device__ static constexpr bool anchored(int s) {
+        return ANCH && stage_radix(M, s) >= 8;
+    }
+    __host__ __device__ static constexpr int off(int s) {
+        return s <= 1 ? 0
+                      : off(s - 1) + pow16(s - 1) * (anchored(s - 1) ? 2 : 1);
+    }
+    // twiddle table entries
+    static constexpr int TAB = off(NS);
     // whether run_regs's last stage reads b, so that a may be written at
     // once after it
     static constexpr bool LAST_READS_B = PP && NS % 2 == 1;
@@ -220,10 +256,13 @@ struct Core {
     static __device__ __forceinline__ void fill_stage(
         C* tab, const W* __restrict__ tw, int tid, int nthreads) {
         if constexpr (SI < NS) {
-            constexpr int P = pow16(SI), OFF = tab_off(SI);
+            constexpr int P = pow16(SI), OFF = off(SI);
             constexpr int STEP = M / (P * stage_radix(M, SI));
-            for (int k = tid; k < P; k += nthreads)
+            for (int k = tid; k < P; k += nthreads) {
                 tab[OFF + k] = as<C>(__ldg(&tw[k * STEP]));
+                if (anchored(SI))
+                    tab[OFF + P + k] = as<C>(__ldg(&tw[4 * k * STEP]));
+            }
             fill_stage<SI + 1>(tab, tw, tid, nthreads);
         }
     }
@@ -233,8 +272,14 @@ struct Core {
     static __device__ __forceinline__ void butterfly(
         C (&v)[stage_radix(M, SI)], int i, const C* tab, bool cj,
         real_t<C> sg) {
-        constexpr int P = pow16(SI), OFF = tab_off(SI);
-        if (SI > 0) twiddle(v, conj_if(tab[OFF + (i & (P - 1))], cj));
+        constexpr int P = pow16(SI), OFF = off(SI);
+        if constexpr (SI > 0 && anchored(SI)) {
+            const int k = i & (P - 1);
+            twiddle_anchored(v, conj_if(tab[OFF + k], cj),
+                             conj_if(tab[OFF + P + k], cj));
+        } else if (SI > 0) {
+            twiddle(v, conj_if(tab[OFF + (i & (P - 1))], cj));
+        }
         Dft<stage_radix(M, SI), false, LOWER>::run(v, sg);
     }
 
@@ -372,6 +417,55 @@ struct Core {
         last<LOWER>(middles<1>(a, b, t, tab, cj, sg), u, t, tab, cj, sg, epi);
     }
 
+    // The last stage from src into shared memory: out(k, v) stores output
+    // point k (natural order) unrounded, for k = i + r*M/RL, i = t + q*TPF.
+    // INPLACE (out writes the buffer src): every read finishes first.
+    // Synchronises after the writes.
+    template <bool INPLACE, typename C, typename S, typename Out>
+    static __device__ __forceinline__ void last_out(const S* src, int t,
+                                                    const C* tab, bool cj,
+                                                    real_t<C> sg, Out out) {
+        constexpr int Q = E / RL;
+        constexpr int STEP = M / RL;
+        S raw[Q][RL];
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+#pragma unroll
+            for (int r = 0; r < RL; ++r)
+                raw[q][r] = src[pos(t + q * TPF + r * STEP)];
+        if (INPLACE) __syncthreads();
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int i = t + q * TPF;
+            C v[RL];
+#pragma unroll
+            for (int r = 0; r < RL; ++r) v[r] = as<C>(raw[q][r]);
+            butterfly<NS - 1, false>(v, i, tab, cj, sg);
+#pragma unroll
+            for (int r = 0; r < RL; ++r) out(i + r * STEP, v[r]);
+        }
+        __syncthreads();
+    }
+
+    // The transform of u (registers in, as run_regs) into shared memory:
+    // out(dst, k, v) stores every output point k, unrounded, in dst, the
+    // buffer returned (with PP the one the last stage does not read, else
+    // a after all its reads), at whatever index the caller chooses.
+    // Synchronises after the writes.
+    template <typename C, typename S, typename U, typename Out>
+    static __device__ __forceinline__ S* run_regs_out(const U (&u)[E], S* a,
+                                                      S* b, int t,
+                                                      const C* tab, bool cj,
+                                                      real_t<C> sg, Out out) {
+        static_assert(NS > 1, "the row kernels start at 32 points");
+        first_regs<false, C>(u, a, t, sg);
+        const S* src = middles<1>(a, b, t, tab, cj, sg);
+        S* dst = PP ? (LAST_READS_B ? a : b) : a;
+        last_out<!PP>(src, t, tab, cj, sg,
+                      [&](int k, C v) { out(dst, k, v); });
+        return dst;
+    }
+
     // The transform of the staged tile in a (times scale), in place, into
     // u.  The caller synchronises before writing a again.
     template <typename C, typename S, typename Epi>
@@ -394,6 +488,74 @@ struct Core {
             last<false>(middles<1>(a, a, t, tab, cj, sg), u, t, tab, cj, sg,
                         epi);
         }
+    }
+};
+
+// The block layout of the row kernels on the core, c2c_kernel at M = N
+// and the R2C kernel at M = L = n/2 (models/hcore.py row_geometry):
+//   * E = 16 points a thread (32 at M = 16384), TPF = M / E threads a row,
+//     F rows a block: 256 threads up to M = 4096 (F = 128 rows of 2
+//     threads at M = 32), one row of 512 at 8192 and 16384;
+//   * WARPS, the warps an SM the fp32 instantiation aims at (its register
+//     budget: 24 warps allow 85 registers a thread, 32 allow 64), 16 for
+//     "exact" (128); MINB, the blocks an SM __launch_bounds__ must allow,
+//     is that or what the shared memory allows, whichever is fewer;
+//   * each row's buffers are padded slots (SLOT = M + M/16 elements), two
+//     of them (PP, one barrier a stage) where MINB blocks of two still
+//     fit an SM, else one in place; rows BUF elements apart, BUF = TPF mod
+//     16 where a warp spans rows (TPF < 16; 8 at TPF = 16), so that the
+//     rows of a warp meet different banks;
+//   * C is the arithmetic, S the storage: float2 for fp32; "exact" computes
+//     in double2 and stores double2 up to M = 8192 (139 KB padded), float2
+//     at 16384;
+//   * the stage twiddle table follows the F rows' buffers, with the
+//     anchors W^(4k) of Core's ANCH: on the H100 the products four deep
+//     had 3x the stockham.cuh kernels' fp32 error in ulp(max|X|) (up to
+//     6.9 against 2.5), the anchors keep it within 1.6x of theirs;
+//   * the revblock staging keeps position p of a row at stage(p), PADR
+//     pad elements after every 128 positions: a warp writing or reading
+//     consecutive positions, and one reading or writing consecutive logical
+//     points (positions 128 apart, CB of them), meet every bank evenly.
+__host__ __device__ constexpr int row_stride(int base, int tpf) {
+    return tpf > 16 ? base
+                    : base + (((tpf < 16 ? tpf : 8) - base) % 16 + 16) % 16;
+}
+
+template <int M, bool EXACT, int WARPS>
+struct RowGeometry {
+    using C = typename std::conditional<EXACT, double2, float2>::type;
+    using S = typename std::conditional<EXACT && M <= 8192, double2,
+                                        float2>::type;
+    static constexpr int E = M >= 16384 ? 32 : 16;
+    static constexpr int TPF = M / E;
+    static constexpr int F = TPF >= 256 ? 1 : 256 / TPF;
+    static constexpr int THREADS = TPF * F;
+    static constexpr int SLOT = M + M / 16;
+    static constexpr int BY_WARPS = (EXACT ? 16 : WARPS) * 32 / THREADS;
+    static constexpr int TAB = hc::Core<M, TPF, true, false, true>::TAB;
+    static constexpr bool PP =
+        (BY_WARPS > 1 ? BY_WARPS : 1) *
+            ((size_t)F * row_stride(2 * SLOT, TPF) * sizeof(S) +
+             TAB * sizeof(C) + 1024) <= 233472;
+    static constexpr int BUF = row_stride((PP ? 2 : 1) * SLOT, TPF);
+    using Core = hc::Core<M, TPF, true, PP, true>;
+    static constexpr size_t SMEM =
+        (size_t)F * BUF * sizeof(S) + TAB * sizeof(C);
+    static_assert(F * BUF * sizeof(S) % sizeof(C) == 0, "table alignment");
+    static constexpr int BY_SMEM = (int)(233472 / (SMEM + 1024));
+    static constexpr int MINB =
+        BY_SMEM < BY_WARPS ? (BY_SMEM > 0 ? BY_SMEM : 1)
+                           : (BY_WARPS > 0 ? BY_WARPS : 1);
+    // revblock differs from natural order from M = 256 on
+    static constexpr int CB = M >= 128 ? M / 128 : 1;
+    static constexpr int PADR = CB >= 32 ? 1 : 32 / CB;
+    static_assert(CB == 1 || M + (CB - 1) * PADR <= SLOT,
+                  "the staging fits a slot");
+    static __device__ __forceinline__ int stage(int p) {
+        return p + (p >> 7) * PADR;
+    }
+    static unsigned blocks(int64_t batch) {
+        return (unsigned)((batch + F - 1) / F);
     }
 };
 

@@ -44,43 +44,52 @@
 // the split and the merge stay in shared memory and registers.
 //
 // Design:
-//   * The L-point Stockham core of c2c.cu (stockham.cuh), with its block
-//     Geometry at N = L, the same as c2c.cu's: E = 16 points per thread,
-//     F = 4096/L rows per block for L <= 2048 (so every block but
-//     L = 8192's holds 32 KB in fp32), 256 threads (512 at L = 8192).
-//     The ragged tail of the batch is masked; offsets are 64-bit.
-//   * R2C: the first stage reads its butterflies straight from the real
-//     row as float2; the last stage leaves Z in shared memory, not in
-//     device memory, because the split needs Z[k] and Z[L-k] together.
-//     After a barrier one thread takes each pair (k, L-k), k = 0..L/2,
-//     reads it once and writes X[k] and X[L-k] in place (k = 0 and
-//     k = L/2 are their own mirrors and are written once).  After a
-//     second barrier the block writes its rows out, coalesced, in one of
-//     four layouts (runtime flag): packed planar natural (planar.rfft),
-//     packed planar revblock at size L (planar.rfft(ordered=False);
-//     position k2*128 + k1 holds bin k1*c + k2, c = L/128, natural for
-//     L <= 128), packed complex64 with slot 0 = DC + i Nyquist
-//     (fft_packed_real), and numpy complex64 (B, L+1) with DC and Nyquist
-//     as real bins (rfft), written straight from shared memory; its rows
-//     are L+1 bins apart, so that layout's index math is its own.
-//   * C2R: the block loads its rows, coalesced, from any of the four
-//     layouts into shared memory at their logical bin (revblock through
-//     the index map; the numpy layout's DC and Nyquist real parts into
-//     slot 0, their imaginary parts ignored).  After a barrier one thread
-//     per pair runs the merge in place; after a second the inverse stages
-//     run, and the last writes float2 straight into the real output row:
-//     the even/odd re-interleave, coalesced and free.
+//   * R2C, on the Hopper core of hcore.cuh at M = L (RowGeometry: F rows
+//     of TPF = L/16 threads, 256 threads a block up to L = 4096, one row of
+//     512 at 8192; padded slots in place; 32 warps an SM, which its 64
+//     registers a thread allow without spills: 4 blocks, 2 at L = 8192,
+//     against 3 blocks of two buffers, 24 warps, which measured no
+//     faster): the real row read as float2 goes straight into the
+//     registers the first stage takes (thread t holds z[t + s*TPF]:
+//     coalesced), the radix-16 ladder runs (two exchanges at L = 512 and
+//     2048, three at 8192; stockham.cuh's radix-8 ladder took three and
+//     four), and the last stage's epilogue writes Z in natural order into
+//     a free buffer (unpadded: a warp's mirror reads L-k are a run one off
+//     the padding's blocks of 16, which unpadded runs do not mind), then
+//     one barrier.  One thread a pair (k, L-k), k = t + j*TPF < L/2, reads
+//     both, forms X[k] and X[L-k] (real_pair.cuh) and stores them straight
+//     to device memory: bins k ascend across a warp and bins L-k descend,
+//     so both stores are coalesced segments.  The layouts (runtime flag):
+//     packed planar natural (planar.rfft), packed complex64 with slot 0 =
+//     DC + i Nyquist (fft_packed_real), numpy complex64 (B, L+1) with DC
+//     and Nyquist as real bins (rfft), and packed planar revblock at size L
+//     (planar.rfft(ordered=False); position k2*128 + k1 holds bin k1*c +
+//     k2, c = L/128, natural for L <= 128), the only one that goes back
+//     through shared memory: X in place of Z, into the registers, into
+//     the revblock staging (RowGeometry::stage), stored by position.  The
+//     ragged tail of the batch is masked; offsets are 64-bit.
+//   * C2R, on the Stockham core of stockham.cuh with its block Geometry at
+//     N = L: E = 16 points per thread, F = 4096/L rows per block for L <=
+//     2048, 256 threads (512 at L = 8192).  The block loads its rows,
+//     coalesced, from any of the four layouts into shared memory at their
+//     logical bin (revblock through the index map; the numpy layout's DC
+//     and Nyquist real parts into slot 0, their imaginary parts ignored).
+//     After a barrier one thread per pair runs the merge in place; after a
+//     second the inverse stages run, and the last writes float2 straight
+//     into the real output row: the even/odd re-interleave, coalesced and
+//     free.
 //   * Tables from the host, computed in float64 and rounded once: the
-//     L-point stage twiddles (params.twiddle_table) and W_n^k, k < L
-//     (params.real_split_table).  W^-k is the conjugate, W^{L-k} is
+//     L-point stage twiddles (params.twiddle_table; R2C's block table
+//     keeps W^k and the anchors W^(4k) as c2c.cu's does, C2R reads one
+//     entry an operand) and W_n^k, k < L (params.real_split_table).  W^-k is the conjugate, W^{L-k} is
 //     -conj(W^k): exact, so one table serves both kernels and both halves
 //     of a pair.
-//   * "exact": fp64 arithmetic, tables and shared memory (128 KB at
-//     L = 8192); the output's rounding to fp32 is the only one.
-//   * The launcher returns cudaGetLastError() right after the launch.
+//   * "exact": fp64 arithmetic, tables and shared memory (R2C: 139 KB
+//     padded at L = 8192); the output's rounding to fp32 is the only one.
+//   * The launchers return cudaGetLastError() right after the launch.
 
+#include "hcore.cuh"
 #include "real_pair.cuh"
-#include "stockham.cuh"
 
 namespace {
 
@@ -90,93 +99,112 @@ using namespace smfft;
 // same way).
 enum Layout : int { PLANAR = 0, PLANAR_REV = 1, PACKED = 2, NUMPY = 3 };
 
-template <int L, int TPF, int F, int MINB, typename C, typename S>
-__global__ void __launch_bounds__(TPF * F, MINB)
+// 32 warps an SM (64 registers a thread, no spills), in place
+template <int L, bool EXACT>
+using RowGeometry = hc::RowGeometry<L, EXACT, 32>;
+
+template <int L, bool EXACT>
+__global__ void __launch_bounds__(RowGeometry<L, EXACT>::THREADS,
+                                  RowGeometry<L, EXACT>::MINB)
 r2c_kernel(const float2* __restrict__ x, float* __restrict__ out_re,
            float* __restrict__ out_im, int layout, int64_t batch,
-           const C* __restrict__ tw, const C* __restrict__ wn) {
+           const typename RowGeometry<L, EXACT>::C* __restrict__ tw,
+           const typename RowGeometry<L, EXACT>::C* __restrict__ wn) {
+    using G = RowGeometry<L, EXACT>;
+    using C = typename G::C;
+    using S = typename G::S;
+    using Core = typename G::Core;
     using T = real_t<C>;
+    constexpr int E = G::E, TPF = G::TPF, THREADS = G::THREADS;
     S* smem = shared_buffer<S>();
-    constexpr int THREADS = TPF * F;
-    constexpr int E = L / TPF;  // points per thread
-    constexpr int CB = L >= 128 ? L / 128 : 1;
-    constexpr int RL = Ladder<L>::RL;
-    const int64_t first = (int64_t)blockIdx.x * F;  // first row
+    C* tab = reinterpret_cast<C*>(smem + G::F * G::BUF);
+    Core::fill(tab, tw, threadIdx.x, THREADS);
+    const int64_t first = (int64_t)blockIdx.x * G::F;  // first row
     const int64_t rows_left = batch - first;
     const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
     const bool live = f < rows_left;
     const int64_t row = (first + f) * L;  // this row's first float2
-    S* buf = smem + f * L;
+    S* a = smem + f * G::BUF;
+    S* b = G::PP ? a + G::SLOT : a;
+    if (G::CB == 1 && layout == PLANAR_REV) layout = PLANAR;
 
-    // z[m] = x[2m] + i x[2m+1]: the real row read as float2
-    constexpr int Q0 = E / 8;
-    float2 u[Q0][8];
+    // z[m] = x[2m] + i x[2m+1]: the real row read as float2, point
+    // t + s*TPF in u[s]
+    float2 u[E];
 #pragma unroll
-    for (int q = 0; q < Q0; ++q)
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-            u[q][r] = live ? __ldg(x + row + t + q * TPF + r * (L / 8))
-                           : make_float2(0.0f, 0.0f);
-    first_stage<L, TPF>(u, buf, t, tw, T(-1), T(1));
-    middle_stages<L, TPF>(buf, t, tw, T(-1));
-    constexpr int QL = E / RL;
-    S z[QL][RL];
-    last_stage<L, TPF>(buf, t, tw, T(-1), z);
-    __syncthreads();  // every read of the last stage is done
-#pragma unroll
-    for (int q = 0; q < QL; ++q)
-#pragma unroll
-        for (int r = 0; r < RL; ++r) buf[t + q * TPF + r * (L / RL)] = z[q][r];
-    __syncthreads();  // Z complete, natural order
+    for (int s = 0; s < E; ++s)
+        u[s] = live ? __ldg(x + row + t + s * TPF) : make_float2(0.0f, 0.0f);
+    // Z = DFT_L(z), natural order, unpadded, in a free buffer
+    S* z = Core::run_regs_out(u, a, b, t, tab, false, T(-1),
+                              [&](S* d, int k, C v) { put(d[k], v); });
 
-    // split: one thread per pair (k, L-k)
-    for (int k = t; k <= L / 2; k += TPF) {
-        const C a = as<C>(buf[k]);
+    // split: one thread a pair (k, L-k), X[k] and X[L-k] straight to device
+    // memory (PLANAR_REV: in place of the pair's Z, staged below)
+    float2* const pk = reinterpret_cast<float2*>(out_re);
+    float2* const ny = pk + (first + f) * (L + 1);
+    auto store = [&](int k, C v) {
+        if (layout == PLANAR_REV) {
+            put(z[k], v);
+        } else if (live) {
+            const float2 o = as<float2>(v);
+            if (layout == NUMPY) {
+                ny[k] = o;
+            } else if (layout == PACKED) {
+                pk[row + k] = o;
+            } else {
+                out_re[row + k] = o.x;
+                out_im[row + k] = o.y;
+            }
+        }
+    };
+#pragma unroll
+    for (int j = 0; j < E / 2; ++j) {
+        const int k = t + j * TPF;  // 0 <= k < L/2
+        const C za = as<C>(z[k]);
         if (k == 0) {
-            put(buf[0], split_dc(a));  // (DC, Nyquist)
+            const C d = split_dc(za);  // (DC, Nyquist)
+            if (layout == NUMPY) {
+                store(0, cmake(d.x, T(0)));
+                store(L, cmake(d.y, T(0)));
+            } else {
+                store(0, d);
+            }
             continue;
         }
         C xk, xm;
-        split_pair(a, as<C>(buf[L - k]), wn, k, xk, xm);
-        put(buf[k], xk);
-        if (2 * k != L) put(buf[L - k], xm);
+        split_pair(za, as<C>(z[L - k]), wn, k, xk, xm);
+        store(k, xk);
+        store(L - k, xm);
     }
-    __syncthreads();
+    if (t == 0) {  // the pair k = L/2 is its own mirror
+        const C h = as<C>(z[L / 2]);
+        C xk, xm;
+        split_pair(h, h, wn, L / 2, xk, xm);
+        store(L / 2, xk);
+    }
+    if (layout != PLANAR_REV) return;
 
-    if (layout == NUMPY) {
-        // rows of L+1 bins: bin 0 = (DC, 0), bin L = (Nyquist, 0)
-        float2* y = reinterpret_cast<float2*>(out_re) + first * (L + 1);
-        for (int e = threadIdx.x; e < F * (L + 1); e += THREADS) {
-            const int ff = e / (L + 1), k = e - ff * (L + 1);
-            if (ff >= rows_left) break;
-            const S v = smem[ff * L + (k == L ? 0 : k)];
-            float2 o;
-            if (k == 0)
-                o = make_float2((float)v.x, 0.0f);
-            else if (k == L)
-                o = make_float2((float)v.y, 0.0f);
-            else
-                put(o, v);
-            y[e] = o;
-        }
-        return;
-    }
+    // revblock: X in natural order into the registers, into the staging at
+    // its position, stored by position
+    __syncthreads();
+    S v[E];
+#pragma unroll
+    for (int s = 0; s < E; ++s) v[s] = z[t + s * TPF];
+    __syncthreads();
+    const int off = (int)(z - a);
+#pragma unroll
+    for (int s = 0; s < E; ++s)
+        z[G::stage(revblock_pos(t + s * TPF, G::CB))] = v[s];
+    __syncthreads();
     const int64_t valid = rows_left * L;  // bins left in the batch
 #pragma unroll
     for (int j = 0; j < E; ++j) {
         const int e = threadIdx.x + j * THREADS;
         if (e >= valid) break;
-        const int pos = e % L;
-        const int k = layout == PLANAR_REV ? revblock_index(pos, CB) : pos;
-        float2 v;
-        put(v, smem[(e - pos) + k]);
-        const int64_t g = first * L + e;
-        if (layout == PACKED) {
-            reinterpret_cast<float2*>(out_re)[g] = v;
-        } else {
-            out_re[g] = v.x;
-            out_im[g] = v.y;
-        }
+        const float2 o =
+            as<float2>(smem[(e / L) * G::BUF + off + G::stage(e % L)]);
+        out_re[first * L + e] = o.x;
+        out_im[first * L + e] = o.y;
     }
 }
 
@@ -282,9 +310,9 @@ template <int L, bool EXACT>
 cudaError_t launch_r2c(const float* x, float* out_re, float* out_im,
                        int layout, int64_t batch, const void* tw,
                        const void* wn, cudaStream_t stream) {
-    using G = Geometry<L, EXACT>;
+    using G = RowGeometry<L, EXACT>;
     using C = typename G::C;
-    auto kernel = r2c_kernel<L, G::TPF, G::F, G::MINB, C, typename G::S>;
+    auto kernel = r2c_kernel<L, EXACT>;
     cudaError_t err = allow_smem(kernel, G::SMEM);
     if (err != cudaSuccess) return err;
     kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(

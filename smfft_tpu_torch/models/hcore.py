@@ -1,9 +1,11 @@
-"""The Hopper core of ``csrc/hcore.cuh`` and the tile schedule of
-``csrc/fourstep.cu``, modelled on the CPU.
+"""The Hopper core of ``csrc/hcore.cuh``, the tile schedule of
+``csrc/fourstep.cu`` and the row layout of ``csrc/c2c.cu`` and the R2C
+kernel of ``csrc/real.cu``, modelled on the CPU.
 
-What a CPU can check of the two kernels built on that core
-(``bluestein_kernel``, ``fourstep_pass_kernel``), with the kernels' own
-index arithmetic written out in numpy:
+What a CPU can check of the four kernels built on that core
+(``bluestein_kernel``, ``fourstep_pass_kernel``, ``c2c_kernel``,
+``r2c_kernel``), with the kernels' own index arithmetic written out in
+numpy:
 
   * the stage ladder (radix-16 stages and one last radix of 2, 4, 8 or 16)
     and its index maps, thread by thread, give the DFT
@@ -14,7 +16,12 @@ index arithmetic written out in numpy:
     for them (:func:`wavefronts`, :func:`bluestein_patterns`,
     :func:`pass_patterns`);
   * the persistent tile schedule of the pass kernel
-    (:func:`tile_schedule`).
+    (:func:`tile_schedule`);
+  * the row kernels' block layout (:func:`row_geometry`), their revblock
+    staging (:func:`stage_pos`), the C2C kernel's layouts
+    (:func:`c2c_rows`), the R2C kernel's pair split and its stores in
+    each layout (:func:`r2c_rows`), and the wavefronts of every access
+    (:func:`row_patterns`).
 
 Conventions follow the kernel: M points a transform, TPF threads a
 transform, E = M / TPF points a thread; thread t holds the points t + s*TPF
@@ -293,3 +300,252 @@ def grid_size(n_tiles: int, sms: int, per_sm: int) -> int:
     """Blocks the launcher starts: one for every resident slot on the card,
     at most one a tile."""
     return max(1, min(n_tiles, sms * per_sm))
+
+
+# ---------------------------------------------------------------------------
+# The row kernels on the same core: c2c_kernel (csrc/c2c.cu) and the R2C
+# kernel (csrc/real.cu, at M = L = n/2).  F rows a block, TPF threads a row
+# (lane = row * TPF + t), each row's buffers BUF elements apart; revblock
+# layouts staged through the row's buffer with :func:`stage_pos`.
+# ---------------------------------------------------------------------------
+
+
+def row_stride(base: int, tpf: int) -> int:
+    """Elements between two rows' buffers: ``base`` where a warp holds one
+    row (TPF >= 32), else padded to TPF mod 16 (8 at TPF = 16), so that
+    the rows of a warp meet different banks."""
+    if tpf > 16:
+        return base
+    return base + ((tpf if tpf < 16 else 8) - base) % 16
+
+
+# the warps an SM each row kernel's fp32 instantiation aims at
+ROW_WARPS = {"c2c": 24, "r2c": 32}
+
+
+def row_geometry(m: int, exact: bool = False, warps: int = 24) -> dict:
+    """The block layout of an M-point row (``csrc/hcore.cuh``
+    RowGeometry<M, EXACT, WARPS>): E = 16 points a thread (32 at M =
+    16384), F rows a block (256 threads up to M = 4096, one row of 512
+    above), the blocks an SM (MINB: ``warps`` for fp32, 16 for "exact", or
+    what the shared memory allows), PAD slots of :func:`pad16` elements,
+    two buffers a row (PP) where MINB blocks of them fit an SM, each row's
+    buffers BUF elements apart (:func:`row_stride`), the stage twiddle
+    table after the rows (TAB entries of the arithmetic type: W^k a stage,
+    and the anchors W^(4k) of :func:`anchored_powers` for radix 8 and 16),
+    the revblock staging's pad PADR after every 128 positions, the bytes
+    of shared memory, and the element size of the shared memory."""
+    elem = 16 if exact and m <= 8192 else 8
+    celem = 16 if exact else 8
+    e = 32 if m >= 16384 else 16
+    tpf = m // e
+    f = max(1, 256 // tpf)
+    slot = pad16(m)
+    tab = sum(p * (2 if r >= 8 else 1)
+              for r, p in zip(radices(m)[1:], stage_p(m)[1:]))
+    by_warps = (16 if exact else warps) * 32 // (f * tpf)
+    pp = max(1, by_warps) * (f * row_stride(2 * slot, tpf) * elem
+                             + tab * celem + 1024) <= 233472
+    buf = row_stride((2 if pp else 1) * slot, tpf)
+    smem = f * buf * elem + tab * celem
+    cb = max(1, m // 128)
+    return {"E": e, "TPF": tpf, "F": f, "threads": f * tpf, "SLOT": slot,
+            "PP": pp, "BUF": buf, "TAB": tab, "smem": smem,
+            "MINB": max(1, min(233472 // (smem + 1024), by_warps)),
+            "CB": cb, "PADR": 1 if cb >= 32 else 32 // cb, "elem": elem}
+
+
+def revblock_pos(k, c: int):
+    """The position of logical element k in a revblock row (k1*c + k2 sits
+    at k2*128 + k1)."""
+    return (k % c) * 128 + k // c
+
+
+def revblock_index(p, c: int):
+    """The logical element at position p of a revblock row."""
+    return (p % 128) * c + p // 128
+
+
+def stage_pos(p, g: dict):
+    """Where the revblock staging keeps position p of a row: PADR pad
+    elements after every 128 positions, so that a warp writing consecutive
+    positions and a warp reading consecutive logical elements (positions
+    128 apart, c of them) both meet every bank evenly."""
+    return p + (p // 128) * g["PADR"]
+
+
+def c2c_rows(x: np.ndarray, inverse: bool = False, rev_in: bool = False,
+             rev_out: bool = False, scale: float = 1.0) -> np.ndarray:
+    """c2c_kernel on rows x (B, N), its index maps written out: revblock
+    input staged by position and read by logical element into the
+    registers, the core, the scale on its unrounded outputs, revblock output
+    staged by logical element and stored by position."""
+    b, m = x.shape
+    g = row_geometry(m)
+    c = g["CB"]
+    rev_in, rev_out = rev_in and c > 1, rev_out and c > 1
+    p = np.arange(m)
+    if rev_in:
+        st = np.zeros((b, stage_pos(m - 1, g) + 1), complex)
+        st[:, stage_pos(p, g)] = x                    # coalesced by position
+        x = st[:, stage_pos(revblock_pos(p, c), g)]   # point k = t + s*TPF
+    y = core(x, g["TPF"], inverse) * scale
+    if rev_out:
+        st = np.zeros((b, stage_pos(m - 1, g) + 1), complex)
+        st[:, stage_pos(revblock_pos(p, c), g)] = y   # the last stage's k
+        y = st[:, stage_pos(p, g)]                    # coalesced by position
+    return y
+
+
+REAL_LAYOUTS = ("planar", "planar_rev", "packed", "numpy")
+
+
+def r2c_rows(x: np.ndarray, layout: str = "planar"):
+    """The R2C kernel on real rows x (B, n), its index maps written out:
+    z[m] = x[2m] + i x[2m+1] through the L-point core, Z into a free buffer
+    in natural order (unpadded: a warp's mirror reads L-k are a run one off
+    the padding's blocks of 16), one thread a pair (k, L-k) storing X[k] and
+    X[L-k] where the layout puts them; ``planar_rev`` writes X in natural
+    order, reads it back into the registers (point t + s*TPF) and stages it
+    as :func:`c2c_rows` stages a revblock output.  Returns (the output in
+    ``layout``: (B, L) complex, (B, L+1) for numpy; the number of stores
+    each output element received)."""
+    b, n = x.shape
+    L = n // 2
+    g = row_geometry(L)
+    tpf, e, c = g["TPF"], g["E"], g["CB"]
+    w = np.exp(-2j * np.pi * np.arange(L) / n)
+    zb = core(x[:, 0::2] + 1j * x[:, 1::2], tpf)
+    width = L + 1 if layout == "numpy" else L
+    out = np.zeros((b, width), complex)
+    hits = np.zeros(width, int)
+    rev = layout == "planar_rev" and c > 1
+
+    def store(k, v):
+        out[:, k] = v                     # planar_rev: X in place of Z
+        if not rev:
+            hits[k] += 1
+
+    for t in range(tpf):
+        for j in range(e // 2):
+            k = t + j * tpf                       # 0 <= k < L/2
+            a = zb[:, k]
+            if k == 0:
+                dc, nyq = a.real + a.imag, a.real - a.imag
+                if layout == "numpy":
+                    store(0, dc)
+                    store(L, nyq)
+                else:
+                    store(0, dc + 1j * nyq)
+                continue
+            bb = zb[:, L - k]
+            ev = 0.5 * (a + np.conj(bb))
+            od = -0.5j * (a - np.conj(bb))
+            store(k, ev + w[k] * od)
+            store(L - k, np.conj(ev - w[k] * od))
+    a = zb[:, L // 2]                             # the self-pair k = L/2
+    ev, od = 0.5 * (a + np.conj(a)), -0.5j * (a - np.conj(a))
+    store(L // 2, ev + w[L // 2] * od)
+    if rev:
+        p = np.arange(L)
+        st = np.zeros((b, stage_pos(L - 1, g) + 1), complex)
+        st[:, stage_pos(revblock_pos(p, c), g)] = out   # point t + s*TPF
+        out = st[:, stage_pos(p, g)]                    # by position
+        hits += 1
+    return out, hits
+
+
+def _lanes(g: dict):
+    """(row, t) of every thread of a row block, rows t-fastest."""
+    return [(tid // g["TPF"], tid % g["TPF"]) for tid in range(g["threads"])]
+
+
+def _warp_waves(g: dict, fn, elem: int, kind: str, lanes=None):
+    """(kind, wavefronts) for each warp of the block accessing element
+    row * BUF + fn(row, t) (None: the lane does not access)."""
+    lanes = _lanes(g) if lanes is None else lanes
+    out = []
+    for w0 in range(0, len(lanes), 32):
+        addrs = []
+        for f, t in lanes[w0:w0 + 32]:
+            idx = fn(f, t)
+            if idx is not None:
+                addrs.append((f * g["BUF"] + idx) * elem)
+        out.append((kind, wavefronts(addrs, elem)))
+    return out
+
+
+def row_patterns(m: int, exact: bool, kernel: str = "c2c"):
+    """(what, wavefronts) of every shared-memory access of one block of
+    ``c2c_kernel`` (``kernel="c2c"``: the core, the revblock staging in and
+    out) or of the R2C kernel at L = m (``"r2c"``: the core, Z into the
+    buffer, the pair reads, the ``planar_rev`` staging), under
+    :func:`row_geometry` at the kernel's :data:`ROW_WARPS`; plus the stage
+    twiddle table's reads (W^k, and W^(4k) for radix 8 and 16)."""
+    g = row_geometry(m, exact, ROW_WARPS[kernel])
+    elem, tpf, e, c = g["elem"], g["TPF"], g["E"], g["CB"]
+    rl = radices(m)[-1]
+    out = []
+    for kind, fn in _stage_indices(m, tpf, False):
+        out += _warp_waves(g, lambda f, t, fn=fn: pad16(fn(t)), elem,
+                           "stage " + kind)
+    # the last stage's outputs into shared memory, point k = i + r*M/RL
+    lasts = [(q, r) for q in range(e // rl) for r in range(rl)]
+    sp = lambda k: stage_pos(revblock_pos(k, c), g)
+    if kernel == "c2c" and c > 1:
+        for q, r in lasts:
+            out += _warp_waves(g, lambda f, t, q=q, r=r:
+                               sp(t + q * tpf + r * (m // rl)), elem,
+                               "rev out: last stage")
+        for j in range(e):  # coalesced by position, element tid + j*THREADS
+            out += _warp_waves(g, lambda f, t, j=j: stage_pos(
+                (f * tpf + t + j * g["threads"]) % m, g), elem,
+                "revblock by position", _stage_rows(g, j))
+            out += _warp_waves(g, lambda f, t, j=j: sp(t + j * tpf), elem,
+                               "rev in: registers")
+    if kernel == "r2c":
+        for q, r in lasts:
+            out += _warp_waves(g, lambda f, t, q=q, r=r:
+                               t + q * tpf + r * (m // rl), elem,
+                               "Z out: last stage")
+        for j in range(e // 2):
+            k = lambda t, j=j: t + j * tpf
+            # the lane of k = 0 writes slot 0 alone and reads no mirror
+            mirror = lambda t, k=k: m - k(t) if k(t) else None
+            for what in ("pair read", "rev: X natural"):
+                out += _warp_waves(g, lambda f, t, k=k: k(t), elem,
+                                   what + " k")
+                out += _warp_waves(g, lambda f, t, mirror=mirror: mirror(t),
+                                   elem, what + " L-k")
+        if c > 1:
+            for j in range(e):
+                out += _warp_waves(g, lambda f, t, j=j: t + j * tpf, elem,
+                                   "rev: X to registers")
+                out += _warp_waves(g, lambda f, t, j=j: sp(t + j * tpf),
+                                   elem, "rev out: registers")
+                out += _warp_waves(g, lambda f, t, j=j: stage_pos(
+                    (f * tpf + t + j * g["threads"]) % m, g), elem,
+                    "revblock by position", _stage_rows(g, j))
+    for r_s, p in zip(radices(m)[1:], stage_p(m)[1:]):
+        for q in range(e // r_s):
+            for entry in ("W^k", "W^4k")[:2 if r_s >= 8 else 1]:
+                out += [("tw " + entry, w) for _, w in _warp_waves(
+                    {**g, "BUF": 0}, lambda f, t, q=q, p=p: (t + q * tpf) % p,
+                    16 if exact else 8, "tw")]
+    return out
+
+
+def anchored_powers(w: complex, w4: complex, radix: int) -> list:
+    """w^r, r = 0..radix-1, as ``hcore.cuh``'s twiddle_anchored forms them
+    from the two table entries w and w4 = w^4: w^(4a+b) = (w^4)^a w^b."""
+    lo = [1, w, w * w, w * w * w]
+    hi = [1, w4, w4 * w4, w4 * w4 * w4]
+    return [hi[r >> 2] * lo[r & 3] for r in range(radix)]
+
+
+def _stage_rows(g: dict, j: int):
+    """The lanes of the coalesced staging loop, element e = tid + j*THREADS
+    of the block: row e / M, and t = tid % TPF as the index carrier."""
+    m = g["TPF"] * g["E"]
+    return [((tid + j * g["threads"]) // m, tid % g["TPF"])
+            for tid in range(g["threads"])]

@@ -838,3 +838,88 @@ def test_real_input_promoted_on_card(dev, entry):
     torch.cuda.synchronize()
     assert torch.equal(got, same)
     assert max_err(got, ref(x64)) < bound(n)
+
+
+# ---------------------------------------------------------------------------
+# c2c_kernel and the R2C kernel on the Hopper core (csrc/hcore.cuh)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,rows", [(32, 128), (64, 64)])
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_c2c_packed_rows_at_block_edges(dev, n, rows, exact, inverse):
+    """N = 32 / 64 pack 128 / 64 rows into a block: batches of 1 row, one
+    short of a block, a block, one past it, and a ragged several, against
+    the plain version and float64 (and "exact" within 2 ulp(max|X|))."""
+    for b in (1, rows - 1, rows, rows + 1, 3 * rows + 5):
+        x = rand_c(b, n, dev, seed=b)
+        got = C.launch(x, inverse=inverse, exact=exact)
+        plain = torch.complex(*C.plain(x.real, x.imag, inverse=inverse,
+                                       exact=exact))
+        want = oracle(x, inverse)
+        torch.cuda.synchronize()
+        assert max_err(got, plain) < bound(n)
+        assert max_err(got, want) < bound(n)
+        if exact:
+            assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+@pytest.mark.parametrize("kind", ["c2c", "c2c_planar", "c2c_rev_in",
+                                  "c2c_rev_out", "r2c_planar",
+                                  "r2c_planar_rev", "r2c_numpy"])
+def test_input_view_with_offset(dev, kind):
+    """The input is a contiguous view at an offset into a larger tensor:
+    the output is a fresh tensor that overlaps no input, equal to the plain
+    version, and the input is left as it was."""
+    n = 1024
+    if kind.startswith("c2c"):
+        big = rand_c(40, n, dev, seed=11)
+        x = big[3:35]
+        before = big.clone()
+        kw = dict(rev_in=kind == "c2c_rev_in", rev_out=kind == "c2c_rev_out")
+        if kind == "c2c_planar":
+            bigr, bigi = big.real.contiguous(), big.imag.contiguous()
+            before = torch.complex(bigr, bigi)
+            o = C.launch(bigr[3:35], bigi[3:35], **kw)
+            outs, bigs = o, (bigr, bigi)
+            got = torch.complex(*o)
+        else:
+            got = C.launch(x, **kw)
+            outs, bigs = (got,), (big,)
+        want = torch.complex(*C.plain(x.real, x.imag, **kw))
+        after = torch.complex(*bigs) if len(bigs) == 2 else bigs[0]
+    else:
+        layout = kind[4:]
+        big = rand_r(40, n, dev, seed=12)
+        before = big.clone()
+        x = big[3:35]
+        o = R.launch_r2c(x, layout)
+        outs = o if isinstance(o, tuple) else (o,)
+        bigs = (big,)
+        got, want = o, R.r2c_plain(x, layout)
+        after = big
+    torch.cuda.synchronize()
+    for out in outs:
+        for b in bigs:
+            lo, hi = b.data_ptr(), b.data_ptr() + b.numel() * b.element_size()
+            assert not lo <= out.data_ptr() < hi
+    assert max_err(got, want) < bound(n)
+    assert torch.equal(after, before)
+
+
+@pytest.mark.parametrize("n", SUPPORTED_REAL_SIZES)
+def test_r2c_layouts_agree_bit_for_bit(dev, n):
+    """The four layouts are one kernel's X stored four ways: the same bits
+    once mapped to the natural packed spectrum."""
+    x = rand_r(2 * (4096 // (n // 2)) + 3 if n <= 8192 else 5, n, dev,
+               seed=n + 1)
+    nat = None
+    for layout in R.LAYOUTS:
+        got = R.launch_r2c(x, layout)
+        pr, pi = R.from_layout(*(got if isinstance(got, tuple)
+                                 else (got, None)), layout, n // 2)
+        if nat is None:
+            nat = (pr, pi)
+        else:
+            assert torch.equal(pr, nat[0]) and torch.equal(pi, nat[1])

@@ -1,12 +1,15 @@
-"""The CPU model of the Hopper core (``csrc/hcore.cuh``) and of the pass
-kernel's tile schedule (``csrc/fourstep.cu``): ``models/hcore.py``.
+"""The CPU model of the Hopper core (``csrc/hcore.cuh``), of the pass
+kernel's tile schedule (``csrc/fourstep.cu``) and of the row kernels
+(``csrc/c2c.cu``, the R2C kernel of ``csrc/real.cu``): ``models/hcore.py``.
 
-What a CPU can check of the two kernels on that core: the stage ladder and
+What a CPU can check of the four kernels on that core: the stage ladder and
 its index maps give numpy's DFT at every size the kernels instantiate, the
 Bluestein order of H and its two shortcuts (the first stage's zero half,
-the last stage's lower half) change nothing, every shared-memory access of
-a stage needs the fewest wavefronts a warp can (2 for 8-byte elements, 4
-for 16-byte ones; the shared core of ``stockham.cuh`` is counted the same
+the last stage's lower half) change nothing, the row kernels' layouts
+(revblock staging in and out, the R2C pair split and its stores) give
+numpy's fft / rfft and store each bin once, every shared-memory access
+needs the fewest wavefronts a warp can (2 for 8-byte elements, 4 for
+16-byte ones; the shared core of ``stockham.cuh`` is counted the same
 way), the paddings are bijections, and the persistent grid covers every
 tile once.  Tolerance: 1e-9 * M against complex128 numpy (the model runs
 in float64).
@@ -144,3 +147,132 @@ def test_tile_schedule_covers_every_transform_once(total, t, per_sm):
     covered = [g for tile in flat for g in range(tile * t, tile * t + t)
                if g < total]
     assert covered == list(range(total))
+
+
+# ---------------------------------------------------------------------------
+# The row kernels on the core: c2c_kernel and the R2C kernel.
+# ---------------------------------------------------------------------------
+
+ROW_M = [32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+REAL_N = [64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+
+
+def to_rev(x):
+    """Natural rows -> revblock rows (position k2*128 + k1 holds k1*c + k2)."""
+    c = max(1, x.shape[1] // 128)
+    return x[:, H.revblock_index(np.arange(x.shape[1]), c)]
+
+
+@pytest.mark.parametrize("m", ROW_M)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("mode", ["ordered", "rev_out", "rev_in", "rev_both"])
+def test_c2c_model_gives_the_dft(rng, m, inverse, mode):
+    """c2c_kernel's index maps (staging, core, scale) give numpy's DFT
+    in every layout."""
+    rev_in, rev_out = mode in ("rev_in", "rev_both"), mode in ("rev_out",
+                                                                 "rev_both")
+    x = rand_c(rng, 2, m)
+    want = (np.fft.ifft(x) * m if inverse else np.fft.fft(x)) * 0.5
+    got = H.c2c_rows(to_rev(x) if rev_in else x, inverse, rev_in, rev_out,
+                     0.5)
+    assert np.abs(got - (to_rev(want) if rev_out else want)).max() \
+        < 1e-9 * m
+
+
+def packed_rfft(x, layout):
+    """numpy's rfft of x in one of the R2C kernel's four layouts."""
+    want = np.fft.rfft(x)
+    L = x.shape[1] // 2
+    if layout == "numpy":
+        return want
+    out = want[:, :L].copy()
+    out[:, 0] = want[:, 0].real + 1j * want[:, L].real
+    return to_rev(out) if layout == "planar_rev" else out
+
+
+@pytest.mark.parametrize("n", REAL_N)
+@pytest.mark.parametrize("layout", H.REAL_LAYOUTS)
+def test_r2c_model_gives_rfft(rng, n, layout):
+    """The R2C kernel's index maps (the core at L, the pair split, the
+    layout's stores) give numpy's rfft in every layout."""
+    x = rng.random((2, n)) - 0.5
+    got, _ = H.r2c_rows(x, layout)
+    assert np.abs(got - packed_rfft(x, layout)).max() < 1e-9 * n
+
+
+@pytest.mark.parametrize("n", REAL_N)
+@pytest.mark.parametrize("layout", H.REAL_LAYOUTS)
+def test_r2c_stores_every_bin_once(rng, n, layout):
+    """The split's stores to device memory (the natural layouts straight
+    from the pair threads, planar_rev by position) cover each bin once."""
+    _, hits = H.r2c_rows(rng.random((1, n)) - 0.5, layout)
+    assert hits.shape == (n // 2 + (layout == "numpy"),)
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("kernel,m", [("c2c", m) for m in ROW_M]
+                         + [("r2c", n // 2) for n in REAL_N])
+@pytest.mark.parametrize("exact", [False, True])
+def test_row_kernel_banks(m, exact, kernel):
+    """Every shared-memory access of a block at the minimum wavefronts (2
+    for 8-byte elements, 4 for 16-byte): the core's stages under F rows a
+    block, the revblock staging by position and by logical point, the
+    last stage's Z, the split's pair reads (k ascending, L-k descending),
+    and the stage twiddle table (W^k and the anchors W^(4k))."""
+    g = H.row_geometry(m, exact, H.ROW_WARPS[kernel])
+    pats = H.row_patterns(m, exact, kernel)
+    kinds = {what for what, _ in pats}
+    if g["CB"] > 1:
+        assert "revblock by position" in kinds
+    if kernel == "r2c":
+        assert {"pair read k", "pair read L-k", "Z out: last stage"} <= kinds
+    for what, w in pats:
+        lim = (16 if exact else 8) // 4 if what.startswith("tw") \
+            else g["elem"] // 4
+        assert w <= lim, (what, w)
+
+
+@pytest.mark.parametrize("kernel,m", [("c2c", m) for m in ROW_M]
+                         + [("r2c", n // 2) for n in REAL_N])
+@pytest.mark.parametrize("exact", [False, True])
+def test_row_geometry(kernel, m, exact):
+    """A block's rows are disjoint and fit the shared memory with the
+    table; the staging is a bijection inside a slot; 256 threads up to
+    M = 4096 (N = 32 / 64 pack 128 / 64 rows), one row of 512 above; two
+    buffers a row only where the blocks an SM (24 or 32 warps for fp32, 16
+    for "exact") fit with them."""
+    g = H.row_geometry(m, exact, H.ROW_WARPS[kernel])
+    assert g["threads"] == g["F"] * g["TPF"] <= 1024
+    assert g["threads"] == (256 if m <= 4096 else 512)
+    assert g["F"] == {32: 128, 64: 64}.get(m, max(1, 4096 // m))
+    assert g["BUF"] >= (2 if g["PP"] else 1) * g["SLOT"]
+    assert g["smem"] <= 232448
+    assert g["MINB"] * (g["smem"] + 1024) <= 233472
+    if g["PP"]:  # the second buffer costs no block an SM
+        assert g["MINB"] == max(1, (16 if exact else H.ROW_WARPS[kernel])
+                                * 32 // g["threads"])
+    stage = H.stage_pos(np.arange(m), g)
+    assert len(np.unique(stage)) == m and stage.max() < g["SLOT"]
+    assert len(np.unique(H.pad16(np.arange(m)))) == m
+
+
+def test_c2c_packs_rows_at_32_and_64():
+    """N = 32 / 64: 128 / 64 rows of 2 / 4 threads share a block of 256."""
+    for m, rows in ((32, 128), (64, 64)):
+        g = H.row_geometry(m)
+        assert (g["F"], g["TPF"], g["threads"]) == (rows, 256 // rows, 256)
+
+
+@pytest.mark.parametrize("radix", [8, 16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_anchored_powers(radix, inverse):
+    """hcore.cuh's twiddle_anchored: every power w^r of a stage's twiddle
+    from the two entries W^k and W^(4k), each at most three products from
+    them."""
+    s = 1 if inverse else -1
+    for pr in (16 * radix, 256 * radix):
+        for k in range(0, pr // radix, 7):
+            w = np.exp(s * 2j * np.pi * k / pr)
+            got = H.anchored_powers(w, w ** 4, radix)
+            want = np.exp(s * 2j * np.pi * k * np.arange(radix) / pr)
+            np.testing.assert_allclose(got, want, atol=1e-12)
