@@ -46,9 +46,13 @@ Phases (each failure exits non-zero at once):
   8. The reuse main path at 2^27 points with ITERS = 100 transforms held
      on chip (the reference's NREUSES): ``fft_planar(multiple_iters=100)``
      at N = 1024 / 4096 / 16384, ``multiple_pencil_planar`` and
-     ``multiple_real_pencil_planar`` at 1024 / 4096.  MFFT/s (rows x iters
-     / time), the bound (fp32 operations), and the ratio to 100 single
-     calls (timed after the path's counters are read).
+     ``multiple_real_pencil_planar`` at 1024 / 4096.  The registers and
+     spills of every reuse instantiation; the error after the loop's
+     transforms against float64 (the pencil and real forms: against x)
+     and its margin under the chained bound 2 bound(N) sqrt(ITERS + 1);
+     MFFT/s (rows x iters / time), the bound (fp32 operations), and the
+     ratio to 100 single calls (timed after the path's counters are
+     read).
   9. Convolution sweep: ``conv_kernel`` (complex64 and planar) and
      ``conv_real_kernel``, every size, both tiers, 1 and 3 filters,
      against their plain versions and float64 ``torch.fft``; "exact"
@@ -893,12 +897,25 @@ def phase_main_reuse(card: str):
     ITERS = 100 is a multiple of 4, against x itself); the first rows of
     the fft_planar form against float64 torch.fft.  Returns (rows, calls
     per kernel, worst error per kernel)."""
+    from smfft_tpu_torch.ops import _cuda
     from smfft_tpu_torch.ops import c2c as C
     from smfft_tpu_torch.ops import multiple as M
+    for line in _cuda.register_report():
+        if line.startswith(("c2c_multiple_kernel", "real_multiple_kernel")):
+            print(f"  reuse ptxas: {line}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rows, calls = [], {"c2c_multiple": 0, "real_multiple": 0}
     worst = {"c2c_multiple": 0.0, "real_multiple": 0.0}
     lim = {n: reuse_bound(n, ITERS) for n in MAIN_SIZES}
+
+    def margin(form: str, n: int, err: float, against: str) -> float:
+        """The chained bound over the error after the loop's transforms."""
+        k = ITERS + 1 if form == "fft_planar" else ITERS
+        print(f"  {form} N={n}: error after {k} transforms {err:.3e} "
+              f"against {against}, bound "
+              f"2*bound(N)*sqrt({ITERS}+1) = {lim[n]:.3e}, margin "
+              f"{lim[n] / err:.1f}x")
+        return lim[n] / err
     for n in MAIN_SIZES:
         b = MAIN_POINTS // n
         x = rand_complex(b, n, gen)
@@ -919,6 +936,7 @@ def phase_main_reuse(card: str):
               f"revblock map: {e64:.3e}")
         if e64 > lim[n]:
             fail(f"reuse N={n}: {e64:.3e} against float64 over bound")
+        m64 = margin("fft_planar", n, e64, "float64 torch.fft")
         del o
         ms = cuda_ms(lambda: C.fft_planar(xr, xi, n, ordered=True,
                                           multiple_iters=ITERS),
@@ -927,7 +945,8 @@ def phase_main_reuse(card: str):
         ms_plain = cuda_ms(lambda: M.multiple_plain(
             xr, xi, loops=ITERS, fb_rev=True, last_rev=True), reps=1)
         rows.append({"form": "fft_planar", "n": n, "batch": b, "ms": ms,
-                     "plain_ms": ms_plain, "transforms": ITERS + 1})
+                     "plain_ms": ms_plain, "transforms": ITERS + 1,
+                     "err_margin": m64})
         if n <= 4096:
             o = M.multiple_pencil_planar(xr, xi, n, ITERS)
             calls["c2c_multiple"] += 1
@@ -937,8 +956,9 @@ def phase_main_reuse(card: str):
                 o, plain, n, f"multiple_pencil_planar(iters={ITERS}) N={n}",
                 lim[n]))
             del plain
-            check_all(o, (xr, xi), n, f"multiple_pencil_planar(iters="
-                      f"{ITERS}) N={n}", lim[n], against="x ((F/sqrt N)^4 = I)")
+            mp = margin("pencil", n, check_all(
+                o, (xr, xi), n, f"multiple_pencil_planar(iters={ITERS}) "
+                f"N={n}", lim[n], against="x ((F/sqrt N)^4 = I)"), "x")
             del o
             ms = cuda_ms(lambda: M.multiple_pencil_planar(xr, xi, n, ITERS),
                          reps=REPS_REUSE)
@@ -946,7 +966,8 @@ def phase_main_reuse(card: str):
             ms_plain = cuda_ms(lambda: M.multiple_plain(
                 xr, xi, loops=ITERS - 1, scale=1.0 / math.sqrt(n)), reps=1)
             rows.append({"form": "pencil", "n": n, "batch": b, "ms": ms,
-                         "plain_ms": ms_plain, "transforms": ITERS})
+                         "plain_ms": ms_plain, "transforms": ITERS,
+                         "err_margin": mp})
             y = M.multiple_real_pencil_planar(xr, n, ITERS)
             calls["real_multiple"] += 1
             plain = M.real_multiple_plain(xr, ITERS // 2)
@@ -954,8 +975,9 @@ def phase_main_reuse(card: str):
                 y, plain, n, f"multiple_real_pencil_planar(iters={ITERS}) "
                 f"n={n}", lim[n]))
             del plain
-            check_all(y, xr, n, f"multiple_real_pencil_planar(iters={ITERS}) "
-                      f"n={n}", lim[n], against="x")
+            mr = margin("real", n, check_all(
+                y, xr, n, f"multiple_real_pencil_planar(iters={ITERS}) "
+                f"n={n}", lim[n], against="x"), "x")
             del y
             ms = cuda_ms(lambda: M.multiple_real_pencil_planar(xr, n, ITERS),
                          reps=REPS_REUSE)
@@ -963,7 +985,8 @@ def phase_main_reuse(card: str):
             ms_plain = cuda_ms(lambda: M.real_multiple_plain(
                 xr, ITERS // 2), reps=1)
             rows.append({"form": "real", "n": n, "batch": b, "ms": ms,
-                         "plain_ms": ms_plain, "transforms": ITERS})
+                         "plain_ms": ms_plain, "transforms": ITERS,
+                         "err_margin": mr})
         del xr, xi
         torch.cuda.empty_cache()
     torch.cuda.synchronize()

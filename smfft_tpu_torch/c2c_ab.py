@@ -1,6 +1,6 @@
-"""Time the C2C, R2C, Bluestein and huge-N paths of one or more checkouts
-of smfft_tpu_torch on one GPU, in turns, so that two versions are compared
-on the same card in one run.
+"""Time the C2C, R2C, reuse, Bluestein and huge-N paths of one or more
+checkouts of smfft_tpu_torch on one GPU, in turns, so that two versions
+are compared on the same card in one run.
 
     python -m smfft_tpu_torch.c2c_ab PARENT_ROOT . . PARENT_ROOT
 
@@ -15,15 +15,21 @@ about 2^27 complex points or real samples per call, precision "highest":
     ``torch.fft.rfft``;
   * ``fft_any`` at n = 1000 (131072 rows) and 4097 (32768 rows), and
     ``fft_large`` at N = 2^15, 2^20, 2^24, 2^27, the median of 15;
+  * the reuse loops at 100 transforms a call: ``fft_planar(
+    multiple_iters=100)`` at N = 1024, 4096, 16384,
+    ``multiple_pencil_planar(iters=100)`` and
+    ``multiple_real_pencil_planar(iters=100)`` at 1024 and 4096, the median
+    of 5, beside the same root's single-pass calls on the same shape
+    (``planar.fft``; ``planar.rfft`` and ``planar.irfft`` for a real pair)
+    and the ratio of 100 single transforms to one reuse call;
   * the fp32 error of ``fft`` / ``ifft`` (64 rows, every N) and of ``rfft``
     (64 rows, every n) against float64 ``torch.fft``, in ulp(max|X|).
 
 Prints one JSON line per root and the registers and spills ptxas gave each
-instantiation of the kernels both roots build the same way (C2R, reuse
-loops, convolution, power, huge-N real, and Bluestein and the four-step
-pass, which share the Hopper core hcore.cuh with the redesigned C2C and
-R2C kernels) in that root's build, whether those are the same in every
-root, then the card.
+instantiation of the kernels both roots build the same way (C2R,
+convolution, power, huge-N real, and the kernels already on the Hopper
+core hcore.cuh: C2C, R2C, Bluestein and the four-step pass) in that root's
+build, whether those are the same in every root, then the card.
 """
 
 from __future__ import annotations
@@ -37,10 +43,9 @@ from pathlib import Path
 from smfft_tpu_torch.ops._cuda import register_report
 
 # the kernel instantiations whose registers and spills are compared
-SHARED_KERNELS = ("c2r_kernel", "c2c_multiple_kernel",
-                  "real_multiple_kernel", "conv_kernel", "conv_real_kernel",
+SHARED_KERNELS = ("c2r_kernel", "conv_kernel", "conv_real_kernel",
                   "power_kernel", "real_huge_kernel", "bluestein_kernel",
-                  "fourstep_pass_kernel")
+                  "fourstep_pass_kernel", "c2c_kernel", "r2c_kernel")
 
 CHILD = r"""
 import json, math, statistics, sys
@@ -85,6 +90,33 @@ for n in (1024, 4096, 16384):
                         "copy_real_ms": ms(lambda: dst.copy_(x)),
                         "torch_rfft_ms": ms(lambda: torch.fft.rfft(x))})
     del x, dst
+    torch.cuda.empty_cache()
+from smfft_tpu_torch.ops import c2c as OC
+from smfft_tpu_torch.ops import multiple as OM
+for n in (1024, 4096, 16384):
+    b = (1 << 27) // n
+    xr = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+    xi = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+    single = ms(lambda: T.planar.fft(xr, xi))
+    row = {"n": n, "reuse_fft_planar_ms": ms(lambda: OC.fft_planar(
+               xr, xi, n, ordered=True, multiple_iters=100), 5),
+           "single_planar_fft_ms": single}
+    row["fft_planar_ratio_to_single"] = 100 * single / row[
+        "reuse_fft_planar_ms"]
+    if n <= 4096:
+        row["reuse_pencil_ms"] = ms(
+            lambda: OM.multiple_pencil_planar(xr, xi, n, 100), 5)
+        row["pencil_ratio_to_single"] = 100 * single / row["reuse_pencil_ms"]
+        hr, hi = T.planar.rfft(xr)
+        pair = ms(lambda: T.planar.rfft(xr)) + ms(
+            lambda: T.planar.irfft(hr, hi))
+        row["reuse_real_ms"] = ms(
+            lambda: OM.multiple_real_pencil_planar(xr, n, 100), 5)
+        row["single_rfft_irfft_ms"] = pair
+        row["real_ratio_to_single"] = 50 * pair / row["reuse_real_ms"]
+        del hr, hi
+    out["rows"].append(row)
+    del xr, xi
     torch.cuda.empty_cache()
 for n in (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
     # both parts centred: a DC bin of N/2 would set max|X| for every kernel
@@ -138,8 +170,8 @@ def main(argv=None) -> int:
         for r in regs:
             print(f"  ptxas {Path(root).name or root}: {r}")
     reports = [r for r in reports if r]  # a root's older build: no log
-    print(f"c2r / multiple / conv / power / real_huge / bluestein / "
-          f"fourstep_pass instantiations report the same "
+    print(f"c2r / conv / power / real_huge / bluestein / fourstep_pass / "
+          f"c2c / r2c instantiations report the same "
           f"registers and spills in the {len(reports)} roots with a ptxas "
           f"report: "
           f"{bool(reports) and all(r == reports[0] for r in reports)}")

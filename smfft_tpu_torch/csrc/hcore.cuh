@@ -1,8 +1,9 @@
 // The in-block FFT core for Hopper of bluestein_kernel (chirp.cu),
-// fourstep_pass_kernel (fourstep.cu), c2c_kernel (c2c.cu) and the R2C
-// kernel (real.cu): an M-point transform (M = 16..16384) by TPF threads,
-// E = M / TPF points a thread, in shared memory and registers.  The other
-// kernels keep stockham.cuh; this header only borrows its complex helpers.
+// fourstep_pass_kernel (fourstep.cu), c2c_kernel (c2c.cu), the R2C kernel
+// (real.cu) and the reuse loops (multiple.cu): an M-point transform (M =
+// 16..16384) by TPF threads, E = M / TPF points a thread, in shared memory
+// and registers.  The other kernels keep stockham.cuh; this header only
+// borrows its complex helpers.
 //
 // Thread t holds the points t + s*TPF (s < E) of its transform in u[s],
 // natural order, before the first stage (Core::run_regs) and after the
@@ -351,8 +352,10 @@ struct Core {
     }
 
     // Stage 0 from the staged tile in a (each operand times scale), in
-    // place: all reads finish before the writes.
-    template <typename C, typename S>
+    // place: all reads finish before the writes.  PADIN: the tile's points
+    // sit at their padded positions, else at their indices (the writes are
+    // padded either way).
+    template <typename C, bool PADIN = PAD, typename S>
     static __device__ __forceinline__ void first_smem(S* a, int t,
                                                       real_t<C> sg,
                                                       real_t<C> scale) {
@@ -361,8 +364,10 @@ struct Core {
 #pragma unroll
         for (int q = 0; q < Q; ++q)
 #pragma unroll
-            for (int r = 0; r < 16; ++r)
-                raw[q][r] = a[pos(t + q * TPF + r * (M / 16))];
+            for (int r = 0; r < 16; ++r) {
+                const int idx = t + q * TPF + r * (M / 16);
+                raw[q][r] = a[PADIN ? pos(idx) : idx];
+            }
         __syncthreads();
 #pragma unroll
         for (int q = 0; q < Q; ++q) {
@@ -466,33 +471,49 @@ struct Core {
         return dst;
     }
 
-    // The transform of the staged tile in a (times scale), in place, into
-    // u.  The caller synchronises before writing a again.
-    template <typename C, typename S, typename Epi>
-    static __device__ __forceinline__ void run_smem(S* a, C (&u)[E], int t,
-                                                    const C* tab, bool cj,
-                                                    real_t<C> sg,
+    // The transform of the staged tile in a (times scale) into u: the
+    // first stage in place in a, the middle stages between a and b (PP,
+    // one barrier a stage; without PP in place in a, b unused).  PADIN as
+    // first_smem's (unpadded: the real reuse loop's row).  The caller
+    // synchronises before writing a or b again.
+    template <bool PADIN = PAD, typename C, typename S, typename Epi>
+    static __device__ __forceinline__ void run_smem(S* a, S* b, C (&u)[E],
+                                                    int t, const C* tab,
+                                                    bool cj, real_t<C> sg,
                                                     real_t<C> scale,
                                                     Epi epi) {
         if constexpr (NS == 1) {
 #pragma unroll
             for (int r = 0; r < 16; ++r) {
-                u[r] = as<C>(a[pos(t + r * TPF)]);
+                const int idx = t + r * TPF;
+                u[r] = as<C>(a[PADIN ? pos(idx) : idx]);
                 u[r] = cmake(u[r].x * scale, u[r].y * scale);
             }
             Dft<16, false, false>::run(u, sg);
 #pragma unroll
             for (int r = 0; r < 16; ++r) u[r] = epi(r, u[r]);
         } else {
-            first_smem<C>(a, t, sg, scale);
-            last<false>(middles<1>(a, a, t, tab, cj, sg), u, t, tab, cj, sg,
+            first_smem<C, PADIN>(a, t, sg, scale);
+            last<false>(middles<1>(a, b, t, tab, cj, sg), u, t, tab, cj, sg,
                         epi);
         }
     }
+
+    // run_smem in one buffer, in place in a.
+    template <bool PADIN = PAD, typename C, typename S, typename Epi>
+    static __device__ __forceinline__ void run_smem(S* a, C (&u)[E], int t,
+                                                    const C* tab, bool cj,
+                                                    real_t<C> sg,
+                                                    real_t<C> scale,
+                                                    Epi epi) {
+        static_assert(!PP, "PP's stages would read and write a at once");
+        run_smem<PADIN>(a, a, u, t, tab, cj, sg, scale, epi);
+    }
 };
 
-// The block layout of the row kernels on the core, c2c_kernel at M = N
-// and the R2C kernel at M = L = n/2 (models/hcore.py row_geometry):
+// The block layout of the row kernels on the core, c2c_kernel and
+// c2c_multiple_kernel at M = N, the R2C kernel and real_multiple_kernel at
+// M = L = n/2 (models/hcore.py row_geometry):
 //   * E = 16 points a thread (32 at M = 16384), TPF = M / E threads a row,
 //     F rows a block: 256 threads up to M = 4096 (F = 128 rows of 2
 //     threads at M = 32), one row of 512 at 8192 and 16384;

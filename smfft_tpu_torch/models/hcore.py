@@ -1,11 +1,12 @@
 """The Hopper core of ``csrc/hcore.cuh``, the tile schedule of
-``csrc/fourstep.cu`` and the row layout of ``csrc/c2c.cu`` and the R2C
-kernel of ``csrc/real.cu``, modelled on the CPU.
+``csrc/fourstep.cu``, the row layout of ``csrc/c2c.cu`` and the R2C
+kernel of ``csrc/real.cu``, and the reuse loops of ``csrc/multiple.cu``,
+modelled on the CPU.
 
-What a CPU can check of the four kernels built on that core
+What a CPU can check of the six kernels built on that core
 (``bluestein_kernel``, ``fourstep_pass_kernel``, ``c2c_kernel``,
-``r2c_kernel``), with the kernels' own index arithmetic written out in
-numpy:
+``r2c_kernel``, ``c2c_multiple_kernel``, ``real_multiple_kernel``), with
+the kernels' own index arithmetic written out in numpy:
 
   * the stage ladder (radix-16 stages and one last radix of 2, 4, 8 or 16)
     and its index maps, thread by thread, give the DFT
@@ -21,7 +22,12 @@ numpy:
     staging (:func:`stage_pos`), the C2C kernel's layouts
     (:func:`c2c_rows`), the R2C kernel's pair split and its stores in
     each layout (:func:`r2c_rows`), and the wavefronts of every access
-    (:func:`row_patterns`).
+    (:func:`row_patterns`);
+  * the reuse loops of ``csrc/multiple.cu`` on those blocks: the natural
+    hand-off in the registers (:func:`last_stage_points`), the revblock
+    hand-off through the staging (:func:`multiple_rows`), the real round
+    trip's in-place pair split and merge (:func:`real_multiple_rows`), and
+    the wavefronts of what they add (:func:`multiple_patterns`).
 
 Conventions follow the kernel: M points a transform, TPF threads a
 transform, E = M / TPF points a thread; thread t holds the points t + s*TPF
@@ -532,6 +538,158 @@ def row_patterns(m: int, exact: bool, kernel: str = "c2c"):
                 out += [("tw " + entry, w) for _, w in _warp_waves(
                     {**g, "BUF": 0}, lambda f, t, q=q, p=p: (t + q * tpf) % p,
                     16 if exact else 8, "tw")]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The reuse loops on the same core (csrc/multiple.cu): c2c_multiple_kernel
+# on c2c_kernel's block, real_multiple_kernel on the R2C kernel's at 24
+# warps an SM (two buffers a row).
+# ---------------------------------------------------------------------------
+
+
+# the warps an SM each reuse loop's fp32 instantiation aims at
+REUSE_WARPS = {"c2c": 24, "real": 24}
+
+
+def last_stage_points(m: int, tpf: int) -> np.ndarray:
+    """(TPF, E): the point the core's last stage leaves in register u[s] of
+    thread t.  Its output r of butterfly i = t + q*TPF is point i + r*M/RL,
+    put into u[q + r*E/RL]; that is point t + s*TPF, the point the first
+    stage reads from u[s], so one transform's registers are the next one's
+    input (the natural hand-off)."""
+    e, rl = m // tpf, radices(m)[-1]
+    pts = np.zeros((tpf, e), int)
+    t = np.arange(tpf)
+    for q in range(e // rl):
+        for r in range(rl):
+            pts[:, q + r * (e // rl)] = t + q * tpf + r * (m // rl)
+    return pts
+
+
+def multiple_rows(x: np.ndarray, loops: int, inverse: bool = False,
+                  fb_rev: bool = False, last_rev: bool = False,
+                  rev_out: bool = False, scale: float = 1.0,
+                  exact: bool = False) -> np.ndarray:
+    """c2c_multiple_kernel on rows x (B, N), its hand-offs written out:
+    ``loops + 1`` transforms of x * scale, each but the last times
+    1/sqrt(N); after transform j < loops the spectrum stays in the
+    registers (natural hand-off) or, revblock (``fb_rev``; ``last_rev``
+    for the last hand-off), goes from the last stage's epilogue into the
+    staging at its position (:func:`stage_pos` of :func:`revblock_pos`)
+    and comes back by position, point t + s*TPF into u[s]; the output is
+    natural from the registers or, with ``rev_out``, revblock by
+    position."""
+    b, m = x.shape
+    g = row_geometry(m, exact, REUSE_WARPS["c2c"])
+    c, tpf = g["CB"], g["TPF"]
+    p = np.arange(m)
+    u = x * scale
+    for it in range(loops + 1):
+        last = it == loops
+        y = core(u, tpf, inverse) * (1.0 if last else 1.0 / np.sqrt(m))
+        rev = c > 1 and (rev_out if last else
+                         (last_rev if it + 1 == loops else fb_rev))
+        if rev:
+            st = np.zeros((b, stage_pos(m - 1, g) + 1), complex)
+            st[:, stage_pos(revblock_pos(p, c), g)] = y  # the epilogue's k
+            y = st[:, stage_pos(p, g)]                   # by position
+        u = y
+    return u
+
+
+def real_multiple_rows(x: np.ndarray, pairs: int):
+    """real_multiple_kernel on real rows x (B, n), its index maps written
+    out: ``pairs`` round trips, each the forward L-point core (L = n/2) of
+    z[m] = x[2m] + i x[2m+1] with Z into the row's buffer in natural order,
+    one thread a pair (k, L-k) splitting and at once merging in place with
+    W_n^k and the scale 1/L (each thread reads its two bins before it
+    writes them), the inverse core from the unpadded buffer, natural z in
+    the registers for the next round trip.  Returns (the output (B, n); the
+    number of pair threads that wrote each bin in one round trip)."""
+    b, n = x.shape
+    L = n // 2
+    g = row_geometry(L, False, REUSE_WARPS["real"])
+    tpf, e = g["TPF"], g["E"]
+    w = np.exp(-2j * np.pi * np.arange(L // 2 + 1) / n)
+    h = 0.5 / L
+    z = x[:, 0::2] + 1j * x[:, 1::2]
+    hits = np.zeros(L, int)
+
+    def split_merge(a, bb, wk, self_pair=False):
+        ev = 0.5 * (a + np.conj(bb))
+        od = -0.5j * (a - np.conj(bb))
+        xk, xm = ev + wk * od, np.conj(ev - wk * od)
+        if self_pair:  # the kernel merges X[L/2] with itself
+            xm = xk
+        ev = h * (xk + np.conj(xm))
+        od = h * (xk - np.conj(xm)) * np.conj(wk)
+        return ev + 1j * od, np.conj(ev - 1j * od)
+
+    for _ in range(pairs):
+        buf = core(z, tpf)            # Z, natural, unpadded
+        hits[:] = 0
+        for t in range(tpf):
+            for j in range(e // 2):
+                k = t + j * tpf       # 0 <= k < L/2
+                if k == 0:
+                    dc = buf[:, 0].real + buf[:, 0].imag
+                    nyq = buf[:, 0].real - buf[:, 0].imag
+                    buf[:, 0] = h * (dc + nyq) + 1j * h * (dc - nyq)
+                    hits[0] += 1
+                    continue
+                buf[:, k], buf[:, L - k] = split_merge(buf[:, k],
+                                                       buf[:, L - k], w[k])
+                hits[k] += 1
+                hits[L - k] += 1
+        zh, _ = split_merge(buf[:, L // 2], buf[:, L // 2], w[L // 2],
+                            self_pair=True)
+        buf[:, L // 2] = zh           # thread 0: the self-pair k = L/2
+        hits[L // 2] += 1
+        z = core(buf, tpf, inverse=True)
+    return np.stack([z.real, z.imag], axis=-1).reshape(b, n), hits
+
+
+def multiple_patterns(m: int, exact: bool, kernel: str = "c2c"):
+    """(what, wavefronts) of the shared-memory accesses the reuse loops add
+    to the core's: ``"c2c"`` (M = N): the revblock hand-off's epilogue
+    stores (point k at the staging position of revblock_pos(k)) and its
+    reads by position (point t + s*TPF); ``"real"`` (M = L): Z out of the
+    last stage, the pair step's reads and writes of k and L-k and of W_n^k
+    from the block table, and the inverse's first stage reading the
+    unpadded row."""
+    g = row_geometry(m, exact, REUSE_WARPS[kernel])
+    elem, tpf, e, c = g["elem"], g["TPF"], g["E"], g["CB"]
+    rl = radices(m)[-1]
+    out = []
+    if kernel == "c2c":
+        for q in range(e // rl):
+            for r in range(rl):
+                out += _warp_waves(g, lambda f, t, q=q, r=r: stage_pos(
+                    revblock_pos(t + q * tpf + r * (m // rl), c), g), elem,
+                    "hand-off: last stage")
+        for s in range(e):
+            out += _warp_waves(g, lambda f, t, s=s: stage_pos(t + s * tpf, g),
+                               elem, "hand-off: registers")
+        return out
+    for q in range(e // rl):
+        for r in range(rl):
+            out += _warp_waves(g, lambda f, t, q=q, r=r:
+                               t + q * tpf + r * (m // rl), elem,
+                               "Z out: last stage")
+    for j in range(e // 2):
+        k = lambda t, j=j: t + j * tpf
+        mirror = lambda t, k=k: m - k(t) if k(t) else None
+        out += _warp_waves(g, lambda f, t, k=k: k(t), elem, "pair k")
+        out += _warp_waves(g, lambda f, t, mirror=mirror: mirror(t), elem,
+                           "pair L-k")
+        out += _warp_waves({**g, "BUF": 0}, lambda f, t, k=k: k(t), elem,
+                           "W_n^k")
+    for q in range(e // 16):
+        for r in range(16):
+            out += _warp_waves(g, lambda f, t, q=q, r=r:
+                               t + q * tpf + r * (m // 16), elem,
+                               "inverse: first stage")
     return out
 
 

@@ -348,6 +348,61 @@ def test_multiple_kernel_matches_plain(dev, n, form, exact):
         assert max_err(got_c, x) < lim
 
 
+def reuse_bound(n, loops):
+    """The chained bound of loops + 1 transforms, each unitary up to its
+    1/sqrt(N): rounding adds like a random walk, twice sqrt(loops + 1)
+    times one transform's bound (chip_smoke.py's reuse_bound)."""
+    return 2.0 * bound(n) * math.sqrt(loops + 1)
+
+
+# the fft_planar form (revblock hand-offs; revblock out, or revblock in
+# with the last hand-off natural) and the pencil form (natural throughout)
+REUSE_FORMS = {
+    "fft_planar": dict(fb_rev=True, last_rev=True, rev_out=True, scale=0.5),
+    "fft_planar_rev_in": dict(fb_rev=True, last_rev=False, inverse=True),
+    "pencil": dict(),
+}
+
+
+@pytest.mark.parametrize("n", SUPPORTED_C2C_SIZES)
+@pytest.mark.parametrize("form", list(REUSE_FORMS))
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("loops", [0, 1, 2, 99])
+def test_multiple_kernel_loops_match_float64(dev, n, form, exact, loops):
+    """c2c_multiple_kernel on a ragged batch, complex64 and planar, after
+    loops + 1 transforms: within the chained bound of the plain version
+    computed in float64 (the same hand-offs, layouts and scales)."""
+    kw = dict(REUSE_FORMS[form], loops=loops)
+    if form == "pencil":
+        kw["scale"] = 1.0 / math.sqrt(n)
+    b = max(1, 4096 // n) + 3 * max(1, 128 // n) + 1
+    x = rand_c(b, n, dev, seed=n + loops)
+    want = torch.complex(*M.multiple_plain(x.real.double(), x.imag.double(),
+                                           **kw))
+    got_c = M.launch_multiple(x, exact=exact, **kw)
+    gr, gi = M.launch_multiple(x.real.contiguous(), x.imag.contiguous(),
+                               exact=exact, **kw)
+    torch.cuda.synchronize()
+    for got in (got_c, torch.complex(gr, gi)):
+        assert max_err(got, want) < reuse_bound(n, loops)
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("pairs", [1, 2, 50])
+def test_real_multiple_kernel_pairs_match_float64(dev, n, pairs):
+    """real_multiple_kernel on a ragged batch after ``pairs`` round trips:
+    within the chained bound of 2 * pairs transforms of the plain version
+    computed in float64, and so of x."""
+    b = max(1, 8192 // n) + 3
+    x = rand_r(b, n, dev, seed=n + pairs)
+    got = M.launch_real_multiple(x, pairs)
+    torch.cuda.synchronize()
+    lim = reuse_bound(n, 2 * pairs - 1)
+    want = M.real_multiple_plain(x.double(), pairs)
+    assert (got.double() - want).abs().max().item() < lim
+    assert (got - x).abs().max().item() < lim
+
+
 def test_multiple_entry_points_count_launches(dev):
     """fft_planar(multiple_iters), multiple_pencil_planar and
     multiple_real_pencil_planar each launch their reuse kernel once and

@@ -1,25 +1,30 @@
 """The CPU model of the Hopper core (``csrc/hcore.cuh``), of the pass
-kernel's tile schedule (``csrc/fourstep.cu``) and of the row kernels
-(``csrc/c2c.cu``, the R2C kernel of ``csrc/real.cu``): ``models/hcore.py``.
+kernel's tile schedule (``csrc/fourstep.cu``), of the row kernels
+(``csrc/c2c.cu``, the R2C kernel of ``csrc/real.cu``) and of the reuse
+loops (``csrc/multiple.cu``): ``models/hcore.py``.
 
-What a CPU can check of the four kernels on that core: the stage ladder and
+What a CPU can check of the six kernels on that core: the stage ladder and
 its index maps give numpy's DFT at every size the kernels instantiate, the
 Bluestein order of H and its two shortcuts (the first stage's zero half,
 the last stage's lower half) change nothing, the row kernels' layouts
 (revblock staging in and out, the R2C pair split and its stores) give
-numpy's fft / rfft and store each bin once, every shared-memory access
-needs the fewest wavefronts a warp can (2 for 8-byte elements, 4 for
-16-byte ones; the shared core of ``stockham.cuh`` is counted the same
-way), the paddings are bijections, and the persistent grid covers every
-tile once.  Tolerance: 1e-9 * M against complex128 numpy (the model runs
+numpy's fft / rfft and store each bin once, the reuse loops' hand-offs
+(natural in the registers, revblock through the staging) and the real
+round trip's in-place split and merge give ``ops.multiple``'s plain
+versions, every shared-memory access needs the fewest wavefronts a warp
+can (2 for 8-byte elements, 4 for 16-byte ones; the shared core of
+``stockham.cuh`` is counted the same way), the paddings are bijections,
+and the persistent grid covers every tile once.  Tolerance: 1e-9 * M against complex128 numpy (the model runs
 in float64).
 """
 
 import numpy as np
 import pytest
+import torch
 
 from smfft_tpu_torch import bluestein as TB
 from smfft_tpu_torch.models import hcore as H
+from smfft_tpu_torch.ops import multiple as MU
 
 BLUESTEIN_M = [32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384]
 PASS_R = [16, 32, 64, 128, 256, 512, 1024, 2048]
@@ -276,3 +281,79 @@ def test_anchored_powers(radix, inverse):
             got = H.anchored_powers(w, w ** 4, radix)
             want = np.exp(s * 2j * np.pi * k * np.arange(radix) / pr)
             np.testing.assert_allclose(got, want, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The reuse loops on the core: c2c_multiple_kernel and real_multiple_kernel.
+# ---------------------------------------------------------------------------
+
+MULTIPLE_N = [32, 64, 128, 256, 512, 1024, 2048, 4096]
+HANDOFFS = [(fb, last, out) for fb in (False, True) for last in (False, True)
+            for out in (False, True)]
+
+
+@pytest.mark.parametrize("m", ROW_M)
+def test_natural_handoff_keeps_the_register_layout(m):
+    """The last stage leaves point t + s*TPF in register u[s] of thread t,
+    the point the first stage reads from there: one transform's registers
+    are the next one's input, with no shared-memory hand-off."""
+    tpf = H.row_geometry(m)["TPF"]
+    pts = H.last_stage_points(m, tpf)
+    want = np.arange(tpf)[:, None] + np.arange(m // tpf)[None, :] * tpf
+    assert (pts == want).all()
+
+
+@pytest.mark.parametrize("m", MULTIPLE_N)
+@pytest.mark.parametrize("loops", [0, 1, 2, 5])
+@pytest.mark.parametrize("fb_rev,last_rev,rev_out", HANDOFFS)
+def test_multiple_model_matches_plain(rng, m, loops, fb_rev, last_rev,
+                                      rev_out):
+    """c2c_multiple_kernel's hand-offs (natural in the registers, revblock
+    through the staging), scales and output layouts give
+    ``multiple_plain`` in float64, every hand-off combination and loop
+    count, both directions."""
+    inverse = fb_rev != rev_out
+    x = rand_c(rng, 2, m)
+    got = H.multiple_rows(x, loops, inverse, fb_rev, last_rev, rev_out, 0.5)
+    pr, pi = MU.multiple_plain(torch.from_numpy(x.real.copy()),
+                               torch.from_numpy(x.imag.copy()), loops=loops,
+                               inverse=inverse, fb_rev=fb_rev,
+                               last_rev=last_rev, rev_out=rev_out,
+                               scale=0.5)
+    assert np.abs(got - (pr.numpy() + 1j * pi.numpy())).max() < 1e-9 * m
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("pairs", [1, 2, 3])
+def test_real_multiple_model_matches_plain(rng, n, pairs):
+    """real_multiple_kernel's round trips (Z into the buffer unpadded, the
+    pair split and merge in place, the inverse from the unpadded row) give
+    ``real_multiple_plain`` in float64, and so x; every bin is written by
+    one pair thread a round trip, so the in-place step needs no barrier
+    between its reads and writes."""
+    x = rng.random((2, n)) - 0.5
+    got, hits = H.real_multiple_rows(x, pairs)
+    want = MU.real_multiple_plain(torch.from_numpy(x), pairs).numpy()
+    assert np.abs(got - want).max() < 1e-9 * n
+    assert np.abs(got - x).max() < 1e-9 * n
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("kernel,m,exact",
+                         [("c2c", m, ex) for m in ROW_M for ex in (False, True)]
+                         + [("real", n // 2, False) for n in MULTIPLE_N[3:]])
+def test_multiple_banks(kernel, m, exact):
+    """What the reuse loops add to the core at the minimum wavefronts (2
+    for 8-byte elements, 4 for 16-byte): the revblock hand-off's stores
+    from the last stage and its reads by position; the real round trip's
+    Z out, pair reads and writes (k ascending, L-k descending, unpadded),
+    W_n^k, and the inverse's first stage from the unpadded row (the real
+    loop has fp32 only)."""
+    g = H.row_geometry(m, exact, H.REUSE_WARPS[kernel])
+    pats = H.multiple_patterns(m, exact, kernel)
+    kinds = {what for what, _ in pats}
+    assert ({"hand-off: last stage", "hand-off: registers"} if kernel == "c2c"
+            else {"pair k", "pair L-k", "W_n^k", "inverse: first stage"}) \
+        <= kinds
+    for what, w in pats:
+        assert w <= g["elem"] // 4, (what, w)
