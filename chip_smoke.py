@@ -53,8 +53,10 @@ Phases (each failure exits non-zero at once):
      MFFT/s (rows x iters / time), the bound (fp32 operations), and the
      ratio to 100 single calls (timed after the path's counters are
      read).
-  9. Convolution sweep: ``conv_kernel`` (complex64 and planar) and
-     ``conv_real_kernel``, every size, both tiers, 1 and 3 filters,
+  9. Convolution sweep: the registers and spills of every instantiation
+     of ``conv_kernel`` and ``conv_real_kernel``; ``conv_kernel``
+     (complex64 and planar) and ``conv_real_kernel``, every size, both
+     tiers, 1 and 3 filters (the single and the bank instantiations),
      against their plain versions and float64 ``torch.fft``; "exact"
      within 2 ulp of max|y|.
  10. The convolution main path at 2^27 points or samples: ``convolve`` at
@@ -801,8 +803,12 @@ def phase_conv_sweep():
     float64 torch.fft at every size, both tiers, single and M_SWEEP
     filters, complex64 and planar (the complex kernel); "exact" within 2
     ulp of max|y|.  Returns the max |kernel - plain| of each kernel."""
+    from smfft_tpu_torch.ops import _cuda
     from smfft_tpu_torch.ops import convolve as CV
     from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
+    for line in _cuda.register_report():
+        if line.startswith(("conv_kernel", "conv_real_kernel")):
+            print(f"  conv ptxas: {line}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst = {"conv": 0.0, "conv_real": 0.0}
     worst_ulp = 0.0

@@ -1,7 +1,8 @@
 // Fused spectral convolution: forward transform, filter product and
 // inverse transform of every row in one kernel, with one read and one
 // write of device memory.  Two kernels for Hopper (sm_90a), each in an
-// fp32 and an "exact" (fp64 arithmetic) instantiation.
+// fp32 and an "exact" (fp64 arithmetic) instantiation, and each in a
+// single-filter (m = 1) and a filter-bank (m > 1) form.
 //
 // conv_kernel replaces the TPU kernels
 //   smfft_tpu/ops/convolve.py::_build_conv       (m = 1)
@@ -28,229 +29,372 @@
 // 0.64 ms of bytes against 0.20 ms of fp32 operations at the published
 // peaks).  The filters (m N complex) are read from L2 by every block.
 //
-// Design (stockham.cuh's core and Geometry, as c2c.cu and real.cu):
-//   * The TPU kernels keep the spectrum in revblock order and re-index H to
-//     match (convolve.py::freq_to_revblock); here the last forward stage
-//     leaves the spectrum in registers in natural order (w[q][r] = bin
-//     t + q*TPF + r*N/RL), so H stays in natural order and each thread
-//     reads the bins it holds.  The product is handed to the inverse
-//     ladder through shared memory (stockham.cuh::handoff) and the inverse
-//     writes natural rows straight to device memory.
-//   * Bank: the forward transform runs once per row and its spectrum must
-//     survive m inverses, each of which overwrites the shared buffer.  A
-//     second buffer does not fit at N = 16384 (128 KB each against the
-//     227 KB a block may use), so every size keeps each thread's spectrum
-//     points in registers (E = 16 complex, 32 at N = 16384) across the m
-//     loop.  That costs registers, so these kernels take their own
-//     __launch_bounds__ minimum (stockham.cuh's ConvBudget) instead of
-//     Geometry's, which would force spills.
-//   * conv_real_kernel: the R2C half-size trick of real.cu.  After the
-//     forward L-point transform Z sits in shared memory; one thread per
-//     pair (k, L-k) splits it (real_pair.cuh) into registers, and for each
-//     filter multiplies and merges the pair and writes Z' back in place: the
-//     split, the product and the merge act on the same pair, so no barrier
-//     separates them.  The inverse ladder's last stage writes float2 into
-//     the real output row.
-//   * "exact": fp64 arithmetic, twiddles, responses and (N <= 8192)
-//     shared memory; fp32 shared memory at N = 16384.
-//   * 64-bit offsets; the ragged tail of the batch is masked; the
-//     launchers return cudaGetLastError() right after the launch.
+// Design, on the Hopper core of hcore.cuh with the row kernels' block
+// (RowGeometry: F rows of TPF threads, thread t holding the points
+// t + s*TPF of its row in registers, the radix-16 ladder through padded
+// conflict-free slots, the stage table with the anchored powers W^(4k)
+// filled once a block; the inverse reads the forward table conjugated, so
+// there is one table):
+//   * conv_kernel, m = 1: the row goes from device memory straight into
+//     the registers the forward core's first stage takes; the forward
+//     core's last stage leaves point t + s*TPF in u[s], natural order, so
+//     its epilogue multiplies the unrounded point by H[t + s*TPF] (a
+//     coalesced __ldg) into the registers that the inverse core's first
+//     stage reads.  No hand-off through shared memory: one barrier between
+//     the two cores where the forward's last stage read the buffer the
+//     inverse's first stage writes (none with two buffers and an odd
+//     number of stages), and the inverse's natural output is stored from
+//     the registers.  bluestein_kernel (chirp.cu) runs the same pattern;
+//   * conv_kernel, m > 1 (its own instantiation, so that the m = 1 form
+//     carries no copy of the spectrum): the forward core runs once a row
+//     and its spectrum survives the m inverses in registers, E points a
+//     thread in the storage type; each inverse starts from the spectrum
+//     times H[j] in the registers: ptxas gives the fp32 banks 83-125
+//     registers and no spills up to N = 8192 at 16 warps an SM, so no
+//     shared memory is spent on it (a third slot a row, for the spectrum,
+//     was not tried).  At N = 16384 (E = 32, one block of 512 threads, one
+//     139 KB slot) a second slot does not fit beside the stage table in
+//     the 227 KB a block may use, so the spectrum stays in registers there
+//     as in the old kernel (fp32 spills 164 bytes);
+//   * conv_real_kernel: the R2C half-size trick.  The real row read as
+//     float2 is z[m] = x[2m] + i x[2m+1]; the forward L-point core's last
+//     stage stores Z unpadded into the row's buffer (Core::run_regs_out,
+//     as the R2C kernel and real_multiple_kernel do), one barrier; one
+//     thread a pair (k, L-k) splits the pair into X[k], X[L-k]
+//     (real_pair.cuh), multiplies each by its response and merges the
+//     products at scale 1/2 (1/L is in H) back into the same two bins, with
+//     no barrier between its reads and writes (no other thread touches the
+//     pair); thread 0 of a row takes slot 0 (DC and Nyquist, two real
+//     products) and the self-pair k = L/2; W_n^k comes from a block table
+//     in shared memory filled once (the "exact" tier at L = 8192 reads it
+//     with __ldg: its 139 KB row and 74 KB stage table leave no room).
+//     One barrier; the inverse core runs from the unpadded row
+//     (Core::run_smem, its middle stages between the row's two buffers
+//     where it has two) and returns natural z, which is (y[2m], y[2m+1]):
+//     float2 stores straight into the real output row;
+//   * conv_real_kernel, m > 1: the split pairs X[k], X[L-k] of each thread
+//     stay in registers across the m filters; a barrier before each pair
+//     step after the first (the previous inverse read the row);
+//   * the blocks an SM: every form at 16 warps an SM (CONV_WARPS; "exact"
+//     takes RowGeometry's 16 anyway), 128 registers a thread, which hold
+//     the banks' spectrum or split pairs beside the core's registers
+//     without spills up to 4096 points a transform; two buffers a row
+//     where those blocks still fit with them (RowGeometry::PP);
+//   * "exact": fp64 arithmetic, twiddles and responses, fp64 shared memory
+//     and registers between the stages up to 8192 points, fp32 storage at
+//     N = 16384 (the real kernel's L stops at 8192);
+//   * 64-bit offsets (the output is (m, B, N)); the ragged tail of the
+//     batch computes on zeros and stores nothing, and every thread meets
+//     every barrier; the launchers return cudaGetLastError() right after
+//     the launch.
 
+#include "hcore.cuh"
 #include "real_pair.cuh"
-#include "stockham.cuh"
 
 namespace {
 
 using namespace smfft;
 
-template <int N, int TPF, int F, int MINB, typename C, typename S>
-__global__ void __launch_bounds__(TPF * F, MINB)
-conv_kernel(Io io, int64_t batch, int m, const C* __restrict__ h,
-            const C* __restrict__ tw_f, const C* __restrict__ tw_i) {
+// The warps an SM the fp32 instantiations aim at (ptxas of 16, 24 and 32,
+// and the kernels alone at 16 and 24 in one call on the H100): 16, 128
+// registers a thread.
+// At 24 (85 registers) the single-filter forms spilled 4 bytes (complex N
+// = 2048 / 4096, real L = 512) and the real bank 64-68 bytes; the complex
+// single form ran 2-4 % faster there, the real one 0-7 % slower, the real
+// bank 10 % slower.  At 32 (64 registers) they spilled 8-120 bytes.
+constexpr int CONV_WARPS = 16;
+
+template <int M, bool EXACT>
+using ConvGeometry = hc::RowGeometry<M, EXACT, CONV_WARPS>;
+
+// The real kernel's block: ConvGeometry's rows and stage table at M = L,
+// then W_n^k for k <= L/2 where it still fits a block's shared memory; the
+// blocks an SM are ConvGeometry's where they still fit.
+template <int L, bool EXACT>
+struct ConvReal {
+    using G = ConvGeometry<L, EXACT>;
+    static constexpr size_t WK = (L / 2 + 1) * sizeof(typename G::C);
+    static constexpr bool WK_SHARED = G::SMEM + WK <= 232448;
+    static constexpr size_t SMEM = G::SMEM + (WK_SHARED ? WK : 0);
+    static constexpr int FIT = (int)(233472 / (SMEM + 1024));
+    static constexpr int MINB = G::MINB < FIT ? G::MINB : FIT;
+};
+
+template <int N, bool EXACT, bool BANK>
+__global__ void __launch_bounds__(ConvGeometry<N, EXACT>::THREADS,
+                                  ConvGeometry<N, EXACT>::MINB)
+conv_kernel(Io io, int64_t batch, int m,
+            const typename ConvGeometry<N, EXACT>::C* __restrict__ h,
+            const typename ConvGeometry<N, EXACT>::C* __restrict__ tw) {
+    using G = ConvGeometry<N, EXACT>;
+    using C = typename G::C;
+    using S = typename G::S;
+    using Core = typename G::Core;
     using T = real_t<C>;
+    constexpr int E = G::E, TPF = G::TPF;
     S* smem = shared_buffer<S>();
-    constexpr int E = N / TPF;  // points per thread
-    constexpr int RL = Ladder<N>::RL;
-    const int64_t first = (int64_t)blockIdx.x * F;  // first transform
+    C* tab = reinterpret_cast<C*>(smem + G::F * G::BUF);
+    Core::fill(tab, tw, threadIdx.x, G::THREADS);
     const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
-    const bool live = first + f < batch;
-    const int64_t row = (first + f) * N;  // this transform's first point
-    S* buf = smem + f * N;
+    const int64_t r = (int64_t)blockIdx.x * G::F + f;  // this row
+    const bool live = r < batch;
+    const int64_t row = r * N;  // this row's first point
+    S* a = smem + f * G::BUF;
+    S* b = G::PP ? a + G::SLOT : a;
+    const auto same = [](int, C v) { return v; };
 
-    constexpr int Q0 = E / 8;
-    S u[Q0][8];
+    // the points t + s*TPF of this row
+    S u[E];
 #pragma unroll
-    for (int q = 0; q < Q0; ++q)
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-            put(u[q][r], live ? io.load(row + t + q * TPF + r * (N / 8))
-                              : make_float2(0.0f, 0.0f));
-    first_stage<N, TPF>(u, buf, t, tw_f, T(-1), T(1));
-    middle_stages<N, TPF>(buf, t, tw_f, T(-1));
-    constexpr int QL = E / RL;
-    S spec[QL][RL];  // bin t + q*TPF + r*N/RL, natural order
-    last_stage<N, TPF>(buf, t, tw_f, T(-1), spec);
+    for (int s = 0; s < E; ++s)
+        put(u[s], live ? io.load(row + t + s * TPF)
+                       : make_float2(0.0f, 0.0f));
 
-    for (int j = 0; j < m; ++j) {
-        const C* hj = h + (int64_t)j * N;
-        S g[QL][RL];
-#pragma unroll
-        for (int q = 0; q < QL; ++q)
-#pragma unroll
-            for (int r = 0; r < RL; ++r)
-                put(g[q][r], cmul(as<C>(spec[q][r]),
-                                  __ldg(&hj[t + q * TPF + r * (N / RL)])));
-        handoff<N, TPF>(buf, t, g, false, u);
-        first_stage<N, TPF>(u, buf, t, tw_i, T(1), T(1));
-        middle_stages<N, TPF>(buf, t, tw_i, T(1));
-        float2 w[QL][RL];
-        last_stage<N, TPF>(buf, t, tw_i, T(1), w);
+    if constexpr (!BANK) {
+        // the forward core; each spectrum point t + s*TPF times H,
+        // unrounded, into the registers the inverse core's first stage
+        // takes
+        Core::template run_regs<false, false>(
+            u, a, b, t, tab, false, T(-1),
+            [&](int s, C v) { return cmul(v, __ldg(&h[t + s * TPF])); });
+        // the inverse's first stage writes a, which the last stage read
+        if (!Core::LAST_READS_B) __syncthreads();
+        Core::template run_regs<false, false>(u, a, b, t, tab, true, T(1),
+                                              same);
         if (live) {
-            const int64_t out = (int64_t)j * batch * N + row;
 #pragma unroll
-            for (int q = 0; q < QL; ++q)
+            for (int s = 0; s < E; ++s)
+                io.store(row + t + s * TPF, as<float2>(u[s]));
+        }
+    } else {
+        // the bank: the spectrum once, kept in registers across the m
+        // inverses
+        Core::template run_regs<false, false>(u, a, b, t, tab, false,
+                                              T(-1), same);
+        S spec[E];
 #pragma unroll
-                for (int r = 0; r < RL; ++r)
-                    io.store(out + t + q * TPF + r * (N / RL), w[q][r]);
+        for (int s = 0; s < E; ++s) spec[s] = u[s];
+        for (int j = 0; j < m; ++j) {
+            const C* hj = h + (int64_t)j * N;
+            // the next first stage writes a, which the last stage read
+            if (!Core::LAST_READS_B) __syncthreads();
+#pragma unroll
+            for (int s = 0; s < E; ++s)
+                put(u[s], cmul(as<C>(spec[s]), __ldg(&hj[t + s * TPF])));
+            Core::template run_regs<false, false>(u, a, b, t, tab, true,
+                                                  T(1), same);
+            if (live) {
+                const int64_t out = (int64_t)j * batch * N + row;
+#pragma unroll
+                for (int s = 0; s < E; ++s)
+                    io.store(out + t + s * TPF, as<float2>(u[s]));
+            }
         }
     }
 }
 
-template <int L, int TPF, int F, int MINB, typename C, typename S>
-__global__ void __launch_bounds__(TPF * F, MINB)
+// Z'[k], Z'[L-k] of the pair (k, L-k), 0 < k <= L/2, from its split X[k],
+// X[L-k], their responses hk, hm and w = W_n^k: the products merged at
+// scale 1 (h = 1/2; 1/L is in H).  The self-pair k = L/2 passes X[L/2]
+// and H[L/2] twice, and stores zk.
+template <typename C>
+__device__ __forceinline__ void filter_pair(C xk, C xm, C hk, C hm, C w,
+                                            C& zk, C& zm) {
+    merge_pair_w(cmul(xk, hk), cmul(xm, hm), w, real_t<C>(0.5), zk, zm);
+}
+
+// Z'[0] from slot 0 = (DC, Nyquist) and h0 = (Re H[0], Re H[L]): two real
+// products, merged at scale 1.
+template <typename C>
+__device__ __forceinline__ C filter_dc(C d, C h0) {
+    return merge_dc(cmake(d.x * h0.x, d.y * h0.y), real_t<C>(0.5));
+}
+
+template <int L, bool EXACT, bool BANK>
+__global__ void __launch_bounds__(ConvGeometry<L, EXACT>::THREADS,
+                                  ConvReal<L, EXACT>::MINB)
 conv_real_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                 int64_t batch, int m, const C* __restrict__ h,
-                 const C* __restrict__ tw_f, const C* __restrict__ tw_i,
-                 const C* __restrict__ wn) {
+                 int64_t batch, int m,
+                 const typename ConvGeometry<L, EXACT>::C* __restrict__ h,
+                 const typename ConvGeometry<L, EXACT>::C* __restrict__ tw,
+                 const typename ConvGeometry<L, EXACT>::C* __restrict__ wn) {
+    using K = ConvReal<L, EXACT>;
+    using G = typename K::G;
+    using C = typename G::C;
+    using S = typename G::S;
+    using Core = typename G::Core;
     using T = real_t<C>;
+    constexpr int E = G::E, TPF = G::TPF, THREADS = G::THREADS;
     S* smem = shared_buffer<S>();
-    constexpr int E = L / TPF;  // points per thread
-    constexpr int RL = Ladder<L>::RL;
-    const int64_t first = (int64_t)blockIdx.x * F;  // first row
+    C* tab = reinterpret_cast<C*>(smem + G::F * G::BUF);
+    C* wk = tab + G::TAB;  // W_n^k, k <= L/2 (WK_SHARED)
+    Core::fill(tab, tw, threadIdx.x, THREADS);
+    if (K::WK_SHARED)
+        for (int k = threadIdx.x; k <= L / 2; k += THREADS)
+            wk[k] = __ldg(wn + k);
+    const auto wpow = [&](int k) {
+        return K::WK_SHARED ? wk[k] : __ldg(wn + k);
+    };
     const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
-    const bool live = first + f < batch;
-    const int64_t row = (first + f) * L;  // this row's first float2
-    S* buf = smem + f * L;
+    const int64_t r = (int64_t)blockIdx.x * G::F + f;  // this row
+    const bool live = r < batch;
+    const int64_t row = r * L;  // this row's first float2
+    S* a = smem + f * G::BUF;
+    S* b = G::PP ? a + G::SLOT : a;
 
-    // R2C: z[m] = x[2m] + i x[2m+1] read as float2, forward L-point
-    // transform, Z natural in buf
-    constexpr int Q0 = E / 8;
-    S u[Q0][8];
+    // z[m] = x[2m] + i x[2m+1]: the real row read as float2, point
+    // t + s*TPF in u[s]
+    C u[E];
 #pragma unroll
-    for (int q = 0; q < Q0; ++q)
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-            put(u[q][r], live ? __ldg(x + row + t + q * TPF + r * (L / 8))
-                              : make_float2(0.0f, 0.0f));
-    first_stage<L, TPF>(u, buf, t, tw_f, T(-1), T(1));
-    middle_stages<L, TPF>(buf, t, tw_f, T(-1));
-    constexpr int QL = E / RL;
-    {
-        S z[QL][RL];
-        last_stage<L, TPF>(buf, t, tw_f, T(-1), z);
-        __syncthreads();  // every read of the last stage is done
-#pragma unroll
-        for (int q = 0; q < QL; ++q)
-#pragma unroll
-            for (int r = 0; r < RL; ++r) buf[t + q * TPF + r * (L / RL)] = z[q][r];
-        __syncthreads();
-    }
-
-    // split: thread t holds pairs k = t + p*TPF, k <= L/2, in registers
-    // (xs[p][0] = X[k], xs[p][1] = X[L-k]; p = E/2 exists for t = 0 only)
-    constexpr int P = E / 2 + 1;
-    S xs[P][2];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-        const int k = t + p * TPF;
-        if (k > L / 2) break;
-        const C a = as<C>(buf[k]);
-        if (k == 0) {
-            put(xs[p][0], split_dc(a));  // (DC, Nyquist)
-            continue;
-        }
-        C xk, xm;
-        split_pair(a, as<C>(buf[L - k]), wn, k, xk, xm);
-        put(xs[p][0], xk);
-        put(xs[p][1], 2 * k == L ? xk : xm);
-    }
-
-    const T hh = T(0.5);  // the merge at scale 1: 1/L is in H
-    for (int j = 0; j < m; ++j) {
-        const C* hj = h + (int64_t)j * L;
-        // each thread writes only its own pairs' bins, which it read
-        // itself above: a barrier is needed only after an inverse ladder
-        if (j > 0) __syncthreads();
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-            const int k = t + p * TPF;
-            if (k > L / 2) break;
-            const C a = as<C>(xs[p][0]);
-            if (k == 0) {
-                const C h0 = __ldg(&hj[0]);
-                put(buf[0], merge_dc(cmake(a.x * h0.x, a.y * h0.y), hh));
-                continue;
-            }
-            const C gk = cmul(a, __ldg(&hj[k]));
-            const C gm = cmul(as<C>(xs[p][1]), __ldg(&hj[L - k]));
-            C zk, zm;
-            merge_pair(gk, 2 * k == L ? gk : gm, wn, k, hh, zk, zm);
-            put(buf[k], zk);
-            if (2 * k != L) put(buf[L - k], zm);
-        }
-        __syncthreads();
-
-        // C2R: the inverse L-point transform into the real row
-        load_first<L, TPF>(buf, t, u);
-        __syncthreads();
-        first_stage<L, TPF>(u, buf, t, tw_i, T(1), T(1));
-        middle_stages<L, TPF>(buf, t, tw_i, T(1));
-        float2 w[QL][RL];
-        last_stage<L, TPF>(buf, t, tw_i, T(1), w);
+    for (int s = 0; s < E; ++s)
+        u[s] = as<C>(live ? __ldg(x + row + t + s * TPF)
+                          : make_float2(0.0f, 0.0f));
+    // Z = DFT_L(z), natural order, unpadded, in the row's buffer z; the
+    // inverse runs its middle stages between z and zb
+    S* z = Core::run_regs_out(u, a, b, t, tab, false, T(-1),
+                              [&](S* d, int k, C v) { put(d[k], v); });
+    S* zb = G::PP && z == a ? b : a;
+    // the inverse transform of the row, natural z into the registers,
+    // stored as (y[2m], y[2m+1]) into output row j
+    const auto inverse = [&](int j) {
+        Core::template run_smem<false>(z, zb, u, t, tab, true, T(1), T(1),
+                                       [&](int, C v) { return v; });
         if (live) {
             const int64_t out = (int64_t)j * batch * L + row;
 #pragma unroll
-            for (int q = 0; q < QL; ++q)
+            for (int s = 0; s < E; ++s)
+                y[out + t + s * TPF] = as<float2>(u[s]);
+        }
+    };
+
+    if constexpr (!BANK) {
+        // split, product and merge in place: one thread a pair (k, L-k)
 #pragma unroll
-                for (int r = 0; r < RL; ++r)
-                    y[out + t + q * TPF + r * (L / RL)] = w[q][r];
+        for (int p = 0; p < E / 2; ++p) {
+            const int k = t + p * TPF;  // 0 <= k < L/2
+            if (k == 0) {
+                put(z[0], filter_dc(split_dc(as<C>(z[0])), __ldg(h)));
+                continue;
+            }
+            const C w = wpow(k);
+            C xk, xm, zk, zm;
+            split_pair_w(as<C>(z[k]), as<C>(z[L - k]), w, xk, xm);
+            filter_pair(xk, xm, __ldg(h + k), __ldg(h + L - k), w, zk, zm);
+            put(z[k], zk);
+            put(z[L - k], zm);
+        }
+        if (t == 0) {  // the pair k = L/2 is its own mirror
+            const C zh = as<C>(z[L / 2]), w = wpow(L / 2);
+            const C hh = __ldg(h + L / 2);
+            C xk, xm, zk, zm;
+            split_pair_w(zh, zh, w, xk, xm);
+            filter_pair(xk, xk, hh, hh, w, zk, zm);
+            put(z[L / 2], zk);
+        }
+        __syncthreads();
+        inverse(0);
+    } else {
+        // the bank: thread t splits its pairs k = t + p*TPF once and keeps
+        // xs[p] = (X[k], X[L-k]) (slot 0: (DC, Nyquist)), thread 0 also
+        // X[L/2]
+        S xs[E / 2][2];
+        S xh;
+#pragma unroll
+        for (int p = 0; p < E / 2; ++p) {
+            const int k = t + p * TPF;
+            if (k == 0) {
+                put(xs[p][0], split_dc(as<C>(z[0])));
+                continue;
+            }
+            C xk, xm;
+            split_pair_w(as<C>(z[k]), as<C>(z[L - k]), wpow(k), xk, xm);
+            put(xs[p][0], xk);
+            put(xs[p][1], xm);
+        }
+        if (t == 0) {
+            const C zh = as<C>(z[L / 2]);
+            C xk, xm;
+            split_pair_w(zh, zh, wpow(L / 2), xk, xm);
+            put(xh, xk);
+        }
+        for (int j = 0; j < m; ++j) {
+            const C* hj = h + (int64_t)j * L;
+            // each thread rewrites only the bins it read itself: a barrier
+            // is needed only after an inverse, which read the row
+            if (j > 0) __syncthreads();
+#pragma unroll
+            for (int p = 0; p < E / 2; ++p) {
+                const int k = t + p * TPF;
+                if (k == 0) {
+                    put(z[0], filter_dc(as<C>(xs[p][0]), __ldg(hj)));
+                    continue;
+                }
+                C zk, zm;
+                filter_pair(as<C>(xs[p][0]), as<C>(xs[p][1]),
+                            __ldg(hj + k), __ldg(hj + L - k), wpow(k), zk,
+                            zm);
+                put(z[k], zk);
+                put(z[L - k], zm);
+            }
+            if (t == 0) {
+                const C xk = as<C>(xh), hh = __ldg(hj + L / 2);
+                C zk, zm;
+                filter_pair(xk, xk, hh, hh, wpow(L / 2), zk, zm);
+                put(z[L / 2], zk);
+            }
+            __syncthreads();
+            inverse(j);
         }
     }
+}
+
+template <int N, bool EXACT, bool BANK>
+cudaError_t launch_conv_form(const Io& io, int64_t batch, int m,
+                             const void* h, const void* tw,
+                             cudaStream_t stream) {
+    using G = ConvGeometry<N, EXACT>;
+    using C = typename G::C;
+    auto kernel = conv_kernel<N, EXACT, BANK>;
+    cudaError_t err = allow_smem(kernel, G::SMEM);
+    if (err != cudaSuccess) return err;
+    kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(
+        io, batch, m, static_cast<const C*>(h), static_cast<const C*>(tw));
+    return cudaGetLastError();
 }
 
 template <int N, bool EXACT>
 cudaError_t launch_conv(const Io& io, int64_t batch, int m, const void* h,
-                        const void* tw_f, const void* tw_i,
-                        cudaStream_t stream) {
-    using G = Geometry<N, EXACT>;
-    using C = typename G::C;
-    auto kernel = conv_kernel<N, G::TPF, G::F, ConvBudget<N, EXACT>::MINB,
-                              C, typename G::S>;
-    cudaError_t err = allow_smem(kernel, G::SMEM);
+                        const void* tw, cudaStream_t stream) {
+    return m > 1 ? launch_conv_form<N, EXACT, true>(io, batch, m, h, tw,
+                                                    stream)
+                 : launch_conv_form<N, EXACT, false>(io, batch, m, h, tw,
+                                                     stream);
+}
+
+template <int L, bool EXACT, bool BANK>
+cudaError_t launch_conv_real_form(const float* x, float* y, int64_t batch,
+                                  int m, const void* h, const void* tw,
+                                  const void* wn, cudaStream_t stream) {
+    using K = ConvReal<L, EXACT>;
+    using C = typename K::G::C;
+    auto kernel = conv_real_kernel<L, EXACT, BANK>;
+    cudaError_t err = allow_smem(kernel, K::SMEM);
     if (err != cudaSuccess) return err;
-    kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(
-        io, batch, m, static_cast<const C*>(h), static_cast<const C*>(tw_f),
-        static_cast<const C*>(tw_i));
+    kernel<<<K::G::blocks(batch), K::G::THREADS, K::SMEM, stream>>>(
+        reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(y),
+        batch, m, static_cast<const C*>(h), static_cast<const C*>(tw),
+        static_cast<const C*>(wn));
     return cudaGetLastError();
 }
 
 template <int L, bool EXACT>
 cudaError_t launch_conv_real(const float* x, float* y, int64_t batch, int m,
-                             const void* h, const void* tw_f,
-                             const void* tw_i, const void* wn,
+                             const void* h, const void* tw, const void* wn,
                              cudaStream_t stream) {
-    using G = Geometry<L, EXACT>;
-    using C = typename G::C;
-    auto kernel =
-        conv_real_kernel<L, G::TPF, G::F, ConvBudget<L, EXACT>::MINB, C,
-                         typename G::S>;
-    cudaError_t err = allow_smem(kernel, G::SMEM);
-    if (err != cudaSuccess) return err;
-    kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(
-        reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(y),
-        batch, m, static_cast<const C*>(h), static_cast<const C*>(tw_f),
-        static_cast<const C*>(tw_i), static_cast<const C*>(wn));
-    return cudaGetLastError();
+    return m > 1 ? launch_conv_real_form<L, EXACT, true>(x, y, batch, m, h,
+                                                         tw, wn, stream)
+                 : launch_conv_real_form<L, EXACT, false>(x, y, batch, m, h,
+                                                          tw, wn, stream);
 }
 
 }  // namespace
@@ -260,12 +404,14 @@ extern "C" {
 // Rows (batch, n) as smfft_c2c's (interleaved complex64 or fp32 planes)
 // against m >= 1 responses h (m, n) -> out (m, batch, n) in the same
 // layout.  h: complex (re, im) pairs with 1/n folded in, float32, or
-// float64 when exact != 0, like the twiddles: tw_f, tw_i = W_N^{-+m},
-// m < N.  Returns a cudaError_t (0 on success).
+// float64 when exact != 0, like the twiddles: tw_f = W_N^{-j}, j < N (the
+// inverse core conjugates it; tw_i, the inverse table, is not read).
+// Returns a cudaError_t (0 on success).
 int smfft_conv(const void* in_re, const void* in_im, void* out_re,
                void* out_im, int interleaved, int64_t batch, int64_t n,
                int m, const void* h, const void* tw_f, const void* tw_i,
                int exact, void* stream) {
+    (void)tw_i;
     if (batch <= 0) return (int)cudaSuccess;
     if (m < 1) return (int)cudaErrorInvalidValue;
     Io io;
@@ -278,9 +424,9 @@ int smfft_conv(const void* in_re, const void* in_im, void* out_re,
 #define SMFFT_CASE(NN)                                                     \
     case NN:                                                               \
         return (int)(exact ? launch_conv<NN, true>(io, batch, m, h, tw_f,  \
-                                                   tw_i, st)               \
+                                                   st)                     \
                            : launch_conv<NN, false>(io, batch, m, h, tw_f, \
-                                                    tw_i, st));
+                                                    st));
     switch (n) {
         SMFFT_CASE(32)
         SMFFT_CASE(64)
@@ -299,12 +445,14 @@ int smfft_conv(const void* in_re, const void* in_im, void* out_re,
 }
 
 // Real rows x (batch, n) fp32, n = 256..16384, 8-byte aligned, against
-// m >= 1 packed half responses h (m, n/2) -> y (m, batch, n).  tw_f, tw_i:
-// W_L^{-+m}, m < L (L = n/2); split: W_n^k, k < L; h, the tables: float32
-// (re, im) pairs, or float64 when exact != 0.  Returns a cudaError_t.
+// m >= 1 packed half responses h (m, n/2) -> y (m, batch, n).  tw_f:
+// W_L^{-j}, j < L (L = n/2; the inverse core conjugates it, tw_i is not
+// read); split: W_n^k, k < L; h, the tables: float32 (re, im) pairs, or
+// float64 when exact != 0.  Returns a cudaError_t.
 int smfft_conv_real(const void* x, void* y, int64_t batch, int64_t n, int m,
                     const void* h, const void* tw_f, const void* tw_i,
                     const void* split, int exact, void* stream) {
+    (void)tw_i;
     if (batch <= 0) return (int)cudaSuccess;
     if (m < 1) return (int)cudaErrorInvalidValue;
     const float* xf = static_cast<const float*>(x);
@@ -313,11 +461,10 @@ int smfft_conv_real(const void* x, void* y, int64_t batch, int64_t n, int m,
 #define SMFFT_CASE(LL)                                                       \
     case 2 * LL:                                                             \
         return (int)(exact ? launch_conv_real<LL, true>(xf, yf, batch, m, h, \
-                                                        tw_f, tw_i, split,   \
-                                                        st)                  \
+                                                        tw_f, split, st)     \
                            : launch_conv_real<LL, false>(xf, yf, batch, m,   \
-                                                         h, tw_f, tw_i,      \
-                                                         split, st));
+                                                         h, tw_f, split,     \
+                                                         st));
     switch (n) {
         SMFFT_CASE(128)
         SMFFT_CASE(256)

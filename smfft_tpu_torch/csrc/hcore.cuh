@@ -1,9 +1,9 @@
 // The in-block FFT core for Hopper of bluestein_kernel (chirp.cu),
 // fourstep_pass_kernel (fourstep.cu), c2c_kernel (c2c.cu), the R2C kernel
-// (real.cu) and the reuse loops (multiple.cu): an M-point transform (M =
-// 16..16384) by TPF threads, E = M / TPF points a thread, in shared memory
-// and registers.  The other kernels keep stockham.cuh; this header only
-// borrows its complex helpers.
+// (real.cu), the reuse loops (multiple.cu) and the fused convolutions
+// (conv.cu): an M-point transform (M = 16..16384) by TPF threads, E = M /
+// TPF points a thread, in shared memory and registers.  The other kernels
+// keep stockham.cuh; this header only borrows its complex helpers.
 //
 // Thread t holds the points t + s*TPF (s < E) of its transform in u[s],
 // natural order, before the first stage (Core::run_regs) and after the
@@ -511,9 +511,10 @@ struct Core {
     }
 };
 
-// The block layout of the row kernels on the core, c2c_kernel and
-// c2c_multiple_kernel at M = N, the R2C kernel and real_multiple_kernel at
-// M = L = n/2 (models/hcore.py row_geometry):
+// The block layout of the row kernels on the core, c2c_kernel,
+// c2c_multiple_kernel and conv_kernel at M = N, the R2C kernel,
+// real_multiple_kernel and conv_real_kernel at M = L = n/2
+// (models/hcore.py row_geometry):
 //   * E = 16 points a thread (32 at M = 16384), TPF = M / E threads a row,
 //     F rows a block: 256 threads up to M = 4096 (F = 128 rows of 2
 //     threads at M = 32), one row of 512 at 8192 and 16384;

@@ -1,9 +1,9 @@
-// The Stockham core shared by the kernels in csrc/: in-register DFTs,
+// The Stockham core of the C2R kernel (real.cu), power_kernel
+// (spectral.cu) and the helpers of real_huge_kernel: in-register DFTs,
 // twiddled butterflies, in-place shared-memory stages, the stage ladder,
-// the revblock index map and its inverse, the hand-off from one transform
-// to the next in shared memory (the reuse loops and the fused
-// convolutions), the block geometry per size and tier, the fused kernels'
-// register budget, and the view of the data in device memory.
+// the block geometry per size and tier; and what every kernel in csrc/
+// shares: the complex helpers, the revblock index map and its inverse,
+// and the view of the data in device memory.
 //
 // Contract of the stage functions (N points of one transform in `buf`,
 // TPF threads per transform, thread t):
@@ -277,43 +277,6 @@ __device__ __forceinline__ int revblock_pos(int k, int c) {
     return (k % c) * 128 + k / c;
 }
 
-// The first_stage operands of one transform from buf:
-// u[q][r] = buf[t + q*TPF + r*N/8].
-template <int N, int TPF, typename S, typename V>
-__device__ __forceinline__ void load_first(const S* buf, int t,
-                                           V (&u)[N / TPF / 8][8]) {
-#pragma unroll
-    for (int q = 0; q < N / TPF / 8; ++q)
-#pragma unroll
-        for (int r = 0; r < 8; ++r) put(u[q][r], buf[t + q * TPF + r * (N / 8)]);
-}
-
-// Hands a last_stage result over to the next first_stage through buf.
-// w[q][r] is point k = t + q*TPF + r*N/RL; it is stored at position k, or
-// at revblock_pos(k) when rev (the next transform then reads the revblock
-// row as if it were natural), and u is reloaded for first_stage.  The two
-// register maps differ unless RL = 8, so the hand-off goes through shared
-// memory: a barrier before the writes (the last stage's reads are done),
-// one before the reads, and one after them (first_stage overwrites buf).
-template <int N, int TPF, typename S, typename W, typename V>
-__device__ __forceinline__ void handoff(
-    S* buf, int t, const W (&w)[N / TPF / Ladder<N>::RL][Ladder<N>::RL],
-    bool rev, V (&u)[N / TPF / 8][8]) {
-    constexpr int RL = Ladder<N>::RL;
-    constexpr int CB = N >= 128 ? N / 128 : 1;
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < N / TPF / RL; ++q)
-#pragma unroll
-        for (int r = 0; r < RL; ++r) {
-            const int k = t + q * TPF + r * (N / RL);
-            put(buf[rev ? revblock_pos(k, CB) : k], w[q][r]);
-        }
-    __syncthreads();
-    load_first<N, TPF>(buf, t, u);
-    __syncthreads();
-}
-
 // The block's dynamic shared memory as an array of S.
 template <typename S>
 __device__ __forceinline__ S* shared_buffer() {
@@ -321,8 +284,8 @@ __device__ __forceinline__ S* shared_buffer() {
     return reinterpret_cast<S*>(smem_bytes);
 }
 
-// The block layout of an N-point transform, one for every kernel in csrc/
-// (the real kernels take it at N = L, their half size):
+// The block layout of an N-point transform on this core (the C2R kernel
+// and power_kernel take it at N = L, their half size):
 //   * E = 16 points per thread (32 at N = 16384), TPF = N / E threads per
 //     transform, F = 4096 / N transforms per block for N <= 4096 (one
 //     above), so a block has 256 threads (512 at N = 8192 and 16384);
@@ -348,17 +311,6 @@ struct Geometry {
     static unsigned blocks(int64_t batch) {
         return (unsigned)((batch + F - 1) / F);
     }
-};
-
-// The register budget of the fused kernels (conv.cu, chirp.cu), which hold a
-// spectrum in registers across a product and a hand-off: the blocks per SM
-// __launch_bounds__ must allow, 128 registers a thread for fp32 at 256
-// threads (2 blocks), 255 for "exact", and at 512 threads the one block the
-// SM's 65536 registers allow.  Geometry's MINB would force spills.
-template <int N, bool EXACT>
-struct ConvBudget {
-    static constexpr int MINB =
-        !EXACT && Geometry<N, EXACT>::THREADS <= 256 ? 2 : 1;
 };
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory: above 48 KB

@@ -1,12 +1,13 @@
 """The Hopper core of ``csrc/hcore.cuh``, the tile schedule of
 ``csrc/fourstep.cu``, the row layout of ``csrc/c2c.cu`` and the R2C
-kernel of ``csrc/real.cu``, and the reuse loops of ``csrc/multiple.cu``,
-modelled on the CPU.
+kernel of ``csrc/real.cu``, the reuse loops of ``csrc/multiple.cu`` and
+the fused convolutions of ``csrc/conv.cu``, modelled on the CPU.
 
-What a CPU can check of the six kernels built on that core
+What a CPU can check of the eight kernels built on that core
 (``bluestein_kernel``, ``fourstep_pass_kernel``, ``c2c_kernel``,
-``r2c_kernel``, ``c2c_multiple_kernel``, ``real_multiple_kernel``), with
-the kernels' own index arithmetic written out in numpy:
+``r2c_kernel``, ``c2c_multiple_kernel``, ``real_multiple_kernel``,
+``conv_kernel``, ``conv_real_kernel``), with the kernels' own index
+arithmetic written out in numpy:
 
   * the stage ladder (radix-16 stages and one last radix of 2, 4, 8 or 16)
     and its index maps, thread by thread, give the DFT
@@ -27,7 +28,14 @@ the kernels' own index arithmetic written out in numpy:
     hand-off in the registers (:func:`last_stage_points`), the revblock
     hand-off through the staging (:func:`multiple_rows`), the real round
     trip's in-place pair split and merge (:func:`real_multiple_rows`), and
-    the wavefronts of what they add (:func:`multiple_patterns`).
+    the wavefronts of what they add (:func:`multiple_patterns`);
+  * the fused convolutions of ``csrc/conv.cu`` on the same blocks
+    (:func:`conv_geometry`): the product with H at the points the forward
+    core's last stage leaves in the registers and the inverse core from
+    them, the bank's m inverses (:func:`conv_rows`); the real kernel's
+    split, product and merge of each pair in place, slot 0 and the
+    self-pair (:func:`conv_real_rows`); the wavefronts of the pair step
+    and the W_n^k table (:func:`conv_patterns`).
 
 Conventions follow the kernel: M points a transform, TPF threads a
 transform, E = M / TPF points a thread; thread t holds the points t + s*TPF
@@ -672,6 +680,19 @@ def multiple_patterns(m: int, exact: bool, kernel: str = "c2c"):
             out += _warp_waves(g, lambda f, t, s=s: stage_pos(t + s * tpf, g),
                                elem, "hand-off: registers")
         return out
+    return out + _pair_patterns(g, m, elem)
+
+
+def _pair_patterns(g: dict, m: int, welem: int | None):
+    """(what, wavefronts) of a real round trip's row accesses at L = m
+    (the real reuse loop, the real convolution): Z out of the last stage
+    (unpadded), the pair step's reads and writes of k (ascending) and L-k
+    (descending), W_n^k from the block table (``welem`` bytes an entry;
+    None: read from device memory), and the inverse's first stage reading
+    the unpadded row."""
+    elem, tpf, e = g["elem"], g["TPF"], g["E"]
+    rl = radices(m)[-1]
+    out = []
     for q in range(e // rl):
         for r in range(rl):
             out += _warp_waves(g, lambda f, t, q=q, r=r:
@@ -683,13 +704,163 @@ def multiple_patterns(m: int, exact: bool, kernel: str = "c2c"):
         out += _warp_waves(g, lambda f, t, k=k: k(t), elem, "pair k")
         out += _warp_waves(g, lambda f, t, mirror=mirror: mirror(t), elem,
                            "pair L-k")
-        out += _warp_waves({**g, "BUF": 0}, lambda f, t, k=k: k(t), elem,
-                           "W_n^k")
+        if welem:
+            out += _warp_waves({**g, "BUF": 0}, lambda f, t, k=k: k(t),
+                               welem, "W_n^k")
     for q in range(e // 16):
         for r in range(16):
             out += _warp_waves(g, lambda f, t, q=q, r=r:
                                t + q * tpf + r * (m // 16), elem,
                                "inverse: first stage")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The fused convolutions on the same core (csrc/conv.cu): conv_kernel on
+# c2c_kernel's block at M = N, conv_real_kernel on the R2C kernel's at M =
+# L = n/2; the banks (m > 1) are instantiations of their own.
+# ---------------------------------------------------------------------------
+
+
+# the warps an SM the fp32 instantiations aim at (conv.cu's CONV_WARPS)
+CONV_WARPS = 16
+
+
+def conv_geometry(m: int, exact: bool = False, real: bool = False) -> dict:
+    """The block of a convolution instantiation at M = m (N, or L for the
+    real kernel), single-filter and bank alike: :func:`row_geometry` at
+    :data:`CONV_WARPS`; the real
+    kernel adds W_n^k, k <= L/2, after the stage table where the block
+    still fits (``wk_shared``; the "exact" tier at L = 8192 reads it from
+    device memory), and its blocks an SM are the row geometry's where
+    they still fit (``conv.cu``'s ConvReal)."""
+    g = row_geometry(m, exact, CONV_WARPS)
+    if not real:
+        return {**g, "wk_shared": False}
+    wk = (m // 2 + 1) * (16 if exact else 8)
+    shared = g["smem"] + wk <= 232448
+    smem = g["smem"] + (wk if shared else 0)
+    return {**g, "wk_shared": shared, "smem": smem,
+            "MINB": max(1, min(g["MINB"], 233472 // (smem + 1024)))}
+
+
+def conv_rows(x: np.ndarray, h: np.ndarray, h_at=None) -> np.ndarray:
+    """conv_kernel on rows x (B, N) against responses h (m, N) (1/N folded
+    in), its index maps written out: the forward core; the registers
+    after its last stage, u[s] of thread t holding point
+    :func:`last_stage_points` [t, s], each multiplied in the epilogue by H
+    at ``h_at(t, s)`` (the kernel: t + s*TPF, the point it holds); the
+    inverse core reading u[s] of thread t as its point t + s*TPF.  m = 1
+    runs the product in the forward core's epilogue; the bank keeps the
+    spectrum registers and runs the product and the inverse once a filter.
+    Returns (m, B, N)."""
+    b, n = x.shape
+    g = conv_geometry(n)
+    tpf, e = g["TPF"], g["E"]
+    t, s = np.arange(tpf)[:, None], np.arange(e)[None, :]
+    pts = last_stage_points(n, tpf)
+    at = t + s * tpf if h_at is None else h_at(t, s)
+    spec = core(x, tpf)[:, pts]                 # (B, TPF, E): the registers
+    out = np.zeros((h.shape[0], b, n), complex)
+    for j in range(h.shape[0]):
+        u = np.zeros((b, n), complex)
+        u[:, t + s * tpf] = spec * h[j][at]     # read as point t + s*TPF
+        out[j] = core(u, tpf, inverse=True)
+    return out
+
+
+def conv_real_rows(x: np.ndarray, h: np.ndarray):
+    """conv_real_kernel on real rows x (B, n) against packed half responses
+    h (m, L) (slot 0 = (Re H[0], Re H[L]), 1/L folded in), its index maps
+    written out: z[m] = x[2m] + i x[2m+1] through the L-point core, Z into
+    the row's buffer (natural, unpadded); one thread a pair (k, L-k), k =
+    t + p*TPF < L/2, splitting it with W_n^k (the bank: once, kept for
+    every filter), multiplying X[k] by H[k] and X[L-k] by H[L-k] and
+    merging the products at h = 1/2 back into bins k and L-k; slot 0 as
+    two real products (DC, Nyquist); thread 0 the self-pair k = L/2 with
+    H[L/2] once; the inverse core from the buffer, natural z = (y[2m],
+    y[2m+1]).  Returns (y (m, B, n); for each bin of one filter's pair
+    step, how many pair threads wrote it; whether each thread read only
+    the bins it wrote)."""
+    b, n = x.shape
+    L = n // 2
+    g = conv_geometry(L, real=True)
+    tpf, e = g["TPF"], g["E"]
+    w = np.exp(-2j * np.pi * np.arange(L // 2 + 1) / n)
+    zb = core(x[:, 0::2] + 1j * x[:, 1::2], tpf)   # Z, natural, unpadded
+
+    def split(a, c, wk):
+        ev, od = 0.5 * (a + np.conj(c)), -0.5j * (a - np.conj(c))
+        return ev + wk * od, np.conj(ev - wk * od)
+
+    def merge(a, c, wk):  # at h = 1/2: the scale 1/L is in H
+        ev = 0.5 * (a + np.conj(c))
+        od = 0.5 * (a - np.conj(c)) * np.conj(wk)
+        return ev + 1j * od, np.conj(ev - 1j * od)
+
+    # the split, thread by thread: xs[(t, k)] = (X[k], X[L-k]); slot 0
+    # (DC, Nyquist) as two reals
+    xs, reads = {}, {}
+    for t in range(tpf):
+        for p in range(e // 2):
+            k = t + p * tpf
+            if k == 0:
+                a = zb[:, 0]
+                xs[t, 0] = (a.real + a.imag, a.real - a.imag)
+                reads.setdefault(t, set()).add(0)
+                continue
+            xs[t, k] = split(zb[:, k], zb[:, L - k], w[k])
+            reads.setdefault(t, set()).update({k, L - k})
+    xs[0, L // 2] = split(zb[:, L // 2], zb[:, L // 2], w[L // 2])
+    reads[0].add(L // 2)
+
+    out = np.zeros((h.shape[0], b, n))
+    hits = np.zeros(L, int)
+    writes = {}
+    for j in range(h.shape[0]):
+        buf = np.full((b, L), np.nan, complex)
+        hits[:] = 0
+        for (t, k), (xk, xm) in xs.items():
+            if k == 0:
+                dc, nyq = xk * h[j, 0].real, xm * h[j, 0].imag
+                buf[:, 0] = 0.5 * (dc + nyq) + 0.5j * (dc - nyq)
+                done = (0,)
+            elif k == L // 2:               # its own mirror: H[L/2] once
+                gk = xk * h[j, k]
+                buf[:, k], _ = merge(gk, gk, w[k])
+                done = (k,)
+            else:
+                buf[:, k], buf[:, L - k] = merge(xk * h[j, k],
+                                                 xm * h[j, L - k], w[k])
+                done = (k, L - k)
+            for d in done:
+                hits[d] += 1
+                writes.setdefault(t, set()).add(d)
+        z = core(buf, tpf, inverse=True)
+        out[j] = np.stack([z.real, z.imag], axis=-1).reshape(b, n)
+    return out, hits, all(reads[t] == writes[t] for t in reads)
+
+
+def conv_patterns(m: int, exact: bool, kernel: str = "conv"):
+    """(what, wavefronts) of a convolution block's shared-memory accesses
+    at M = m: the core's stages under :func:`conv_geometry` (both kernels),
+    and for ``"conv_real"`` (M = L) the round trip's row accesses of
+    :func:`_pair_patterns` with W_n^k from the block table where it has
+    one; plus the stage table's reads."""
+    real = kernel == "conv_real"
+    g = conv_geometry(m, exact, real)
+    out = []
+    for kind, fn in _stage_indices(m, g["TPF"], False):
+        out += _warp_waves(g, lambda f, t, fn=fn: pad16(fn(t)), g["elem"],
+                           "stage " + kind)
+    if real:
+        out += _pair_patterns(g, m, (16 if exact else 8)
+                              if g["wk_shared"] else None)
+    for r_s, p in zip(radices(m)[1:], stage_p(m)[1:]):
+        for q in range(g["E"] // r_s):
+            out += [("tw", w) for _, w in _warp_waves(
+                {**g, "BUF": 0}, lambda f, t, q=q, p=p:
+                (t + q * g["TPF"]) % p, 16 if exact else 8, "tw")]
     return out
 
 

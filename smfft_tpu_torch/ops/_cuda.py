@@ -142,14 +142,16 @@ def register_report(log: str | None = None) -> list[str]:
                           r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel|"
                           r"power_kernel|bluestein_kernel|"
                           r"fourstep_pass_kernel|real_huge_kernel)"
-                          r"I((?:Li\d+E)*)(Lb1E)?", name)
+                          r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?", name)
+            # the integer template arguments, and a second flag after
+            # EXACT (the convolutions' bank form)
             label = (f"{k.group(1)}<"
-                     f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
-                     if k else name)
+                     f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}"
+                     f"{',bank' if k.group(4) else ''}>" if k else name)
             # the "exact" instantiations compute in double2, or carry the
             # template flag EXACT = true after the sizes
-            kind = ("fp64" if "double2" in name or (k and k.group(3))
-                    else "fp32")
+            kind = ("fp64" if "double2" in name
+                    or (k and k.group(3) == "Lb1E") else "fp32")
             lines.append(f"{label} {kind}: {m.group(1)} registers, {spill} "
                          "bytes of spill stores")
             name = None

@@ -19,9 +19,11 @@ m = 1 is the single form (the JAX package's ``_build_conv`` /
 ``_build_conv_real_bank``), whose forward transform runs once per row.
 
 The TPU kernels keep the spectrum in revblock order and re-index H to
-match (``freq_to_revblock``); the Hopper kernels hold it in natural order,
-so H is passed as given, with the inverse's 1/N (1/L for real rows) folded
-in on the host in the tier's precision (a power of two: exact).
+match (``freq_to_revblock``); the Hopper kernels (on the core of
+``csrc/hcore.cuh``) hold it in natural order, so H is passed as given,
+with the inverse's 1/N (1/L for real rows) folded in on the host in the
+tier's precision (a power of two: exact).  m = 1 and m > 1 launch their
+own instantiations of each kernel.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version (:func:`conv_plain`,
@@ -130,12 +132,12 @@ def launch_conv(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     out, ptrs, interleaved = C.io_pointers(x, xi, lead=(m,))
     lib = _cuda.library()
     with torch.cuda.device(x.device):
+        # the inverse core reads the forward table conjugated: no inverse
+        # table (the entry point's tw_i is not read)
         tw_f = C.device_twiddles(n, False, bool(exact), x.device)
-        tw_i = C.device_twiddles(n, True, bool(exact), x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.smfft_conv(*ptrs, interleaved, b, n, m, h.data_ptr(),
-                             tw_f.data_ptr(), tw_i.data_ptr(), int(exact),
-                             stream)
+                             tw_f.data_ptr(), None, int(exact), stream)
     _cuda.check(err, f"conv kernel launch (n={n}, batch={b}, m={m})")
     launch_conv.count += 1
     return out
@@ -164,13 +166,11 @@ def launch_conv_real(x: torch.Tensor, *, h: torch.Tensor,
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         tw_f = C.device_twiddles(n // 2, False, bool(exact), x.device)
-        tw_i = C.device_twiddles(n // 2, True, bool(exact), x.device)
         wn = R.split_table(n, bool(exact), x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.smfft_conv_real(x.data_ptr(), out.data_ptr(), b, n, m,
-                                  h.data_ptr(), tw_f.data_ptr(),
-                                  tw_i.data_ptr(), wn.data_ptr(), int(exact),
-                                  stream)
+                                  h.data_ptr(), tw_f.data_ptr(), None,
+                                  wn.data_ptr(), int(exact), stream)
     _cuda.check(err, f"conv_real kernel launch (n={n}, batch={b}, m={m})")
     launch_conv_real.count += 1
     return out

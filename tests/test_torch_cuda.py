@@ -13,6 +13,7 @@ does not use.)
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -484,6 +485,101 @@ def test_conv_real_kernel_matches_plain_and_oracle(dev, n, m, exact):
     assert max_err(got, want) < bound(n)
     if exact:
         assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+def conv_rows_a_block(m):
+    """Rows a block of the convolutions at M points (N, or L = n/2 for the
+    real kernel): the row kernels' 256 threads of M / E (E = 16, 32 at
+    16384), one row of 512 threads from 8192 on (RowGeometry)."""
+    return max(1, 256 // (m // (32 if m >= 16384 else 16)))
+
+
+@pytest.mark.parametrize("n", SUPPORTED_C2C_SIZES)
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_conv_kernel_bank_one_row_past_a_block(dev, n, m):
+    """conv_kernel's single-filter and bank forms, complex64 and planar,
+    on a batch one row past a block: every filter's rows against the
+    plain version and float64 torch.fft, the lone row of the last block
+    included."""
+    b = conv_rows_a_block(n) + 1
+    x = rand_c(b, n, dev, seed=n + m)
+    h = rand_c(m, n, dev, seed=n + m + 1)
+    hd = CV.device_response(h, 1.0 / n, False, dev)
+    got_c = CV.launch_conv(x, h=hd)
+    gr, gi = CV.launch_conv(x.real.contiguous(), x.imag.contiguous(), h=hd)
+    hs = h / n
+    plain = torch.complex(*CV.conv_plain(x.real, x.imag, hs.real, hs.imag))
+    want = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128))[None]
+                          * h.to(torch.complex128)[:, None])
+    torch.cuda.synchronize()
+    for got in (got_c, torch.complex(gr, gi)):
+        assert got.shape == (m, b, n)
+        assert max_err(got, plain) < bound(n)
+        assert max_err(got, want) < bound(n)
+
+
+@pytest.mark.parametrize("n", [s for s in SUPPORTED_REAL_SIZES if s >= 256])
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_conv_real_kernel_bank_one_row_past_a_block(dev, n, m):
+    """conv_real_kernel's single-filter and bank forms on a batch one row
+    past a block, against the plain version and float64 torch.fft."""
+    b = conv_rows_a_block(n // 2) + 1
+    x = rand_r(b, n, dev, seed=n + m)
+    h = torch.fft.rfft(rand_r(m, n, dev, seed=n + m + 1).double()).to(
+        torch.complex64)
+    got = CV.conv_real_rows(x, h)
+    pk = CV.pack_real_response(h) / (n // 2)
+    plain = CV.conv_real_plain(x, pk.real, pk.imag)
+    want = torch.fft.irfft(torch.fft.rfft(x.double())[None]
+                           * h.to(torch.complex128)[:, None], n)
+    torch.cuda.synchronize()
+    assert got.shape == (m, b, n)
+    assert max_err(got, plain) < bound(n)
+    assert max_err(got, want) < bound(n)
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_conv_exact_at_16384(dev, real, m):
+    """The "exact" tier at N = n = 16384 (fp64 arithmetic, fp32 storage
+    of the complex kernel's registers and rows), single and bank: within
+    2 ulp of max|y| of float64 torch.fft."""
+    n = 16384
+    if real:
+        x = rand_r(3, n, dev, seed=m)
+        h = torch.fft.rfft(rand_r(m, n, dev, seed=m + 1).double()).to(
+            torch.complex64)
+        got = CV.conv_real_rows(x, h, exact=True)
+        want = torch.fft.irfft(torch.fft.rfft(x.double())[None]
+                               * h.to(torch.complex128)[:, None], n)
+    else:
+        x = rand_c(3, n, dev, seed=m)
+        h = rand_c(m, n, dev, seed=m + 1)
+        got = CV.conv_rows(x, None, h, exact=True)
+        want = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128))[None]
+                              * h.to(torch.complex128)[:, None])
+    torch.cuda.synchronize()
+    assert got.shape == (m, 3, n)
+    assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+def test_conv_fp32_instantiations_do_not_spill(dev):
+    """ptxas's report of the library: every fp32 instantiation of both
+    convolutions at M <= 4096 points (N, or L = n/2), single-filter and
+    bank, spills nothing."""
+    from smfft_tpu_torch.ops import _cuda
+    _cuda.library()
+
+    def points(ln):
+        m = re.match(r"conv(?:_real)?_kernel<(\d+)", ln)
+        return int(m[1]) if m else 0
+
+    lines = [ln for ln in _cuda.register_report()
+             if 0 < points(ln) <= 4096 and " fp32:" in ln]
+    # N = 32..4096 and L = 128..4096, each single and bank
+    assert len(lines) == 2 * 8 + 2 * 6, lines
+    assert all(ln.endswith(" 0 bytes of spill stores") for ln in lines), \
+        lines
 
 
 @pytest.mark.parametrize("real", [False, True])

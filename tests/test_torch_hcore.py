@@ -1,21 +1,24 @@
 """The CPU model of the Hopper core (``csrc/hcore.cuh``), of the pass
 kernel's tile schedule (``csrc/fourstep.cu``), of the row kernels
-(``csrc/c2c.cu``, the R2C kernel of ``csrc/real.cu``) and of the reuse
-loops (``csrc/multiple.cu``): ``models/hcore.py``.
+(``csrc/c2c.cu``, the R2C kernel of ``csrc/real.cu``), of the reuse
+loops (``csrc/multiple.cu``) and of the fused convolutions
+(``csrc/conv.cu``): ``models/hcore.py``.
 
-What a CPU can check of the six kernels on that core: the stage ladder and
-its index maps give numpy's DFT at every size the kernels instantiate, the
-Bluestein order of H and its two shortcuts (the first stage's zero half,
-the last stage's lower half) change nothing, the row kernels' layouts
-(revblock staging in and out, the R2C pair split and its stores) give
-numpy's fft / rfft and store each bin once, the reuse loops' hand-offs
-(natural in the registers, revblock through the staging) and the real
-round trip's in-place split and merge give ``ops.multiple``'s plain
-versions, every shared-memory access needs the fewest wavefronts a warp
-can (2 for 8-byte elements, 4 for 16-byte ones; the shared core of
-``stockham.cuh`` is counted the same way), the paddings are bijections,
-and the persistent grid covers every tile once.  Tolerance: 1e-9 * M against complex128 numpy (the model runs
-in float64).
+What a CPU can check of the eight kernels on that core: the stage ladder
+and its index maps give numpy's DFT at every size the kernels
+instantiate, the Bluestein order of H and its two shortcuts (the first
+stage's zero half, the last stage's lower half) change nothing, the row
+kernels' layouts (revblock staging in and out, the R2C pair split and
+its stores) give numpy's fft / rfft and store each bin once, the reuse
+loops' hand-offs (natural in the registers, revblock through the
+staging) and the real round trip's in-place split and merge give
+``ops.multiple``'s plain versions, the convolutions' products in the
+registers and in place give ``ops.convolve``'s plain versions, every
+shared-memory access needs the fewest wavefronts a warp can (2 for
+8-byte elements, 4 for 16-byte ones; the shared core of ``stockham.cuh``
+is counted the same way), the paddings are bijections, and the
+persistent grid covers every tile once. Tolerance: 1e-9 * M against
+complex128 numpy (the model runs in float64).
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch
 
 from smfft_tpu_torch import bluestein as TB
 from smfft_tpu_torch.models import hcore as H
+from smfft_tpu_torch.ops import convolve as CV
 from smfft_tpu_torch.ops import multiple as MU
 
 BLUESTEIN_M = [32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384]
@@ -357,3 +361,113 @@ def test_multiple_banks(kernel, m, exact):
         <= kinds
     for what, w in pats:
         assert w <= g["elem"] // 4, (what, w)
+
+
+# ---------------------------------------------------------------------------
+# The fused convolutions on the core: conv_kernel and conv_real_kernel.
+# ---------------------------------------------------------------------------
+
+CONV_N = [32, 64, 128, 256, 512, 1024, 2048, 4096]
+CONV_REAL_N = [256, 512, 1024, 2048, 4096, 8192]
+
+
+def packed_response(rng, m, n):
+    """m random rfft-style responses in the kernel's packed form: slot 0 =
+    (Re H[0], Re H[L]), 1/L folded in (``ops.convolve`` does the same)."""
+    L = n // 2
+    hf = np.fft.rfft(rng.random((m, n)) - 0.5)
+    return np.concatenate([hf.real[:, :1] + 1j * hf.real[:, L:],
+                           hf[:, 1:L]], axis=1) / L
+
+
+@pytest.mark.parametrize("n", CONV_N)
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_conv_model_matches_plain(rng, n, m):
+    """conv_kernel's index maps (the product with H at the points the
+    forward core's last stage leaves in the registers, the inverse core
+    from them, the bank's m inverses) give ``conv_plain`` in float64."""
+    x = rand_c(rng, 2, n)
+    h = rand_c(rng, m, n) / n
+    got = H.conv_rows(x, h)
+    pr, pi = CV.conv_plain(*(torch.from_numpy(a.copy())
+                             for a in (x.real, x.imag, h.real, h.imag)))
+    assert np.abs(got - (pr.numpy() + 1j * pi.numpy())).max() < 1e-9 * n
+
+
+def test_conv_epilogue_indexes_h_by_point(rng):
+    """The epilogue's H is indexed by the point a register holds, t +
+    s*TPF; indexed by the register slot s it gives other rows."""
+    n = 1024
+    x, h = rand_c(rng, 2, n), rand_c(rng, 1, n) / n
+    right = H.conv_rows(x, h)
+    wrong = H.conv_rows(x, h, h_at=lambda t, s: s + 0 * t)
+    assert np.abs(wrong - right).max() > 1e-3
+
+
+@pytest.mark.parametrize("n", CONV_REAL_N)
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_conv_real_model_matches_plain(rng, n, m):
+    """conv_real_kernel's index maps (Z unpadded in the row, the pair
+    split with W_n^k, the products and the merge in place, slot 0's two
+    real products, the self-pair, the inverse from the row) give
+    ``conv_real_plain`` in float64; one pair thread writes each bin, and
+    only bins it read itself, so the pair step needs no barrier inside."""
+    x = rng.random((2, n)) - 0.5
+    pk = packed_response(rng, m, n)
+    got, hits, own = H.conv_real_rows(x, pk)
+    want = CV.conv_real_plain(torch.from_numpy(x),
+                              torch.from_numpy(pk.real.copy()),
+                              torch.from_numpy(pk.imag.copy())).numpy()
+    assert np.abs(got - want).max() < 1e-9 * n
+    assert (hits == 1).all() and own
+
+
+CONV_INSTANCES = (
+    [("conv", m, ex) for m in ROW_M for ex in (False, True)]
+    + [("conv_real", n // 2, ex) for n in CONV_REAL_N + [16384]
+       for ex in (False, True)])
+
+
+@pytest.mark.parametrize("kernel,m,exact", CONV_INSTANCES)
+def test_conv_banks(kernel, m, exact):
+    """Every shared-memory access of a convolution block at the minimum
+    wavefronts (2 for 8-byte elements, 4 for 16-byte): the core's stages,
+    and for the real kernel Z out of the last stage, the pair step's reads
+    and writes of k and L-k (unpadded, to L = 8192), W_n^k from the block
+    table and the inverse's first stage from the unpadded row; the stage
+    table."""
+    real = kernel == "conv_real"
+    g = H.conv_geometry(m, exact, real)
+    pats = H.conv_patterns(m, exact, kernel)
+    kinds = {what for what, _ in pats}
+    if real:
+        assert {"pair k", "pair L-k", "Z out: last stage",
+                "inverse: first stage"} <= kinds
+        assert ("W_n^k" in kinds) == g["wk_shared"]
+    for what, w in pats:
+        lim = ((16 if exact else 8) // 4 if what in ("tw", "W_n^k")
+               else g["elem"] // 4)
+        assert w <= lim, (what, w)
+
+
+@pytest.mark.parametrize("kernel,m,exact", CONV_INSTANCES)
+def test_conv_geometry(kernel, m, exact):
+    """The chosen instantiations, single-filter and bank alike: the row
+    kernels' blocks (256 threads to M = 4096, one row of 512 above) at 16
+    warps an SM, fewer only where the shared memory says so, with two
+    buffers a row below M = 8192; the block fits the 227 KB a block may
+    use with the stage table and, for the real kernel, W_n^k, which only
+    the "exact" tier at L = 8192 (139 KB row, 74 KB table) reads from
+    device memory; one slot at M = 16384, where a second one does not
+    fit."""
+    real = kernel == "conv_real"
+    g = H.conv_geometry(m, exact, real)
+    assert g["threads"] == (256 if m <= 4096 else 512)
+    assert g["smem"] <= 232448
+    assert g["MINB"] * (g["smem"] + 1024) <= 233472
+    assert g["MINB"] <= max(1, 16 * 32 // g["threads"])
+    if m < 8192 and not exact:
+        assert g["PP"] and g["MINB"] == 2
+    assert g["wk_shared"] == (real and not (exact and m == 8192))
+    if m == 16384:
+        assert not g["PP"] and g["MINB"] == 1
