@@ -34,6 +34,9 @@ Phases (each failure exits non-zero at once):
      ``planar.rfft(ordered=False)`` -> ``planar.irfft(in_natural=False)``
      round trip at n = 1024, checked and timed the same way (GB/s counted
      as 8 bytes per real sample) beside ``torch.fft.rfft`` / ``irfft``.
+     After the counters are read, the C2R kernel alone at n = 1024 (ten
+     launches of the library's entry point between two events, the tables
+     made once).
   6. ``smfft_tpu_torch.verify`` 1024 4096 2 0 1, and 4096 4096 2 with
      ``--kind r2c`` and ``--kind c2r``, print PASSED.
   7. Reuse sweep: ``c2c_multiple_kernel`` through
@@ -700,6 +703,44 @@ def phase_main_real(card: str):
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return rows, n_r2c, n_c2r, worst
+
+
+def c2r_alone(card: str) -> float:
+    """The C2R kernel alone on the main path's planar spectrum shape (n =
+    MAIN_SIZES[0], 2^27 samples): ten launches of ``smfft_c2r`` between two
+    events, the tables made once, so that the wrapper's host work drops
+    out; the median of REPS, in ms a launch.  The launches go past the
+    wrapper and its count."""
+    from smfft_tpu_torch.ops import _cuda
+    from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import real as R
+    n = MAIN_SIZES[0]
+    L, b = n // 2, MAIN_POINTS // n
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    hr = torch.rand((b, L), generator=gen, device="cuda") - 0.5
+    hi = torch.rand((b, L), generator=gen, device="cuda") - 0.5
+    y = torch.empty((b, n), device="cuda")
+    tw = C.device_twiddles(L, True, False, hr.device)
+    wn = R.split_table(n, False, hr.device)
+    lib = _cuda.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ten():
+        for _ in range(10):
+            err = lib.smfft_c2r(hr.data_ptr(), hi.data_ptr(), 0, y.data_ptr(),
+                                b, n, 1.0 / L, tw.data_ptr(), wn.data_ptr(),
+                                0, stream)
+            if err:
+                fail(f"smfft_c2r returned CUDA error {err}")
+
+    ms = cuda_ms(ten) / 10
+    if not bool(torch.isfinite(y).all()):
+        fail("the C2R kernel alone: non-finite output")
+    print(f"C2R kernel alone, n={n} batch={b} ({card}): {ms:.4f} ms a "
+          "launch")
+    del hr, hi, y
+    torch.cuda.empty_cache()
+    return ms
 
 
 def reuse_bound(n: int, iters: int) -> float:
@@ -2013,6 +2054,7 @@ def main() -> int:
     reset_counts()
     real_rows, n_r2c, n_c2r, worst_real_main = phase_main_real(card)
     real_counts = check_counts("real", {"r2c": n_r2c, "c2r": n_c2r})
+    c2r_kernel_ms = c2r_alone(card)
 
     from smfft_tpu_torch import verify
     for argv in (["1024", "4096", "2", "0", "1"],
@@ -2057,7 +2099,8 @@ def main() -> int:
           f"bound_ms and library_ms are at N = n = {main_row['n']} with "
           "2^27 points or samples: c2c = fft vs torch.fft.fft, r2c = "
           "planar.rfft vs torch.fft.rfft, c2r = planar.irfft vs "
-          "torch.fft.irfft")
+          "torch.fft.irfft; c2r's kernel_ms is the kernel alone (ten "
+          "launches of smfft_c2r between two events) on the same shape")
     kernels = [
         {"name": "c2c", "route": "cuda",
          "source": "smfft_tpu_torch/csrc/c2c.cu",
@@ -2077,11 +2120,11 @@ def main() -> int:
          "bound_ms": real_row["bound_ms"], "bound_by": real_row["bound_by"],
          "library_ms": real_row["torch_rfft_ms"]},
         {"name": "c2r", "route": "cuda",
-         "source": "smfft_tpu_torch/csrc/real.cu",
+         "source": "smfft_tpu_torch/csrc/c2r.cu",
          "replaces": "smfft_tpu/ops/pallas_real.py:544",
          "launches": real_counts["c2r"],
          "max_abs_err": max(worst_real["c2r"], worst_real_main["c2r"]),
-         "ms": real_row["planar_irfft_ms"],
+         "ms": real_row["planar_irfft_ms"], "kernel_ms": c2r_kernel_ms,
          "plain_ms": real_row["plain_c2r_ms"],
          "bound_ms": real_row["bound_ms"], "bound_by": real_row["bound_by"],
          "library_ms": real_row["torch_irfft_ms"]},

@@ -17,7 +17,7 @@ Five slices so far:
     :func:`rfft` / :func:`irfft` in numpy layout, :func:`fft_packed_real`
     and packed ``irfft`` in the reference's layout (slot 0 = DC +
     i*Nyquist), and ``planar.rfft`` / ``planar.irfft`` on packed planar
-    pairs, natural or revblock (``csrc/real.cu``);
+    pairs, natural or revblock (``csrc/real.cu``, ``csrc/c2r.cu``);
   * fused convolution, one pass over memory for a forward transform, a
     filter product and an inverse: :func:`convolve` (complex, one filter
     or a bank), :func:`convolve_real`, ``planar.convolve``, and the

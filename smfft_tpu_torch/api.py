@@ -8,9 +8,10 @@ wrong FFT length!".
 
 Backends:
   * ``backend="auto"`` — dispatch on the tensor's device: a CUDA tensor
-    runs the hand-written Hopper kernels (``csrc/c2c.cu``, ``csrc/real.cu``)
-    or raises; a CPU tensor runs the kernels' plain PyTorch versions.  Both
-    give the same layouts, so CPU and GPU results agree.
+    runs the hand-written Hopper kernels (``csrc/c2c.cu``, ``csrc/real.cu``,
+    ``csrc/c2r.cu``) or raises; a CPU tensor runs the kernels' plain
+    PyTorch versions.  Both give the same layouts, so CPU and GPU results
+    agree.
   * ``backend="spec"`` — the semantic specs (:mod:`models`), for
     debugging.  Its unordered C2C output is bit-reversed, as the JAX
     spec's.

@@ -12,7 +12,10 @@ about 2^27 complex points or real samples per call, precision "highest":
     same-run ``copy_`` of the same bytes and ``torch.fft.fft``;
   * ``planar.rfft`` and ``rfft`` (numpy layout) at n = 1024, 4096, 16384,
     the median of 15, beside a same-run ``copy_`` of the real bytes and
-    ``torch.fft.rfft``;
+    ``torch.fft.rfft``; ``planar.irfft`` and ``irfft`` (numpy layout) of
+    their spectra beside ``torch.fft.irfft``, and the C2R kernel alone
+    (``c2r_kernel_ms``: ten launches of ``smfft_c2r`` on the planar
+    spectrum between two events, the tables made once);
   * ``fft_any`` at n = 1000 (131072 rows) and 4097 (32768 rows), and
     ``fft_large`` at N = 2^15, 2^20, 2^24, 2^27, the median of 15;
   * the reuse loops at 100 transforms a call: ``fft_planar(
@@ -33,14 +36,16 @@ about 2^27 complex points or real samples per call, precision "highest":
     library's entry point between two events, the tables made once, so
     that the wrappers' host work between calls drops out);
   * the fp32 error of ``fft`` / ``ifft`` and ``convolve`` (64 rows, every
-    N) and of ``rfft`` and ``convolve_real`` (64 rows, every n) against
-    float64 ``torch.fft``, in ulp(max|X|) (max|y| for a convolution).
+    N) and of ``rfft``, ``irfft`` and ``convolve_real`` (64 rows, every n)
+    against float64 ``torch.fft``, in ulp(max|X|) (max|x| for ``irfft``,
+    max|y| for a convolution).
 
 Prints one JSON line per root and the registers and spills ptxas gave each
-instantiation of the kernels both roots build the same way (C2R, power,
-huge-N real, and the kernels already on the Hopper core hcore.cuh: C2C,
-R2C, Bluestein, the four-step pass and the reuse loops) in that root's
-build, whether those are the same in every root, then the card.
+instantiation of the kernels both roots build the same way (power, huge-N
+real, and the kernels already on the Hopper core hcore.cuh before the C2R
+kernel: C2C, R2C, Bluestein, the four-step pass and the reuse loops) in
+that root's build, whether those are the same in every root, then the
+card.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from pathlib import Path
 from smfft_tpu_torch.ops._cuda import register_report
 
 # the kernel instantiations whose registers and spills are compared
-SHARED_KERNELS = ("c2r_kernel", "power_kernel", "real_huge_kernel",
+SHARED_KERNELS = ("power_kernel", "real_huge_kernel",
                   "bluestein_kernel", "fourstep_pass_kernel", "c2c_kernel",
                   "r2c_kernel", "c2c_multiple_kernel",
                   "real_multiple_kernel")
@@ -80,7 +85,7 @@ def ulps(y, want):
     u = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 23)
     return (y.to(want.dtype) - want).abs().max().item() / u
 out = {"root": root, "rows": [], "ptxas": _cuda.build_log,
-       "ulp_fp32": {"fft": {}, "rfft": {}, "convolve": {},
+       "ulp_fp32": {"fft": {}, "rfft": {}, "irfft": {}, "convolve": {},
                     "convolve_real": {}}}
 gen = torch.Generator(device="cuda").manual_seed(1234)
 for n in (1024, 4096, 16384):
@@ -95,17 +100,36 @@ for n in (1024, 4096, 16384):
                         "torch_fft_ms": ms(lambda: torch.fft.fft(x))})
     del x, xr, xi, dst
     torch.cuda.empty_cache()
+from smfft_tpu_torch.ops import c2c as OC
+from smfft_tpu_torch.ops import multiple as OM
+from smfft_tpu_torch.ops import real as OR
+lib = _cuda.library()
+stream = torch.cuda.current_stream().cuda_stream
+def kernel_ms(launch, k=10):
+    return ms(lambda: [launch() for _ in range(k)]) / k
+def c2r_kernel_ms(hr, hi, n):
+    y = torch.empty((hr.shape[0], n), device="cuda")
+    tw = OC.device_twiddles(n // 2, True, False, hr.device)
+    wn = OR.split_table(n, False, hr.device)
+    return kernel_ms(lambda: lib.smfft_c2r(
+        hr.data_ptr(), hi.data_ptr(), 0, y.data_ptr(), hr.shape[0], n,
+        2.0 / n, tw.data_ptr(), wn.data_ptr(), 0, stream))
 for n in (1024, 4096, 16384):
     x = torch.rand(((1 << 27) // n, n), generator=gen, device="cuda") - 0.5
     dst = torch.empty_like(x)
-    out["rows"].append({"n": n, "planar_rfft_ms": ms(lambda: T.planar.rfft(x)),
-                        "rfft_ms": ms(lambda: T.rfft(x)),
-                        "copy_real_ms": ms(lambda: dst.copy_(x)),
-                        "torch_rfft_ms": ms(lambda: torch.fft.rfft(x))})
-    del x, dst
+    row = {"n": n, "planar_rfft_ms": ms(lambda: T.planar.rfft(x)),
+           "rfft_ms": ms(lambda: T.rfft(x)),
+           "copy_real_ms": ms(lambda: dst.copy_(x)),
+           "torch_rfft_ms": ms(lambda: torch.fft.rfft(x))}
+    hr, hi = T.planar.rfft(x)
+    spec = T.rfft(x)
+    row.update({"planar_irfft_ms": ms(lambda: T.planar.irfft(hr, hi)),
+                "irfft_ms": ms(lambda: T.irfft(spec, n)),
+                "c2r_kernel_ms": c2r_kernel_ms(hr, hi, n),
+                "torch_irfft_ms": ms(lambda: torch.fft.irfft(spec, n))})
+    out["rows"].append(row)
+    del x, dst, hr, hi, spec
     torch.cuda.empty_cache()
-from smfft_tpu_torch.ops import c2c as OC
-from smfft_tpu_torch.ops import multiple as OM
 for n in (1024, 4096, 16384):
     b = (1 << 27) // n
     xr = torch.rand((b, n), generator=gen, device="cuda") - 0.5
@@ -132,11 +156,6 @@ for n in (1024, 4096, 16384):
     del xr, xi
     torch.cuda.empty_cache()
 from smfft_tpu_torch.ops import convolve as OV
-from smfft_tpu_torch.ops import real as OR
-lib = _cuda.library()
-stream = torch.cuda.current_stream().cuda_stream
-def kernel_ms(launch, k=10):
-    return ms(lambda: [launch() for _ in range(k)]) / k
 def conv_kernel_ms(x, h, n):
     o = torch.empty((h.shape[0],) + tuple(x.shape), dtype=x.dtype,
                     device="cuda")
@@ -230,6 +249,10 @@ for n in (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
         xr = torch.cat([x.real, x.imag], dim=1)
         out["ulp_fp32"]["rfft"][2 * n] = ulps(
             T.rfft(xr), torch.fft.rfft(xr.double()))
+        spec = torch.fft.rfft(xr.double()).to(torch.complex64)
+        out["ulp_fp32"]["irfft"][2 * n] = ulps(
+            T.irfft(spec, 2 * n),
+            torch.fft.irfft(spec.to(torch.complex128), 2 * n))
         if 2 * n >= 256:
             hr = torch.fft.rfft(torch.cat([h.real, h.imag]).double())
             out["ulp_fp32"]["convolve_real"][2 * n] = ulps(
@@ -275,8 +298,8 @@ def main(argv=None) -> int:
         for r in regs:
             print(f"  ptxas {Path(root).name or root}: {r}")
     reports = [r for r in reports if r]  # a root's older build: no log
-    print(f"c2r / power / real_huge / bluestein / fourstep_pass / c2c / "
-          f"r2c / c2c_multiple / real_multiple instantiations report the same "
+    print(f"power / real_huge / bluestein / fourstep_pass / c2c / r2c / "
+          f"c2c_multiple / real_multiple instantiations report the same "
           f"registers and spills in the {len(reports)} roots with a ptxas "
           f"report: "
           f"{bool(reports) and all(r == reports[0] for r in reports)}")

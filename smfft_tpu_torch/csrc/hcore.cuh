@@ -1,9 +1,10 @@
 // The in-block FFT core for Hopper of bluestein_kernel (chirp.cu),
-// fourstep_pass_kernel (fourstep.cu), c2c_kernel (c2c.cu), the R2C kernel
-// (real.cu), the reuse loops (multiple.cu) and the fused convolutions
-// (conv.cu): an M-point transform (M = 16..16384) by TPF threads, E = M /
-// TPF points a thread, in shared memory and registers.  The other kernels
-// keep stockham.cuh; this header only borrows its complex helpers.
+// fourstep_pass_kernel (fourstep.cu), c2c_kernel (c2c.cu), the R2C and C2R
+// kernels (real.cu), the reuse loops (multiple.cu) and the fused
+// convolutions (conv.cu): an M-point transform (M = 16..16384) by TPF
+// threads, E = M / TPF points a thread, in shared memory and registers.
+// The other kernels keep stockham.cuh; this header only borrows its
+// complex helpers.
 //
 // Thread t holds the points t + s*TPF (s < E) of its transform in u[s],
 // natural order, before the first stage (Core::run_regs) and after the
@@ -512,7 +513,7 @@ struct Core {
 };
 
 // The block layout of the row kernels on the core, c2c_kernel,
-// c2c_multiple_kernel and conv_kernel at M = N, the R2C kernel,
+// c2c_multiple_kernel and conv_kernel at M = N, the R2C and C2R kernels,
 // real_multiple_kernel and conv_real_kernel at M = L = n/2
 // (models/hcore.py row_geometry):
 //   * E = 16 points a thread (32 at M = 16384), TPF = M / E threads a row,

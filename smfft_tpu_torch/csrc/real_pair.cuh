@@ -1,6 +1,6 @@
 // The real transforms' work on one pair of bins (k, L-k), L = n/2, shared
-// by real.cu (R2C split, C2R merge), multiple.cu (the real reuse loop:
-// split then merge), conv.cu (split, filter product, merge) and
+// by real.cu (R2C split), c2r.cu (C2R merge), multiple.cu (the real reuse
+// loop: split then merge), conv.cu (split, filter product, merge) and
 // real_huge.cu (the huge-N split and merge, W^k from hi/lo tables).  With
 // W = W_n = exp(-2 pi i / n) and wn[k] = W^k:
 //
@@ -19,7 +19,15 @@
 
 #include "stockham.cuh"
 
+// The half sizes L = n/2 of the real transforms (real.cu, c2r.cu).
+#define SMFFT_REAL_SIZES(X) \
+    X(32) X(64) X(128) X(256) X(512) X(1024) X(2048) X(4096) X(8192)
+
 namespace smfft {
+
+// Layouts of a packed half spectrum in device memory, as real.cu writes
+// and c2r.cu reads them (ops/real.py numbers them the same way).
+enum Layout : int { PLANAR = 0, PLANAR_REV = 1, PACKED = 2, NUMPY = 3 };
 
 // (DC, Nyquist) from Z[0].
 template <typename C>

@@ -17,7 +17,7 @@
 // row, so 2^27 samples move 0.81 GB, 0.24 ms at 3.35 TB/s, against 0.07 ms
 // of fp32 operations at n = 4096.  No spectrum reaches device memory.
 //
-// Design: r2c_kernel's body (Geometry<L, false>: 16 points a thread, 4096/L
+// Design: r2c_kernel's body (Geometry<L>: 16 points a thread, 4096/L
 // rows a block, 256 threads) up to the split.  The real row is read as
 // float2, z[m] = x[2m] + i x[2m+1], and the window as float2 at the same
 // index, multiplied in at the load.  After the L-point transform Z sits in
@@ -98,7 +98,7 @@ template <int L>
 cudaError_t launch_power(const float* x, const float* win, float* out,
                          int64_t batch, const void* tw, const void* wn,
                          cudaStream_t stream) {
-    using G = Geometry<L, false>;
+    using G = Geometry<L>;
     auto kernel = power_kernel<L, G::TPF, G::F, G::MINB>;
     cudaError_t err = allow_smem(kernel, G::SMEM);
     if (err != cudaSuccess) return err;

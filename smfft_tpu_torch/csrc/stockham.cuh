@@ -1,9 +1,8 @@
-// The Stockham core of the C2R kernel (real.cu), power_kernel
-// (spectral.cu) and the helpers of real_huge_kernel: in-register DFTs,
-// twiddled butterflies, in-place shared-memory stages, the stage ladder,
-// the block geometry per size and tier; and what every kernel in csrc/
-// shares: the complex helpers, the revblock index map and its inverse,
-// and the view of the data in device memory.
+// The Stockham core of power_kernel (spectral.cu) and the helpers of
+// real_huge_kernel: in-register DFTs, twiddled butterflies, in-place
+// shared-memory stages, the stage ladder, the block geometry per size;
+// and what every kernel in csrc/ shares: the complex helpers, the revblock
+// index map and its inverse, and the view of the data in device memory.
 //
 // Contract of the stage functions (N points of one transform in `buf`,
 // TPF threads per transform, thread t):
@@ -284,30 +283,19 @@ __device__ __forceinline__ S* shared_buffer() {
     return reinterpret_cast<S*>(smem_bytes);
 }
 
-// The block layout of an N-point transform on this core (the C2R kernel
-// and power_kernel take it at N = L, their half size):
-//   * E = 16 points per thread (32 at N = 16384), TPF = N / E threads per
-//     transform, F = 4096 / N transforms per block for N <= 4096 (one
-//     above), so a block has 256 threads (512 at N = 8192 and 16384);
-//   * C is the arithmetic type and S the shared-memory storage: float2 for
-//     the fp32 tiers; "exact" computes in double2 and stores double2 where
-//     the transform fits (N <= 8192: 128 KB), float2 at N = 16384;
-//   * MINB, the blocks per SM the register budget must allow: 64
-//     registers a thread for fp32 (4 blocks of 256, 2 of 512; 1 where the
-//     shared memory allows no second block, N = 16384), 128 for "exact".
-template <int N, bool EXACT>
+// The block layout of an N-point transform on this core (power_kernel
+// takes it at N = L = n/2 <= 2048): E = 16 points per thread, TPF = N / E
+// threads per transform, F = 4096 / N transforms per block, so a block has
+// 256 threads; MINB = 4 blocks per SM, the register budget of 64 a thread.
+template <int N>
 struct Geometry {
-    using C = typename std::conditional<EXACT, double2, float2>::type;
-    using S = typename std::conditional<EXACT && N <= 8192, double2,
-                                        float2>::type;
-    static constexpr int E = N == 16384 ? 32 : 16;
-    static constexpr int F = N <= 4096 ? 4096 / N : 1;
+    static_assert(N <= 4096, "16 points a thread, 256 threads a block");
+    static constexpr int E = 16;
+    static constexpr int F = 4096 / N;
     static constexpr int TPF = N / E;
     static constexpr int THREADS = TPF * F;
-    static constexpr size_t SMEM = sizeof(S) * N * F;
-    static constexpr int MINB =
-        EXACT ? (THREADS <= 256 ? 2 : 1)
-              : (THREADS <= 256 ? 4 : (SMEM > 96 * 1024 ? 1 : 2));
+    static constexpr size_t SMEM = sizeof(float2) * N * F;
+    static constexpr int MINB = 4;
     static unsigned blocks(int64_t batch) {
         return (unsigned)((batch + F - 1) / F);
     }

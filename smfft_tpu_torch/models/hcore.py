@@ -1,13 +1,14 @@
 """The Hopper core of ``csrc/hcore.cuh``, the tile schedule of
-``csrc/fourstep.cu``, the row layout of ``csrc/c2c.cu`` and the R2C
-kernel of ``csrc/real.cu``, the reuse loops of ``csrc/multiple.cu`` and
-the fused convolutions of ``csrc/conv.cu``, modelled on the CPU.
+``csrc/fourstep.cu``, the row layout of ``csrc/c2c.cu``, the R2C kernel
+of ``csrc/real.cu`` and the C2R kernel of ``csrc/c2r.cu``, the reuse
+loops of ``csrc/multiple.cu`` and the fused convolutions of
+``csrc/conv.cu``, modelled on the CPU.
 
-What a CPU can check of the eight kernels built on that core
+What a CPU can check of the nine kernels built on that core
 (``bluestein_kernel``, ``fourstep_pass_kernel``, ``c2c_kernel``,
-``r2c_kernel``, ``c2c_multiple_kernel``, ``real_multiple_kernel``,
-``conv_kernel``, ``conv_real_kernel``), with the kernels' own index
-arithmetic written out in numpy:
+``r2c_kernel``, ``c2r_kernel``, ``c2c_multiple_kernel``,
+``real_multiple_kernel``, ``conv_kernel``, ``conv_real_kernel``), with the
+kernels' own index arithmetic written out in numpy:
 
   * the stage ladder (radix-16 stages and one last radix of 2, 4, 8 or 16)
     and its index maps, thread by thread, give the DFT
@@ -22,8 +23,9 @@ arithmetic written out in numpy:
   * the row kernels' block layout (:func:`row_geometry`), their revblock
     staging (:func:`stage_pos`), the C2C kernel's layouts
     (:func:`c2c_rows`), the R2C kernel's pair split and its stores in
-    each layout (:func:`r2c_rows`), and the wavefronts of every access
-    (:func:`row_patterns`);
+    each layout (:func:`r2c_rows`), the C2R kernel's loads of each point
+    and its mirror and their merge in the registers (:func:`c2r_rows`),
+    and the wavefronts of every access (:func:`row_patterns`);
   * the reuse loops of ``csrc/multiple.cu`` on those blocks: the natural
     hand-off in the registers (:func:`last_stage_points`), the revblock
     hand-off through the staging (:func:`multiple_rows`), the real round
@@ -318,9 +320,10 @@ def grid_size(n_tiles: int, sms: int, per_sm: int) -> int:
 
 # ---------------------------------------------------------------------------
 # The row kernels on the same core: c2c_kernel (csrc/c2c.cu) and the R2C
-# kernel (csrc/real.cu, at M = L = n/2).  F rows a block, TPF threads a row
-# (lane = row * TPF + t), each row's buffers BUF elements apart; revblock
-# layouts staged through the row's buffer with :func:`stage_pos`.
+# and C2R kernels (csrc/real.cu, csrc/c2r.cu, at M = L = n/2).  F rows a
+# block, TPF threads a row (lane = row * TPF + t), each row's buffers BUF
+# elements apart; revblock layouts staged through the row's buffer with
+# :func:`stage_pos`.
 # ---------------------------------------------------------------------------
 
 
@@ -334,7 +337,7 @@ def row_stride(base: int, tpf: int) -> int:
 
 
 # the warps an SM each row kernel's fp32 instantiation aims at
-ROW_WARPS = {"c2c": 24, "r2c": 32}
+ROW_WARPS = {"c2c": 24, "r2c": 32, "c2r": 16}
 
 
 def row_geometry(m: int, exact: bool = False, warps: int = 24) -> dict:
@@ -469,6 +472,55 @@ def r2c_rows(x: np.ndarray, layout: str = "planar"):
     return out, hits
 
 
+def c2r_geometry(m: int, exact: bool = False) -> dict:
+    """The C2R kernel's block at M = L (``csrc/c2r.cu`` C2rGeometry):
+    :func:`row_geometry` at its :data:`ROW_WARPS`, and ``OFF``, where the
+    ``planar_rev`` staging starts in a row's buffers (the second buffer
+    where there are two)."""
+    g = row_geometry(m, exact, ROW_WARPS["c2r"])
+    return {**g, "OFF": g["SLOT"] if g["PP"] else 0}
+
+
+def c2r_rows(spec: np.ndarray, layout: str = "planar", scale: float = 1.0):
+    """The C2R kernel on packed half spectra ``spec`` in ``layout`` ((B, L)
+    complex, (B, L+1) for numpy), its index maps written out: thread t
+    forms Z[m] for the points m = t + s*TPF its first stage takes, in the
+    registers, from X[m] and X[L-m] (the natural layouts read both from
+    device memory; ``planar_rev`` from the staging, where the block put
+    each position p at :func:`stage_pos` (p)), with W_n^m and the scale
+    (m = 0 from (DC, Nyquist): slot 0, or the numpy layout's real parts of
+    bins 0 and L); the inverse core from the registers, natural z =
+    (y[2m], y[2m+1]).  Returns (y (B, n) = scale * L * irfft; how many
+    threads formed each point of Z; how many reads each bin of the input
+    received)."""
+    b, width = spec.shape
+    L = width - 1 if layout == "numpy" else width
+    n = 2 * L
+    g = c2r_geometry(L)
+    tpf, e, c = g["TPF"], g["E"], g["CB"]
+    w = np.exp(-2j * np.pi * np.arange(L) / n)
+    h = 0.5 * scale
+    if layout == "planar_rev" and c > 1:
+        st = np.zeros((b, stage_pos(L - 1, g) + 1), complex)
+        st[:, stage_pos(np.arange(L), g)] = spec       # coalesced by position
+        load = lambda k: st[:, stage_pos(revblock_pos(k, c), g)]
+    else:
+        load = lambda k: spec[:, k]
+    # the point of u[s] of thread t, every thread at once, and its mirror
+    m = (np.arange(tpf)[:, None] + np.arange(e)[None, :] * tpf).ravel()
+    mirror = np.where(m > 0, L - m, L if layout == "numpy" else 0)
+    xa, xb = load(m), load(mirror)
+    z = h * (xa + np.conj(xb)) + 1j * h * (xa - np.conj(xb)) * np.conj(w[m])
+    d = xa[:, 0] if layout != "numpy" else xa[:, 0].real + 1j * xb[:, 0].real
+    z[:, 0] = h * (d.real + d.imag) + 1j * h * (d.real - d.imag)  # m = 0
+    u = np.zeros((b, L), complex)
+    u[:, m] = z
+    y = core(u, tpf, inverse=True)
+    return (np.stack([y.real, y.imag], axis=-1).reshape(b, n),
+            np.bincount(m, minlength=L),
+            np.bincount(np.concatenate([m, mirror]), minlength=width))
+
+
 def _lanes(g: dict):
     """(row, t) of every thread of a row block, rows t-fastest."""
     return [(tid // g["TPF"], tid % g["TPF"]) for tid in range(g["threads"])]
@@ -492,11 +544,15 @@ def _warp_waves(g: dict, fn, elem: int, kind: str, lanes=None):
 def row_patterns(m: int, exact: bool, kernel: str = "c2c"):
     """(what, wavefronts) of every shared-memory access of one block of
     ``c2c_kernel`` (``kernel="c2c"``: the core, the revblock staging in and
-    out) or of the R2C kernel at L = m (``"r2c"``: the core, Z into the
-    buffer, the pair reads, the ``planar_rev`` staging), under
-    :func:`row_geometry` at the kernel's :data:`ROW_WARPS`; plus the stage
-    twiddle table's reads (W^k, and W^(4k) for radix 8 and 16)."""
-    g = row_geometry(m, exact, ROW_WARPS[kernel])
+    out), of the R2C kernel at L = m (``"r2c"``: the core, Z into the
+    buffer, the pair reads, the ``planar_rev`` staging) or of the C2R
+    kernel at L = m (``"c2r"``: the core from the registers, the
+    ``planar_rev`` staging by position and its reads of X[p] and X[L-p]),
+    under :func:`row_geometry` at the kernel's :data:`ROW_WARPS`
+    (:func:`c2r_geometry` for the C2R kernel); plus the stage twiddle
+    table's reads (W^k, and W^(4k) for radix 8 and 16)."""
+    g = (c2r_geometry(m, exact) if kernel == "c2r"
+         else row_geometry(m, exact, ROW_WARPS[kernel]))
     elem, tpf, e, c = g["elem"], g["TPF"], g["E"], g["CB"]
     rl = radices(m)[-1]
     out = []
@@ -540,12 +596,38 @@ def row_patterns(m: int, exact: bool, kernel: str = "c2c"):
                 out += _warp_waves(g, lambda f, t, j=j: stage_pos(
                     (f * tpf + t + j * g["threads"]) % m, g), elem,
                     "revblock by position", _stage_rows(g, j))
+    if kernel == "c2r":
+        out += _c2r_patterns(g, m)
     for r_s, p in zip(radices(m)[1:], stage_p(m)[1:]):
         for q in range(e // r_s):
             for entry in ("W^k", "W^4k")[:2 if r_s >= 8 else 1]:
                 out += [("tw " + entry, w) for _, w in _warp_waves(
                     {**g, "BUF": 0}, lambda f, t, q=q, p=p: (t + q * tpf) % p,
                     16 if exact else 8, "tw")]
+    return out
+
+
+def _c2r_patterns(g: dict, m: int):
+    """The C2R kernel's accesses besides the core's stages at L = m: the
+    ``planar_rev`` staging written by position (element e = tid +
+    j*THREADS of the block) and read at the bins each thread merges, X[p]
+    (p = t + s*TPF, ascending across a warp) and its mirror X[L-p]
+    (descending)."""
+    elem, tpf, e, c, off = g["elem"], g["TPF"], g["E"], g["CB"], g["OFF"]
+    out = []
+    if c == 1:
+        return out
+    th = g["threads"]
+    for j in range(e):
+        lanes = [((tid + j * th) // m, tid) for tid in range(th)]
+        out += _warp_waves(g, lambda f, tid, j=j: off + stage_pos(
+            (tid + j * th) % m, g), elem, "rev in: by position", lanes)
+    sp = lambda k: off + stage_pos(revblock_pos(k, c), g)
+    for s in range(e):
+        out += _warp_waves(g, lambda f, t, s=s: sp(t + s * tpf), elem,
+                           "rev in: X[p]")
+        out += _warp_waves(g, lambda f, t, s=s: sp((m - t - s * tpf) % m),
+                           elem, "rev in: X[L-p]")
     return out
 
 

@@ -149,7 +149,8 @@ def c2c_plain(xr: torch.Tensor, xi: torch.Tensor, *, inverse: bool = False,
 def device_twiddles(n: int, inverse: bool, exact: bool,
                     device: torch.device) -> torch.Tensor:
     """The kernel's W_N^m table on the device: float32, or float64 for the
-    "exact" tier."""
+    "exact" tier.  Made once per size, direction, tier and device (the
+    cache), so no launch copies a table from the host."""
     tab = P.twiddle_table(n, inverse, "float64" if exact else "float32")
     return torch.from_numpy(tab.copy()).to(device)
 

@@ -3,7 +3,7 @@ plain versions.
 
 Counterpart of ``smfft_tpu/ops/pallas_real.py`` and of the real halves of
 ``ops/pencil.py`` and ``ops/real_direct.py``.  Two hand-written CUDA kernels
-(``csrc/real.cu``) compute
+(``csrc/real.cu``, ``csrc/c2r.cu``) compute
 
     R2C: real (B, n) -> packed half spectrum (B, L), L = n/2, slot 0 =
          (DC, Nyquist);
@@ -238,7 +238,7 @@ launch_r2c.count = 0
 def launch_c2r(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
                n: int, layout: str = "planar", scale: float | None = None,
                exact: bool = False) -> torch.Tensor:
-    """Launch the C2R kernel of ``csrc/real.cu`` on the current CUDA stream.
+    """Launch the C2R kernel of ``csrc/c2r.cu`` on the current CUDA stream.
 
     The packed half spectrum in ``layout`` (``spec, spec_im`` float32
     planes (B, n/2) for the planar layouts; one complex64 tensor, (B, n/2)

@@ -1,6 +1,7 @@
 """The Hopper kernels on the card (C2C, R2C, C2R; fp32 and "exact"):
 against their plain PyTorch versions and the float64 ``torch.fft``
-oracle, plus the wrappers' input checks.
+oracle, plus the wrappers' input checks, ptxas's spill report and the
+real wrappers' launches inside a CUDA graph.
 
 Every test here needs an NVIDIA GPU and nvcc; without them each skips (the
 decision is taken inside the fixture, never at import).  On the GPU
@@ -302,6 +303,81 @@ def test_real_offsets_past_2_31_floats(dev):
     torch.cuda.synchronize()
     assert (back[-8:] - tail).abs().max().item() < bound(n)
     assert back[:8].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("n", SUPPORTED_REAL_SIZES)
+@pytest.mark.parametrize("layout", R.LAYOUTS)
+@pytest.mark.parametrize("exact", [False, True])
+def test_c2r_kernel_one_row_past_a_block(dev, n, layout, exact):
+    """The C2R kernel on a batch one row past a block (the second block
+    holds one live row), every layout and tier: against its plain version
+    and float64 torch.fft.irfft on every row, "exact" within 2 ulp; the
+    numpy layout's imaginary parts of DC and Nyquist are ignored."""
+    from smfft_tpu_torch.models import hcore as H
+    L = n // 2
+    b = H.c2r_geometry(L, exact)["F"] + 1
+    rng = np.random.default_rng(n + exact)
+    x = rng.random((b, n)) - 0.5
+    full = np.fft.rfft(x).astype(np.complex64)
+    nat = R.from_layout(torch.from_numpy(full).to(dev), None, "numpy", L)
+    src = R.to_layout(*nat, layout)
+    args = tuple(t.contiguous() for t in (src if isinstance(src, tuple)
+                                          else (src,)))
+    if layout == "numpy":
+        args[0][:, 0] += 0.5j
+        args[0][:, L] -= 0.25j
+    got = R.launch_c2r(*args, n=n, layout=layout, scale=1.0 / L,
+                       exact=exact)
+    plain = R.c2r_plain(*args, n=n, layout=layout, scale=1.0 / L,
+                        exact=exact)
+    want = torch.fft.irfft(R.to_layout(*nat, "numpy").to(torch.complex128),
+                           n)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n) and bool(torch.isfinite(got).all())
+    assert max_err(got, plain) < bound(n)
+    assert max_err(got, want) < bound(n)
+    if exact:
+        assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+def test_c2r_fp32_instantiations_do_not_spill(dev):
+    """ptxas's report of the library: every fp32 instantiation of the C2R
+    kernel at L <= 4096 spills nothing."""
+    from smfft_tpu_torch.ops import _cuda
+    _cuda.library()
+    lines = [ln for ln in _cuda.register_report()
+             if re.match(r"c2r_kernel<(\d+)> fp32", ln)
+             and int(re.match(r"c2r_kernel<(\d+)", ln)[1]) <= 4096]
+    assert len(lines) == 8, lines  # L = 32..4096
+    assert all(ln.endswith(" 0 bytes of spill stores") for ln in lines), \
+        lines
+
+
+@pytest.mark.parametrize("which", ["r2c", "c2r"])
+def test_real_launchers_replay_in_a_cuda_graph(dev, which):
+    """After one warm-up call, a launch of the R2C or C2R wrapper is
+    captured in a CUDA graph and its replay equals the eager result: the
+    wrappers make no synchronous host-to-device copy (their tables are
+    on the device once made), which capture would refuse."""
+    n = 1024
+    x = rand_r(64, n, dev, seed=5)
+    hr, hi = R.launch_r2c(x)
+    if which == "r2c":
+        def run():
+            return R.launch_r2c(x, "planar")
+    else:
+        def run():
+            return R.launch_c2r(hr, hi, n=n, scale=1.0 / (n // 2))
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out if isinstance(out, tuple) else (out,),
+                    eager if isinstance(eager, tuple) else (eager,)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,18 @@
 """The CPU model of the Hopper core (``csrc/hcore.cuh``), of the pass
 kernel's tile schedule (``csrc/fourstep.cu``), of the row kernels
-(``csrc/c2c.cu``, the R2C kernel of ``csrc/real.cu``), of the reuse
-loops (``csrc/multiple.cu``) and of the fused convolutions
-(``csrc/conv.cu``): ``models/hcore.py``.
+(``csrc/c2c.cu``, the R2C kernel of ``csrc/real.cu``, the C2R kernel of
+``csrc/c2r.cu``), of the reuse loops (``csrc/multiple.cu``) and of the
+fused convolutions (``csrc/conv.cu``): ``models/hcore.py``.
 
-What a CPU can check of the eight kernels on that core: the stage ladder
+What a CPU can check of the nine kernels on that core: the stage ladder
 and its index maps give numpy's DFT at every size the kernels
 instantiate, the Bluestein order of H and its two shortcuts (the first
 stage's zero half, the last stage's lower half) change nothing, the row
 kernels' layouts (revblock staging in and out, the R2C pair split and
-its stores) give numpy's fft / rfft and store each bin once, the reuse
+its stores) give numpy's fft / rfft and store each bin once, the C2R
+kernel's loads and merge in the registers (from device memory, or from
+the revblock staging) give ``ops.real``'s plain version and the JAX
+package's fused C2R, forming each point once, the reuse
 loops' hand-offs (natural in the registers, revblock through the
 staging) and the real round trip's in-place split and merge give
 ``ops.multiple``'s plain versions, the convolutions' products in the
@@ -18,7 +21,9 @@ shared-memory access needs the fewest wavefronts a warp can (2 for
 8-byte elements, 4 for 16-byte ones; the shared core of ``stockham.cuh``
 is counted the same way), the paddings are bijections, and the
 persistent grid covers every tile once. Tolerance: 1e-9 * M against
-complex128 numpy (the model runs in float64).
+complex128 numpy (the model runs in float64); against the JAX package,
+whose kernels run in float32, 2 tol(n) L with tol(n) = 5e-7 n^0.75 8 (as
+``tests/test_torch_real.py``).
 """
 
 import numpy as np
@@ -27,8 +32,10 @@ import torch
 
 from smfft_tpu_torch import bluestein as TB
 from smfft_tpu_torch.models import hcore as H
+from smfft_tpu_torch.ops import c2c as OC
 from smfft_tpu_torch.ops import convolve as CV
 from smfft_tpu_torch.ops import multiple as MU
+from smfft_tpu_torch.ops import real as R
 
 BLUESTEIN_M = [32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384]
 PASS_R = [16, 32, 64, 128, 256, 512, 1024, 2048]
@@ -220,36 +227,50 @@ def test_r2c_stores_every_bin_once(rng, n, layout):
 
 
 @pytest.mark.parametrize("kernel,m", [("c2c", m) for m in ROW_M]
-                         + [("r2c", n // 2) for n in REAL_N])
+                         + [("r2c", n // 2) for n in REAL_N]
+                         + [("c2r", n // 2) for n in REAL_N])
 @pytest.mark.parametrize("exact", [False, True])
 def test_row_kernel_banks(m, exact, kernel):
     """Every shared-memory access of a block at the minimum wavefronts (2
     for 8-byte elements, 4 for 16-byte): the core's stages under F rows a
     block, the revblock staging by position and by logical point, the
     last stage's Z, the split's pair reads (k ascending, L-k descending),
-    and the stage twiddle table (W^k and the anchors W^(4k))."""
-    g = H.row_geometry(m, exact, H.ROW_WARPS[kernel])
+    the C2R kernel's reads of X[p] from its revblock staging, and the
+    stage twiddle table (W^k and the anchors W^(4k)).  One access is a
+    wavefront over: the C2R kernel's reads of the mirror bins X[L-p] from
+    the staging.  A warp's bins p are an aligned run of 32, its bins L-p a
+    run one off (L - p for p = t0..t0+31), and no layout of the staging
+    serves both runs and the writes by position at the minimum (the two
+    runs differ by one bin, so its two positions would have to share their
+    banks, and then the writes of consecutive positions would not); the
+    kernel pays that wavefront rather than a second pass through shared
+    memory."""
+    g = (H.c2r_geometry(m, exact) if kernel == "c2r"
+         else H.row_geometry(m, exact, H.ROW_WARPS[kernel]))
     pats = H.row_patterns(m, exact, kernel)
     kinds = {what for what, _ in pats}
     if g["CB"] > 1:
-        assert "revblock by position" in kinds
+        assert ({"rev in: by position", "rev in: X[p]", "rev in: X[L-p]"}
+                if kernel == "c2r" else {"revblock by position"}) <= kinds
     if kernel == "r2c":
         assert {"pair read k", "pair read L-k", "Z out: last stage"} <= kinds
     for what, w in pats:
         lim = (16 if exact else 8) // 4 if what.startswith("tw") \
             else g["elem"] // 4
-        assert w <= lim, (what, w)
+        assert w <= lim + (what == "rev in: X[L-p]"), (what, w)
 
 
 @pytest.mark.parametrize("kernel,m", [("c2c", m) for m in ROW_M]
-                         + [("r2c", n // 2) for n in REAL_N])
+                         + [("r2c", n // 2) for n in REAL_N]
+                         + [("c2r", n // 2) for n in REAL_N])
 @pytest.mark.parametrize("exact", [False, True])
 def test_row_geometry(kernel, m, exact):
     """A block's rows are disjoint and fit the shared memory with the
     table; the staging is a bijection inside a slot; 256 threads up to
     M = 4096 (N = 32 / 64 pack 128 / 64 rows), one row of 512 above; two
-    buffers a row only where the blocks an SM (24 or 32 warps for fp32, 16
-    for "exact") fit with them."""
+    buffers a row only where the blocks an SM (16, 24 or 32 warps for
+    fp32, 16 for "exact") fit with them; the C2R kernel's revblock staging
+    in the second buffer where there are two."""
     g = H.row_geometry(m, exact, H.ROW_WARPS[kernel])
     assert g["threads"] == g["F"] * g["TPF"] <= 1024
     assert g["threads"] == (256 if m <= 4096 else 512)
@@ -263,6 +284,96 @@ def test_row_geometry(kernel, m, exact):
     stage = H.stage_pos(np.arange(m), g)
     assert len(np.unique(stage)) == m and stage.max() < g["SLOT"]
     assert len(np.unique(H.pad16(np.arange(m)))) == m
+    if kernel == "c2r":  # the staging: the second buffer, or the only one
+        off = H.c2r_geometry(m, exact)["OFF"]
+        assert off == (g["SLOT"] if g["PP"] else 0)
+        assert off + stage.max() < g["BUF"]
+
+
+def spectrum_in(rng, n, layout, rows=2):
+    """Seeded real rows x (rows, n) and numpy's rfft of them in one of
+    the C2R kernel's layouts, as a complex array (a planar pair joined)."""
+    x = rng.random((rows, n)) - 0.5
+    full = np.fft.rfft(x)
+    if layout == "numpy":
+        full[:, [0, -1]] += 0.25j  # the kernel ignores these
+    return x, full if layout == "numpy" else packed_rfft(x, layout)
+
+
+@pytest.mark.parametrize("n", REAL_N[:-1])
+@pytest.mark.parametrize("layout", H.REAL_LAYOUTS)
+def test_c2r_model_matches_plain(rng, n, layout):
+    """The C2R kernel's index maps (each thread's points p = t + s*TPF and
+    their mirrors L-p read from device memory or from the revblock
+    staging, merged with W_n^p and the scale in the registers, the
+    inverse core from them) give ``c2r_plain`` in float64, and at numpy's
+    scale 1/L the rows x themselves."""
+    L = n // 2
+    x, spec = spectrum_in(rng, n, layout)
+    got, _, _ = H.c2r_rows(spec, layout, 1.0 / L)
+    planes = ((torch.from_numpy(spec.real.copy()),
+               torch.from_numpy(spec.imag.copy()))
+              if layout.startswith("planar") else (torch.from_numpy(spec),))
+    want = R.c2r_plain(*planes, n=n, layout=layout, scale=1.0 / L).numpy()
+    assert np.abs(got - want).max() < 1e-9 * n
+    assert np.abs(got - x).max() < 1e-9 * n
+
+
+@pytest.mark.parametrize("n", REAL_N)
+@pytest.mark.parametrize("layout", H.REAL_LAYOUTS)
+def test_c2r_forms_every_point_once(rng, n, layout):
+    """The threads' points t + s*TPF cover the row once, so each point of
+    Z is formed once, in the registers of the thread whose first stage
+    takes it; each bin of the input is read twice (as X[p] and as the
+    mirror of L-p; bin 0 twice by its own thread), the numpy layout's DC
+    and Nyquist bins 0 and L once: the bytes a call reads from device
+    memory are the input's, the second read of a bin served by L2."""
+    _, spec = spectrum_in(rng, n, layout, rows=1)
+    _, formed, reads = H.c2r_rows(spec, layout)
+    assert formed.shape == (n // 2,) and (formed == 1).all()
+    want = np.full(spec.shape[1], 2)
+    if layout == "numpy":
+        want[[0, -1]] = 1
+    assert (reads == want).all()
+
+
+@pytest.mark.parametrize("in_natural", [True, False])
+def test_c2r_model_matches_jax(rng, in_natural):
+    """The C2R model against the JAX package's fused C2R
+    (``pallas_real.irfft_fused_planar`` in interpret mode) on the same
+    seeded spectrum, natural and revblock input, the raw contract (n/2)
+    x."""
+    import jax.numpy as jnp
+
+    import smfft_tpu.ops.pallas_c2c as PC
+    import smfft_tpu.ops.pallas_real as PR
+
+    n = 1024
+    L = n // 2
+    layout = "planar" if in_natural else "planar_rev"
+    _, spec = spectrum_in(rng, n, layout, rows=4)
+    spec = spec.astype(np.complex64)
+    PC.set_interpret(True)
+    try:
+        ref = np.asarray(PR.irfft_fused_planar(
+            jnp.asarray(spec.real), jnp.asarray(spec.imag), n,
+            in_natural=in_natural))
+    finally:
+        PC.set_interpret(False)
+    got, _, _ = H.c2r_rows(spec.astype(complex), layout)
+    assert np.abs(got - ref).max() < 2 * (5e-7 * n ** 0.75 * 8) * L
+
+
+@pytest.mark.parametrize("table", ["twiddles", "split"])
+def test_kernel_tables_are_made_once(table):
+    """The wrappers' device tables are cached per size, direction, tier
+    and device: a second call returns the same tensor, so no launch copies
+    a table from the host."""
+    dev = torch.device("cpu")
+    make = ((lambda: OC.device_twiddles(512, True, False, dev))
+            if table == "twiddles" else
+            (lambda: R.split_table(1024, False, dev)))
+    assert make() is make()
 
 
 def test_c2c_packs_rows_at_32_and_64():
