@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """GPU smoke run of smfft_tpu_torch: builds the kernels, checks them, and
-drives the C2C, real, reuse, convolution, spectral, arbitrary-length and
-huge-N main paths at the working size on one NVIDIA GPU.
+drives the C2C, real, reuse, convolution, spectral, arbitrary-length,
+huge-N and N-D / DCT main paths at the working size on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -111,9 +111,34 @@ Phases (each failure exits non-zero at once):
      beside the same-run ``copy_``, the
      plain version and ``torch.fft.fft`` / ``rfft`` / ``irfft``.  After the
      counters are read, the pair split alone at 2^27 samples.
-  Before each of the main paths 4, 5, 8, 10, 12, 14 and 16 every launch
-     counter is set to 0; right after, the counters must equal the path's calls
-     (the convolution path runs ``conv`` / ``conv_real`` and, once a
+ 17. N-D / DCT sweep: ``fftn`` / ``ifftn`` over one (a middle), two and
+     three axes, ``fft2`` / ``ifft2``, ``rfftn`` -> ``irfftn`` and ``rfft2``
+     -> ``irfft2`` on (4, 64, 256) and (2, 32, 64, 128), ``hfft`` /
+     ``ihfft`` with n = None / 256 / 1024 and three norms, ``dct`` /
+     ``idct`` / ``dst`` / ``idst`` of types 1-4 at every supported n (types
+     2, 3: 64..16384; DCT-I 33..8193; DST-I 31..8191; type 4: 16..8192) and
+     both norms, ``dctn`` / ``idstn`` over two axes; each against the same
+     call on a CPU copy (the plain versions) and float64 ``torch.fft`` /
+     ``scipy.fft`` within the summed bound(m) * max|ref| (m each pass's
+     kernel length); ``fft2(precision="exact")`` within 2 ulp(max|X|) an
+     axis.
+ 18. The N-D / DCT main path at 2^27 points or samples a call: ``fft2`` /
+     ``ifft2`` of (128, 1024, 1024) complex64 (2 c2c launches each),
+     ``fftn`` of one (8192, 16384) image (2 c2c), ``rfft2`` / ``irfft2``
+     of (128, 1024, 1024) (r2c + c2c; c2c + c2r), ``dctn`` over the last
+     two axes of it (2 r2c), ``rfftn`` of (512, 512, 512) (r2c + 2 c2c),
+     ``hfft`` / ``ihfft`` at n = 1024, 131072 rows (1 c2r / 1 r2c),
+     ``dct`` / ``idct`` / ``dst`` type 2 of (131072, 1024) (1 r2c / 1 c2r /
+     1 r2c), ``dct`` type 1 of (131072, 1025) (1 r2c at n = 2048) and type 4
+     of (16384, 8192) (1 c2c at N = 16384).  Every element against its
+     plain version on the card, the first images or rows against float64;
+     time beside a same-run ``copy_`` of the input, the bound (bytes in +
+     out over the memory rate), ``torch.fft``'s one call where there is one
+     (else the same recipe over ``torch.fft``), and, after the counters are
+     read, the sum of the path's kernels timed alone on its shapes.
+  Before each of the main paths 4, 5, 8, 10, 12, 14, 16 and 18 every launch
+     counter is set to 0; right after, the counters must equal the path's
+     calls (the convolution path runs ``conv`` / ``conv_real`` and, once a
      ``fftconvolve`` call, the R2C or C2C kernel for the taps) and no other
      kernel may have run.
 
@@ -123,6 +148,7 @@ line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -2028,6 +2054,430 @@ def real_huge_alone(card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-18: the N-D transforms and the DCT / DST (ndim.py, dct.py),
+# compositions over the C2C, R2C and C2R kernels
+# ---------------------------------------------------------------------------
+
+# the supported lengths of each DCT / DST type (the kernels' contracts)
+DCT_SIZES = {2: [1 << k for k in range(6, 15)],
+             3: [1 << k for k in range(6, 15)],
+             4: [1 << k for k in range(4, 14)]}
+DCT1_SIZES = {"dct": [(1 << k) + 1 for k in range(5, 13)],
+              "dst": [(1 << k) - 1 for k in range(5, 13)]}
+ND_SWEEP_POINTS = 1 << 16
+ND_ORACLE_IMAGES = 4
+# phase 18's shapes, each 2^27 points or samples: images (count, side),
+# one wide image, a cube's side, type 4's rows, and the rows of n = 1024
+# (hfft / ihfft, DCT / DST types 1-3)
+ND_IMAGES, ND_SIDE = 128, 1024
+ND_WIDE = (8192, 16384)
+ND_CUBE = 512
+ND_DCT4 = (16384, 8192)
+ND_ROWS = 131072
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Inside: every kernel wrapper's dispatch takes the plain PyTorch
+    version, on the card, so that a composed entry point (fft2, dct, ...)
+    computes its plain version on the same CUDA tensors and launches no
+    kernel.  The checker's reference only; the package has no such
+    switch."""
+    from smfft_tpu_torch.ops import c2c as C
+    saved = C.is_cpu
+    C.is_cpu = lambda t: True
+    try:
+        yield
+    finally:
+        C.is_cpu = saved
+
+
+@contextlib.contextmanager
+def dct_over_torch_fft():
+    """Inside: smfft_tpu_torch.dct runs its recipes (Makhoul's reorder,
+    the symmetric extensions, the eighth-wave twiddles) over torch.fft's
+    rfft / irfft / fft: the composition a DCT row is timed against (no
+    single PyTorch call computes a DCT)."""
+    import importlib
+    import types
+    from smfft_tpu_torch import api
+    TD = importlib.import_module("smfft_tpu_torch.dct")
+    shim = types.SimpleNamespace(
+        _as_real=api._as_real,
+        rfft=lambda v, backend=None, precision=None: torch.fft.rfft(v),
+        irfft=lambda s, n, backend=None, precision=None, norm=None:
+            torch.fft.irfft(s, n=n, norm=norm),
+        fft=lambda a, backend=None, precision=None: torch.fft.fft(a))
+    saved = TD.api
+    TD.api = shim
+    try:
+        yield
+    finally:
+        TD.api = saved
+
+
+def dct_length(name: str, t: int, n: int) -> int:
+    """The length of the kernel a DCT / DST of type t and size n runs."""
+    if t == 1:
+        return 2 * (n - 1) if name.lstrip("i").startswith("dct") \
+            else 2 * (n + 1)
+    return 2 * n if t == 4 else n
+
+
+def rel_check(got, want, lim: float, what: str) -> float:
+    """max |got - want| / max |want| within lim; returns it."""
+    err = max_err(got, want) / want.abs().max().item()
+    if not err <= lim:
+        fail(f"{what}: relative error {err:.3e} over {lim:.3e}")
+    return err
+
+
+def phase_ndim_sweep():
+    """fftn / ifftn over one, two and three axes (a middle axis among
+    them), rfft2 -> irfft2 and rfftn -> irfftn, hfft / ihfft with n and
+    three norms, every DCT / DST type at every supported n and both norms,
+    dctn / idstn over two axes; each against the same call on a CPU copy
+    (the plain versions) and a float64 oracle on the CPU (torch.fft,
+    scipy.fft), within the summed bound(m) * max|ref|; fft2 "exact"
+    within 2 ulp(max|X|) an axis.  Returns the worst relative error
+    against the plain versions."""
+    import scipy.fft
+    import smfft_tpu_torch as T
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    worst, count = 0.0, 0
+
+    def both(what, fn, x, oracle, lim):
+        nonlocal worst, count
+        got = fn(x)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                                   else got).all()):
+            fail(f"{what}: non-finite output")
+        plain = fn(x.cpu())
+        if got.shape != plain.shape or got.dtype != plain.dtype:
+            fail(f"{what}: {tuple(got.shape)} {got.dtype} against the plain "
+                 f"version's {tuple(plain.shape)} {plain.dtype}")
+        worst = max(worst, rel_check(got.cpu(), plain, lim, what + " vs plain"))
+        rel_check(got.cpu(), oracle(x.cpu()), lim, what + " vs float64")
+        count += 1
+        return got
+
+    c3 = rand_complex(32 * 64, 128, gen).reshape(32, 64, 128)
+    c64 = lambda a: a.to(torch.complex128)  # noqa: E731
+    for axes, lim in ((1, bound(64)), ((-2, -1), bound(64) + bound(128)),
+                      (None, bound(32) + bound(64) + bound(128))):
+        both(f"fftn axes={axes}", lambda a: T.fftn(a, axes=axes), c3,
+             lambda a: torch.fft.fftn(c64(a), dim=axes), lim)
+        both(f"ifftn axes={axes}", lambda a: T.ifftn(a, axes=axes), c3,
+             lambda a: torch.fft.ifftn(c64(a), dim=axes), lim)
+    both("fft2", T.fft2, c3, lambda a: torch.fft.fft2(c64(a)),
+         bound(64) + bound(128))
+    both("ifft2 norm=None", lambda a: T.ifft2(a, norm=None), c3,
+         lambda a: torch.fft.ifft2(c64(a)) * (64 * 128),
+         bound(64) + bound(128))
+    # "exact": 2 ulp(max|X|) a pass
+    got = T.fft2(c3, precision="exact").cpu()
+    want = torch.fft.fft2(c64(c3.cpu()))
+    e = max_err(got, want) / ulp(want.abs().max().item())
+    print(f"  fft2 exact: {e:.2f} ulp(max|X|) from float64 (limit 4)")
+    if not e <= 4:
+        fail(f"fft2 exact: {e:.2f} ulp(max|X|), over 2 a pass")
+    del c3
+
+    for shape, axes in (((4, 64, 256), (-2, -1)),
+                        ((2, 32, 64, 128), (1, 2, 3))):
+        x = torch.rand(shape, generator=gen, device="cuda") - 0.5
+        lim = sum(bound(shape[a]) for a in axes)
+        spec = both(f"rfftn {shape} axes={axes}",
+                    lambda a: T.rfftn(a, axes=axes), x,
+                    lambda a: torch.fft.rfftn(a.double(), dim=axes), lim)
+        both(f"rfft2 {shape} axes={axes[-2:]}",
+             lambda a: T.rfft2(a, axes=axes[-2:]), x,
+             lambda a: torch.fft.rfft2(a.double(), dim=axes[-2:]),
+             sum(bound(shape[a]) for a in axes[-2:]))
+        back = both(f"irfftn {shape} axes={axes}",
+                    lambda a: T.irfftn(a, axes=axes), spec,
+                    lambda a: torch.fft.irfftn(c64(a), dim=axes,
+                                               s=[shape[k] for k in axes]),
+                    lim)
+        rel_check(back, x, 2 * lim, f"rfftn -> irfftn {shape} round trip")
+        both(f"irfft2 {shape}",
+             lambda a: T.irfft2(a, axes=axes[-2:]),
+             T.rfft2(x, axes=axes[-2:]),
+             lambda a: torch.fft.irfft2(c64(a), dim=axes[-2:]),
+             sum(bound(shape[a]) for a in axes[-2:]))
+        del x, spec, back
+    h = rand_complex(64, 257, gen)
+    xr = torch.rand((64, 512), generator=gen, device="cuda") - 0.5
+    for n in (None, 256, 1024):
+        for norm in (None, "ortho", "forward"):
+            m = n or 512
+            both(f"hfft n={n} norm={norm}",
+                 lambda a: T.hfft(a, n=n, norm=norm), h,
+                 lambda a: torch.fft.hfft(c64(a), n=n, norm=norm), bound(m))
+            both(f"ihfft n={n} norm={norm}",
+                 lambda a: T.ihfft(a, n=n, norm=norm), xr,
+                 lambda a: torch.fft.ihfft(a.double(), n=n, norm=norm),
+                 bound(m))
+    del h, xr
+
+    def scipy_oracle(name, **kw):
+        return lambda a: torch.from_numpy(getattr(scipy.fft, name)(
+            a.double().numpy(), **kw))
+
+    for name in ("dct", "idct", "dst", "idst"):
+        family = name.lstrip("i")
+        for t in (1, 2, 3, 4):
+            sizes = DCT1_SIZES[family] if t == 1 else DCT_SIZES[t]
+            for n in sizes:
+                rows = max(4, ND_SWEEP_POINTS // n // 4 * 4)
+                x = torch.rand((rows, n), generator=gen, device="cuda") - 0.5
+                for norm in (None, "ortho"):
+                    fn = getattr(T, name)
+                    both(f"{name} type {t} n={n} norm={norm}",
+                         lambda a: fn(a, type=t, norm=norm), x,
+                         scipy_oracle(name, type=t, norm=norm),
+                         bound(dct_length(name, t, n)))
+                del x
+    x = torch.rand((4, 64, 256), generator=gen, device="cuda") - 0.5
+    for name in ("dctn", "idstn"):
+        for norm in (None, "ortho"):
+            fn = getattr(T, name)
+            both(f"{name} axes=(-2, -1) norm={norm}",
+                 lambda a: fn(a, axes=(-2, -1), norm=norm), x,
+                 scipy_oracle(name, axes=(-2, -1), norm=norm),
+                 bound(64) + bound(256))
+    del x
+    torch.cuda.empty_cache()
+    print(f"ndim / DCT sweep: {count} calls, worst relative error against "
+          f"the plain versions {worst:.3e}")
+    return worst
+
+
+def phase_main_ndim(card: str):
+    """The N-D / DCT main path at 2^27 points or samples a call (the table
+    below): each call once checked (every element against its plain
+    version on the card, the first images or rows against a float64
+    oracle) and timed (median of REPS_CONV CUDA-event runs) beside a
+    same-run copy_ of its input, the bound (bytes in + out over the
+    card's memory rate), torch.fft's call where one computes the same
+    function, else the same recipe over torch.fft ("none").  Returns
+    (rows, expected launches, {kernel shapes to time alone}, worst
+    relative error against the plain versions)."""
+    import importlib
+    import scipy.fft
+    import smfft_tpu_torch as T
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    expected = {"c2c": 0, "r2c": 0, "c2r": 0}
+    rows, worst = [], 0.0
+    TD = importlib.import_module("smfft_tpu_torch.dct")
+
+    def counted(fn, per_call):
+        def run():
+            for k, v in per_call.items():
+                expected[k] += v
+            return fn()
+        return run
+
+    def path(what, fn, per_call, x, nbytes, kernels, oracle, head, lim,
+             library=None, library_name="none", composition=None):
+        nonlocal worst
+        run = counted(fn, per_call)
+        y = run()
+        torch.cuda.synchronize()
+        with plain_on_card():
+            plain = fn()
+        err = check_all(y, plain, 0, what, lim=lim * plain.abs().max().item())
+        worst = max(worst, err / plain.abs().max().item())
+        del plain
+        want = oracle(head(x))
+        e64 = max_err(head(y).cpu() if want.device.type == "cpu"
+                      else head(y), want) / want.abs().max().item()
+        print(f"  {what}: the oracle's part vs float64 {e64:.3e} relative "
+              f"(limit {lim:.3e})")
+        if not e64 <= lim:
+            fail(f"{what}: error against float64 over the bound")
+        del y, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(run, reps=REPS_CONV)
+        dst = torch.empty_like(x)
+        ms_copy = cuda_ms(lambda: dst.copy_(x), reps=REPS_CONV)
+        del dst
+        ms_lib = cuda_ms(library, reps=REPS_CONV) if library else None
+        if composition is not None:
+            with dct_over_torch_fft():
+                ms_comp = cuda_ms(composition, reps=REPS_CONV)
+        else:
+            ms_comp = None
+        torch.cuda.empty_cache()
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        row = {"what": what, "shape": list(x.shape), "ms": ms,
+               "copy_ms": ms_copy, "bound_ms": bound_ms, "bound_by": "bytes",
+               "library": library_name, "library_ms": ms_lib,
+               "composition_ms": ms_comp, "launches": per_call,
+               "kernels": kernels}
+        rows.append(row)
+        ref = ms_lib if ms_lib is not None else ms_comp
+        print(f"{what} ({card}): {ms:.4f} ms | copy_ of the input "
+              f"{ms_copy:.4f} ms | bound {bound_ms:.4f} ms, at "
+              f"{bound_ms / ms:.3f} | {library_name} "
+              + (f"{ms_lib:.4f} ms" if ms_lib is not None else
+                 f"(composition over torch.fft {ms_comp:.4f} ms)")
+              + f" | {ms / ref:.2f}x")
+
+    c64 = lambda a: a.to(torch.complex128)  # noqa: E731
+    first = lambda a: a[:ND_ORACLE_IMAGES]  # noqa: E731
+    rows64 = lambda a: a[:ORACLE_ROWS]  # noqa: E731
+
+    def sp(name, **kw):
+        return lambda a: torch.from_numpy(getattr(scipy.fft, name)(
+            a.cpu().double().numpy(), **kw))
+
+    # images: C2C passes over rows of ND_SIDE, real ones over half spectra
+    b3, n2 = ND_IMAGES, ND_SIDE
+    pts = b3 * n2 * n2
+    bins = b3 * n2 * (n2 // 2 + 1)
+    lim = 2 * bound(n2)
+    x = rand_complex(b3 * n2, n2, gen).reshape(b3, n2, n2)
+    for name, inverse in (("fft2", False), ("ifft2", True)):
+        path(f"{name} {tuple(x.shape)} complex64",
+             lambda: getattr(T, name)(x), {"c2c": 2}, x, 16.0 * pts,
+             [("c2c", b3 * n2, n2, inverse)] * 2,
+             lambda a: getattr(torch.fft, name)(c64(a)), first, lim,
+             lambda: getattr(torch.fft, name)(x), f"torch.fft.{name}")
+    del x
+    torch.cuda.empty_cache()
+    x = rand_complex(*ND_WIDE, gen)
+    path(f"fftn {ND_WIDE} complex64, one image", lambda: T.fftn(x),
+         {"c2c": 2}, x, 16.0 * x.numel(),
+         [("c2c", ND_WIDE[0], ND_WIDE[1], False),
+          ("c2c", ND_WIDE[1], ND_WIDE[0], False)],
+         lambda a: torch.fft.fftn(c64(a)), lambda a: a,
+         bound(ND_WIDE[0]) + bound(ND_WIDE[1]), lambda: torch.fft.fftn(x),
+         "torch.fft.fftn")
+    del x
+    torch.cuda.empty_cache()
+
+    x = (torch.rand((b3 * n2, n2), generator=gen, device="cuda")
+         - 0.5).reshape(b3, n2, n2)
+    half_bytes = 4.0 * pts + 8.0 * bins
+    path(f"rfft2 {tuple(x.shape)} float32", lambda: T.rfft2(x),
+         {"r2c": 1, "c2c": 1}, x, half_bytes,
+         [("r2c", b3 * n2, n2, None), ("c2c", b3 * (n2 // 2 + 1), n2, False)],
+         lambda a: torch.fft.rfft2(a.double()), first, lim,
+         lambda: torch.fft.rfft2(x), "torch.fft.rfft2")
+    spec = T.rfft2(x)
+    expected["r2c"] += 1
+    expected["c2c"] += 1
+    path(f"irfft2 {tuple(spec.shape)} complex64", lambda: T.irfft2(spec),
+         {"c2c": 1, "c2r": 1}, spec, half_bytes,
+         [("c2c", b3 * (n2 // 2 + 1), n2, True), ("c2r", b3 * n2, n2, None)],
+         lambda a: torch.fft.irfft2(c64(a)), first, lim,
+         lambda: torch.fft.irfft2(spec), "torch.fft.irfft2")
+    del spec
+    path(f"dctn type 2 axes (-2, -1) {tuple(x.shape)} float32",
+         lambda: T.dctn(x, axes=(-2, -1)), {"r2c": 2}, x, 8.0 * pts,
+         [("r2c", b3 * n2, n2, None)] * 2,
+         sp("dctn", axes=(-2, -1)), first, lim,
+         composition=lambda: TD.dctn(x, axes=(-2, -1)))
+    del x
+    torch.cuda.empty_cache()
+
+    nv = ND_CUBE
+    x = (torch.rand((nv * nv, nv), generator=gen, device="cuda")
+         - 0.5).reshape(nv, nv, nv)
+    cube_bins = nv * nv * (nv // 2 + 1)
+    path(f"rfftn {tuple(x.shape)} float32", lambda: T.rfftn(x),
+         {"r2c": 1, "c2c": 2}, x, 4.0 * x.numel() + 8.0 * cube_bins,
+         [("r2c", nv * nv, nv, None)]
+         + [("c2c", nv * (nv // 2 + 1), nv, False)] * 2,
+         lambda a: torch.fft.rfftn(a.double()), lambda a: a,
+         3 * bound(nv), lambda: torch.fft.rfftn(x), "torch.fft.rfftn")
+    del x
+    torch.cuda.empty_cache()
+
+    # rows of n = 1024 real samples (hfft / ihfft, DCT / DST types 2, 3)
+    n = 1024
+    b = ND_ROWS
+    lim = bound(n)
+    row_bytes = 4.0 * b * n + 8.0 * b * (n // 2 + 1)
+    h = rand_complex(b, n // 2 + 1, gen)
+    path(f"hfft n={n}, {b} rows", lambda: T.hfft(h), {"c2r": 1}, h,
+         row_bytes, [("c2r", b, n, None)], lambda a: torch.fft.hfft(c64(a)),
+         rows64, lim, lambda: torch.fft.hfft(h), "torch.fft.hfft")
+    del h
+    x = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+    path(f"ihfft n={n}, {b} rows", lambda: T.ihfft(x), {"r2c": 1}, x,
+         row_bytes, [("r2c", b, n, None)],
+         lambda a: torch.fft.ihfft(a.double()), rows64, lim,
+         lambda: torch.fft.ihfft(x), "torch.fft.ihfft")
+    for name, t, kernel in (("dct", 2, "r2c"), ("idct", 2, "c2r"),
+                            ("dst", 2, "r2c")):
+        path(f"{name} type {t} {tuple(x.shape)} float32",
+             lambda: getattr(T, name)(x, type=t), {kernel: 1}, x,
+             8.0 * x.numel(), [(kernel, b, n, None)], sp(name, type=t),
+             rows64, lim, composition=lambda: getattr(TD, name)(x, type=t))
+    del x
+    torch.cuda.empty_cache()
+    x = torch.rand((b, n + 1), generator=gen, device="cuda") - 0.5
+    path(f"dct type 1 {tuple(x.shape)} float32", lambda: T.dct(x, type=1),
+         {"r2c": 1}, x, 8.0 * x.numel(), [("r2c", b, 2 * n, None)],
+         sp("dct", type=1), rows64, bound(2 * n),
+         composition=lambda: TD.dct(x, type=1))
+    del x
+    torch.cuda.empty_cache()
+    x = torch.rand(ND_DCT4, generator=gen, device="cuda") - 0.5
+    m4 = 2 * ND_DCT4[1]
+    path(f"dct type 4 {ND_DCT4} float32", lambda: T.dct(x, type=4),
+         {"c2c": 1}, x, 8.0 * x.numel(), [("c2c", ND_DCT4[0], m4, False)],
+         sp("dct", type=4), rows64, bound(m4),
+         composition=lambda: TD.dct(x, type=4))
+    del x
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return rows, expected, worst
+
+
+def kernels_alone(rows: list) -> None:
+    """Each composed row's kernels timed alone on the shapes the path
+    gives them (one launch through the wrapper a CUDA-event window, median
+    of REPS_CONV, each distinct shape once), summed into the row as
+    kernels_ms; ms - kernels_ms is what the torch copies around them
+    (transposes, flips, twiddle products) cost.  Runs after the path's
+    counters are read."""
+    from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import real as R
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    alone = {}
+    for row in rows:
+        total = 0.0
+        for kernel, b, n, inverse in row["kernels"]:
+            key = (kernel, b, n, inverse)
+            if key not in alone:
+                if kernel == "c2c":
+                    z = rand_complex(b, n, gen)
+                    alone[key] = cuda_ms(lambda: C.launch(
+                        z, inverse=inverse, scale=1.0 / n if inverse
+                        else None), reps=REPS_CONV)
+                elif kernel == "r2c":
+                    z = torch.rand((b, n), generator=gen, device="cuda")
+                    alone[key] = cuda_ms(lambda: R.launch_r2c(z, "numpy"),
+                                         reps=REPS_CONV)
+                else:
+                    z = rand_complex(b, n // 2 + 1, gen)
+                    alone[key] = cuda_ms(lambda: R.launch_c2r(
+                        z, n=n, layout="numpy", scale=2.0 / n),
+                        reps=REPS_CONV)
+                del z
+                torch.cuda.empty_cache()
+            total += alone[key]
+        row["kernels_ms"] = total
+        row["kernels"] = [list(k) for k in row["kernels"]]
+        print(f"  {row['what']}: kernels alone {total:.4f} ms of "
+              f"{row['ms']:.4f}; the torch copies around them "
+              f"{row['ms'] - total:.4f} ms")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)")
@@ -2087,6 +2537,13 @@ def main() -> int:
     huge_rows, huge_calls, worst_huge_main = phase_main_huge(card)
     huge_counts = check_counts("huge-N", huge_calls)
     split_row = real_huge_alone(card)
+    worst_nd = phase_ndim_sweep()
+    reset_counts()
+    nd_rows, nd_calls, worst_nd_main = phase_main_ndim(card)
+    nd_counts = check_counts("ndim / DCT", nd_calls)
+    kernels_alone(nd_rows)
+    print(f"ndim / DCT: worst relative error against the plain versions "
+          f"{max(worst_nd, worst_nd_main):.3e}")
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2100,7 +2557,10 @@ def main() -> int:
           "2^27 points or samples: c2c = fft vs torch.fft.fft, r2c = "
           "planar.rfft vs torch.fft.rfft, c2r = planar.irfft vs "
           "torch.fft.irfft; c2r's kernel_ms is the kernel alone (ten "
-          "launches of smfft_c2r between two events) on the same shape")
+          "launches of smfft_c2r between two events) on the same shape; "
+          "ndim_launches counts the c2c / r2c / c2r launches of the ndim / "
+          "DCT main path (phase 18)")
+    print("main path rows: " + json.dumps({"card": card, "ndim": nd_rows}))
     kernels = [
         {"name": "c2c", "route": "cuda",
          "source": "smfft_tpu_torch/csrc/c2c.cu",
@@ -2109,7 +2569,8 @@ def main() -> int:
          "max_abs_err": max(worst_c2c, worst_main),
          "ms": main_row["fft_ms"], "plain_ms": main_row["plain_ms"],
          "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-         "library_ms": main_row["torch_fft_ms"]},
+         "library_ms": main_row["torch_fft_ms"],
+         "ndim_launches": nd_counts["c2c"]},
         {"name": "r2c", "route": "cuda",
          "source": "smfft_tpu_torch/csrc/real.cu",
          "replaces": "smfft_tpu/ops/pallas_real.py:270",
@@ -2118,7 +2579,8 @@ def main() -> int:
          "ms": real_row["planar_rfft_ms"],
          "plain_ms": real_row["plain_r2c_ms"],
          "bound_ms": real_row["bound_ms"], "bound_by": real_row["bound_by"],
-         "library_ms": real_row["torch_rfft_ms"]},
+         "library_ms": real_row["torch_rfft_ms"],
+         "ndim_launches": nd_counts["r2c"]},
         {"name": "c2r", "route": "cuda",
          "source": "smfft_tpu_torch/csrc/c2r.cu",
          "replaces": "smfft_tpu/ops/pallas_real.py:544",
@@ -2127,7 +2589,8 @@ def main() -> int:
          "ms": real_row["planar_irfft_ms"], "kernel_ms": c2r_kernel_ms,
          "plain_ms": real_row["plain_c2r_ms"],
          "bound_ms": real_row["bound_ms"], "bound_by": real_row["bound_by"],
-         "library_ms": real_row["torch_irfft_ms"]},
+         "library_ms": real_row["torch_irfft_ms"],
+         "ndim_launches": nd_counts["c2r"]},
     ]
     mult = {r["form"]: r for r in reuse_rows if r["n"] == 1024}
     conv = {r["what"]: r for r in conv_rows if r["n"] == 1024}

@@ -5,7 +5,7 @@ The port of ``smfft_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports no JAX: the JAX package stays beside it as the reference the
 port is tested against.
 
-Five slices so far:
+Six slices so far:
 
   * batched fp32 power-of-two C2C transforms, N = 32..16384, forward and
     inverse, natural or revblock order: :func:`fft`, :func:`ifft`,
@@ -38,7 +38,15 @@ Five slices so far:
     :func:`rfft_large` / :func:`irfft_large` (real to 2^29), and the same
     four in :mod:`smfft_tpu_torch.planar`, as passes of one four-step
     kernel (``csrc/fourstep.cu``) and a Hermitian split / merge kernel
-    (``csrc/real_huge.cu``).
+    (``csrc/real_huge.cu``);
+  * N-D transforms and the DCT / DST, composed over the row kernels:
+    :func:`fftn` / :func:`ifftn` / :func:`fft2` / :func:`ifft2`,
+    :func:`rfft2` / :func:`irfft2` / :func:`rfftn` / :func:`irfftn`,
+    :func:`hfft` / :func:`ihfft`, :func:`fftshift` / :func:`ifftshift`,
+    :func:`fftfreq` / :func:`rfftfreq` (:mod:`smfft_tpu_torch.ndim`), and
+    :func:`dct` / :func:`idct` / :func:`dst` / :func:`idst` of types 1-4
+    with :func:`dctn` / :func:`idctn` / :func:`dstn` / :func:`idstn`
+    (:mod:`smfft_tpu_torch.dct`).
 
 A CUDA tensor runs the kernels (built with nvcc at first use); a CPU
 tensor runs their plain PyTorch versions.  ``precision="exact"`` runs the
@@ -52,6 +60,11 @@ from smfft_tpu_torch.api import (convolve, convolve_real, fft, fft_large,
                                  rfft_large)
 from smfft_tpu_torch.bluestein import (czt, fft_any, ifft_any, irfft_any,
                                        rfft_any, zoom_fft)
+from smfft_tpu_torch.dct import (dct, dctn, dst, dstn, idct, idctn, idst,
+                                 idstn)
+from smfft_tpu_torch.ndim import (fft2, fftfreq, fftn, fftshift, hfft,
+                                  ifft2, ifftn, ifftshift, ihfft, irfft2,
+                                  irfftn, rfft2, rfftfreq, rfftn)
 from smfft_tpu_torch.params import (FFTParams, SUPPORTED_C2C_SIZES,
                                     SUPPORTED_REAL_SIZES, plan_for)
 from smfft_tpu_torch.signal import (envelope, fftconvolve, fftcorrelate,
@@ -68,22 +81,41 @@ __all__ = [
     "convolve",
     "convolve_real",
     "czt",
+    "dct",
+    "dctn",
+    "dst",
+    "dstn",
     "envelope",
     "fft",
+    "fft2",
     "fft_any",
     "fft_large",
     "fft_packed_real",
     "fftconvolve",
     "fftcorrelate",
+    "fftfreq",
+    "fftn",
+    "fftshift",
     "get_window",
+    "hfft",
     "hilbert",
+    "idct",
+    "idctn",
+    "idst",
+    "idstn",
     "ifft",
+    "ifft2",
     "ifft_any",
     "ifft_large",
     "ifft_unordered",
+    "ifftn",
+    "ifftshift",
+    "ihfft",
     "irfft",
+    "irfft2",
     "irfft_any",
     "irfft_large",
+    "irfftn",
     "istft",
     "oaconvolve",
     "periodogram",
@@ -92,8 +124,11 @@ __all__ = [
     "power_spectrum",
     "resample",
     "rfft",
+    "rfft2",
     "rfft_any",
     "rfft_large",
+    "rfftfreq",
+    "rfftn",
     "spectrogram",
     "stft",
     "welch",

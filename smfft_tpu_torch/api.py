@@ -132,6 +132,16 @@ def _as_complex(x: torch.Tensor) -> torch.Tensor:
     return x if x.is_complex() else x.to(torch.complex64)
 
 
+def _as_real(x: torch.Tensor) -> torch.Tensor:
+    """A real input to a real transform as float32, as the JAX package
+    promotes it: integer, bool, float16 and bfloat16 tensors.  float32 and
+    (on the CPU) float64 pass unchanged, and so does a complex tensor,
+    which the transform rejects itself."""
+    if x.is_complex() or x.dtype in (torch.float32, torch.float64):
+        return x
+    return x.to(torch.float32)
+
+
 def _exact(precision: str | None) -> bool:
     """Resolve the tier; True when it runs the "exact" instantiation."""
     return _resolve_precision(precision) == "exact"
@@ -319,7 +329,9 @@ def rfft(x: torch.Tensor, backend: Backend = "auto",
     """Batched R2C FFT: real (..., N) -> complex (..., N/2+1), numpy
     layout.  N in ``SUPPORTED_REAL_SIZES``; at N = 64 / 128 the batch must
     be a multiple of 4 / 2 (the JAX package's rule).  The CUDA kernel
-    takes float32; CPU tensors may also be float64.  Differentiable."""
+    takes float32; CPU tensors may also be float64; integer, bool and
+    half-precision tensors are promoted to float32.  Differentiable."""
+    x = _as_real(x)
     R.check_size(x.shape[-1])
     exact = _exact(precision)
     _check_backend(backend)
@@ -331,6 +343,7 @@ def fft_packed_real(x: torch.Tensor, backend: Backend = "auto",
     """R2C in the reference's packed layout: (..., N/2) complex with
     out[..., 0] = DC + 1j*Nyquist (FFT-GPU-32bit-Stockham.cu:332-340).
     Not differentiable."""
+    x = _as_real(x)
     R.check_size(x.shape[-1])
     exact = _exact(precision)
     _check_backend(backend)
@@ -493,6 +506,7 @@ def convolve_real(x: torch.Tensor, h: torch.Tensor,
 
     Differentiable in both ``x`` and ``h``.
     """
+    x = _as_real(x)
     n = x.shape[-1]
     if n not in SUPPORTED_REAL_SIZES or n < 256:
         raise ValueError(
@@ -621,6 +635,7 @@ def rfft_large(x: torch.Tensor, backend: Backend = "auto",
     (..., N/2+1), or with ``packed`` the reference's (..., N/2) with
     out[..., 0] = DC + 1j*Nyquist.  Sizes <= 16384 route to :func:`rfft` /
     :func:`fft_packed_real`.  The numpy layout is differentiable."""
+    x = _as_real(x)
     n = x.shape[-1]
     if n in SUPPORTED_REAL_SIZES:
         if packed:

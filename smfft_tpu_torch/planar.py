@@ -198,6 +198,7 @@ def rfft_large(x: torch.Tensor, precision: str | None = None):
     """Planar huge-N R2C (N = 2**15..2**29): real (..., N) -> packed planar
     half-spectrum pair (..., N/2), slot 0 = (DC, Nyquist); unnormalized.
     Sizes 256..16384 route to :func:`rfft`."""
+    x = api._as_real(x)
     n = x.shape[-1]
     if n in SUPPORTED_REAL_SIZES and n >= 256:
         return rfft(x, precision=precision)

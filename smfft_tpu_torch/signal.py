@@ -96,6 +96,8 @@ def fftconvolve(x: torch.Tensor, h: torch.Tensor, mode: str = "full",
     frames = -(-full_len // hop)
 
     real = not x.is_complex() and not h.is_complex()
+    if real:
+        x = api._as_real(x)
     # overlap-save: frame f covers padded positions [f*hop, f*hop + n);
     # left-pad K-1 (the linear convolution's warm-up), right-pad to the
     # frame grid

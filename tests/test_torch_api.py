@@ -498,3 +498,41 @@ def test_real_input_promoted(rng, entry):
     want = np.asarray(ref(jnp.asarray(x), backend=be))
     n = 256 if entry == "irfft" else width
     assert max_abs_err(got.numpy(), want) < 2 * tol(n)
+
+
+# Integer, bool and half-precision inputs to the real entry points: the
+# port promotes them to float32, as the JAX package does (backend="xla"),
+# and the result's dtype is the float32 input's.
+PROMOTED_DTYPES = (np.int32, np.int64, np.bool_, np.float16)
+_H256 = np.fft.rfft(np.hanning(256)).astype(np.complex64)
+_TAPS = np.hanning(33).astype(np.float32)
+REAL_ENTRY_CASES = {
+    "rfft": (T.rfft, smfft_tpu.rfft, (4, 256), ()),
+    "fft_packed_real": (T.fft_packed_real, smfft_tpu.fft_packed_real,
+                        (4, 256), ()),
+    "convolve_real": (T.convolve_real, smfft_tpu.convolve_real, (4, 256),
+                      (_H256,)),
+    "rfft_large": (T.rfft_large, smfft_tpu.rfft_large, (2, 1 << 15), ()),
+    "fftconvolve": (T.fftconvolve, smfft_tpu.fftconvolve, (2, 3000),
+                    (_TAPS,)),
+}
+
+
+@pytest.mark.parametrize("dtype", PROMOTED_DTYPES)
+@pytest.mark.parametrize("entry", list(REAL_ENTRY_CASES))
+def test_real_entry_promotes_like_jax(entry, dtype):
+    """C.4: rfft, fft_packed_real, convolve_real, rfft_large and the
+    real path of fftconvolve take int32 / int64 / bool / float16 rows and
+    return what the JAX package returns within 1e-4 * max|ref|."""
+    port, ref, shape, extra = REAL_ENTRY_CASES[entry]
+    rng = np.random.default_rng(11)
+    x = (rng.random(shape) * 20 - 10).astype(dtype)
+    got = port(torch.from_numpy(x), *map(torch.from_numpy, extra))
+    want = np.asarray(ref(jnp.asarray(x), *map(jnp.asarray, extra),
+                          backend="xla"))
+    f32 = port(torch.from_numpy(x.astype(np.float32)),
+               *map(torch.from_numpy, extra))
+    assert got.dtype == f32.dtype and str(got.dtype)[6:] == str(want.dtype)
+    assert torch.equal(got, f32)
+    assert max_abs_err(got.numpy(), want) <= 1e-4 * np.abs(want).max()
+

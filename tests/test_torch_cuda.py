@@ -1150,3 +1150,142 @@ def test_r2c_layouts_agree_bit_for_bit(dev, n):
             nat = (pr, pi)
         else:
             assert torch.equal(pr, nat[0]) and torch.equal(pi, nat[1])
+
+
+# ---------------------------------------------------------------------------
+# N-D transforms and the DCT / DST (ndim.py, dct.py): compositions over the
+# C2C, R2C and C2R kernels, and the real entry points' input promotion
+# ---------------------------------------------------------------------------
+
+
+def all_counts():
+    """Every kernel wrapper's launch count."""
+    return {"c2c": C.launch.count, "r2c": R.launch_r2c.count,
+            "c2r": R.launch_c2r.count,
+            "c2c_multiple": M.launch_multiple.count,
+            "real_multiple": M.launch_real_multiple.count,
+            "conv": CV.launch_conv.count,
+            "conv_real": CV.launch_conv_real.count,
+            "power": SP.launch_power.count,
+            "bluestein": CH.launch_bluestein.count,
+            "fourstep_pass": FF.launch_pass.count,
+            "real_huge": RFU.launch_real_huge.count}
+
+
+def launches_of(fn):
+    """fn()'s output and the kernels it launched, {name: launches}."""
+    before = all_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = all_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def rel_err(got, want):
+    return max_err(got, want) / want.abs().max().item()
+
+
+def test_fft2_on_card_runs_two_c2c_launches(dev):
+    """fft2 / ifft2 of (5, 64, 128): one c2c launch an axis and no other
+    kernel; every element against the plain versions (the same call on
+    the CPU copy) and float64 torch.fft within the summed bound."""
+    x = rand_c(5 * 64, 128, dev, seed=21).reshape(5, 64, 128)
+    lim = bound(64) + bound(128)
+    for fn, oracle_fn in ((T.fft2, torch.fft.fft2),
+                          (T.ifft2, torch.fft.ifft2)):
+        y, ran = launches_of(lambda: fn(x))
+        assert ran == {"c2c": 2}
+        assert rel_err(y, fn(x.cpu()).to(dev)) <= lim
+        assert rel_err(y, oracle_fn(x.to(torch.complex128))) <= lim
+
+
+def test_rfft2_irfft2_on_card(dev):
+    """rfft2: one r2c launch and one c2c; irfft2: one c2c and one c2r
+    (6 images: the 64-point C2C axis packs 2 transforms a row)."""
+    x = rand_r(6 * 64, 256, dev, seed=22).reshape(6, 64, 256)
+    lim = bound(64) + bound(256)
+    spec, ran = launches_of(lambda: T.rfft2(x))
+    assert ran == {"r2c": 1, "c2c": 1}
+    assert rel_err(spec, T.rfft2(x.cpu()).to(dev)) <= lim
+    assert rel_err(spec, torch.fft.rfft2(x.double())) <= lim
+    back, ran = launches_of(lambda: T.irfft2(spec))
+    assert ran == {"c2c": 1, "c2r": 1}
+    assert rel_err(back, T.irfft2(spec.cpu()).to(dev)) <= lim
+    assert rel_err(back, x) <= 2 * lim
+
+
+@pytest.mark.parametrize("norm", [None, "ortho", "forward"])
+def test_hfft_ihfft_on_card(dev, norm):
+    """hfft: one c2r launch; ihfft: one r2c launch (37 rows)."""
+    h = rand_c(37, 129, dev, seed=23)
+    y, ran = launches_of(lambda: T.hfft(h, norm=norm))
+    assert ran == {"c2r": 1}
+    assert rel_err(y, T.hfft(h.cpu(), norm=norm).to(dev)) <= bound(256)
+    assert rel_err(y, torch.fft.hfft(h.to(torch.complex128), norm=norm)) \
+        <= bound(256)
+    x = rand_r(37, 256, dev, seed=24)
+    z, ran = launches_of(lambda: T.ihfft(x, norm=norm))
+    assert ran == {"r2c": 1}
+    assert rel_err(z, torch.fft.ihfft(x.double(), norm=norm)) <= bound(256)
+
+
+# (function, type, n, the kernel it launches once, that kernel's length)
+DCT_CARD_CASES = [
+    ("dct", 1, 1025, "r2c", 2048), ("dct", 2, 1024, "r2c", 1024),
+    ("dct", 3, 1024, "c2r", 1024), ("dct", 4, 512, "c2c", 1024),
+    ("idct", 2, 1024, "c2r", 1024), ("idct", 3, 1024, "r2c", 1024),
+    ("dst", 1, 1023, "r2c", 2048), ("dst", 2, 1024, "r2c", 1024),
+    ("dst", 3, 1024, "c2r", 1024), ("dst", 4, 512, "c2c", 1024),
+    ("idst", 1, 1023, "r2c", 2048), ("idst", 4, 512, "c2c", 1024),
+]
+
+
+@pytest.mark.parametrize("name,t,n,kernel,m", DCT_CARD_CASES)
+@pytest.mark.parametrize("norm", [None, "ortho"])
+def test_dct_on_card_runs_one_kernel(dev, name, t, n, kernel, m, norm):
+    """Each DCT / DST type is one launch of the kernel its recipe names
+    (type 1 and 2 forward: R2C; type 3 and the type 2 inverse: C2R; type
+    4: C2C of length 2n), on 37 rows; against the plain version on the
+    CPU copy and the plain version in float64, within bound(m)."""
+    x = rand_r(37, n, dev, seed=25 + t)
+    fn = getattr(T, name)
+    y, ran = launches_of(lambda: fn(x, type=t, norm=norm))
+    assert ran == {kernel: 1}
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    assert rel_err(y, fn(x.cpu(), type=t, norm=norm).to(dev)) <= bound(m)
+    want = fn(x.cpu().double(), type=t, norm=norm)
+    assert rel_err(y.cpu(), want) <= bound(m)
+
+
+def test_dctn_on_card_runs_one_r2c_an_axis(dev):
+    x = rand_r(64, 256, dev, seed=31)
+    y, ran = launches_of(lambda: T.dctn(x, axes=(-2, -1)))
+    assert ran == {"r2c": 2}
+    want = T.dctn(x.cpu().double(), axes=(-2, -1))
+    assert rel_err(y.cpu(), want) <= bound(64) + bound(256)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float16])
+@pytest.mark.parametrize("entry", ["rfft", "convolve_real", "fftconvolve"])
+def test_real_entry_promotes_on_card(dev, entry, dtype):
+    """C.4 on the card: int32 and float16 rows give exactly the result of
+    their float32 copy (the kernels are deterministic)."""
+    x = (rand_r(4, 1024, dev, seed=41) * 20).to(dtype)
+    extra = {"rfft": (),
+             "convolve_real": (T.rfft(rand_r(1, 1024, dev, seed=42))[0],),
+             "fftconvolve": (rand_r(1, 33, dev, seed=43)[0],)}[entry]
+    fn = getattr(T, entry)
+    got = fn(x, *extra)
+    f32 = fn(x.to(torch.float32), *extra)
+    torch.cuda.synchronize()
+    assert got.dtype == f32.dtype
+    assert torch.equal(got, f32)
+
+
+def test_real_kernel_operand_check_still_raises(dev):
+    """The promotion is at the entry points: the R2C wrapper itself keeps
+    refusing anything but float32."""
+    for dtype in (torch.int32, torch.float16):
+        with pytest.raises(TypeError, match="float32"):
+            R.launch_r2c(torch.zeros((4, 256), dtype=dtype, device=dev))

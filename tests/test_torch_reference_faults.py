@@ -10,8 +10,11 @@ The JAX package is not changed.
   ``smfft_tpu.ifft(y, norm="ortho")`` equals ``norm=None``.  The port
   raises ``ValueError`` instead, which
   ``tests/test_torch_api.py::test_bad_arguments_raise`` (``ifft``) and
-  ``test_real_size_errors`` (``irfft``) pin; this file pins the JAX side.
+  ``test_real_size_errors`` (``irfft``) pin; this file pins the JAX side,
+  for ``ifft`` and for the N-D inverse ``ifft2``, whose port raises too.
 """
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,3 +51,24 @@ def test_jax_ifft_ortho_is_the_raw_inverse(x):
     np.testing.assert_array_equal(ortho, raw)
     numpy_ortho = np.fft.ifft(x.astype(np.complex128), norm="ortho")
     assert np.abs(ortho - numpy_ortho).max() > 1.0
+
+
+def test_jax_ifft2_ortho_is_the_raw_inverse_port_raises():
+    """smfft_tpu.ndim.ifft2(norm="ortho") returns the raw inverse: at (3,
+    64, 128) its max is sqrt(64 * 128) ~ 90.51 times numpy's ortho result.
+    The port's ifft2 / ifftn / irfft2 raise on "ortho" instead."""
+    jn = importlib.import_module("smfft_tpu.ndim")
+    rng = np.random.default_rng(3)
+    x = (rng.random((3, 64, 128)) - 0.5
+         + 1j * (rng.random((3, 64, 128)) - 0.5)).astype(np.complex64)
+    ortho = np.asarray(jn.ifft2(jnp.asarray(x), norm="ortho",
+                                backend="xla"))
+    numpy_ortho = np.fft.ifft2(x.astype(np.complex128), norm="ortho")
+    ratio = np.abs(ortho).max() / np.abs(numpy_ortho).max()
+    assert abs(ratio - np.sqrt(64 * 128)) <= 1e-4 * np.sqrt(64 * 128)
+    raw = np.fft.ifft2(x.astype(np.complex128)) * (64 * 128)
+    assert np.abs(ortho - raw).max() <= 1e-4 * np.abs(raw).max()
+    t = torch.from_numpy(x)
+    for fn in (T.ifft2, T.ifftn, T.irfft2):
+        with pytest.raises(ValueError, match="norm must be"):
+            fn(t[..., :65] if fn is T.irfft2 else t, norm="ortho")
