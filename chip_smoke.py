@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """GPU smoke run of smfft_tpu_torch: builds the kernels, checks them, and
 drives the C2C, real, reuse, convolution, spectral, arbitrary-length,
-huge-N and N-D / DCT main paths at the working size on one NVIDIA GPU.
+huge-N, N-D / DCT and parallel main paths at the working size on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -136,11 +137,41 @@ Phases (each failure exits non-zero at once):
      out over the memory rate), ``torch.fft``'s one call where there is one
      (else the same recipe over ``torch.fft``), and, after the counters are
      read, the sum of the path's kernels timed alone on its shapes.
-  Before each of the main paths 4, 5, 8, 10, 12, 14, 16 and 18 every launch
-     counter is set to 0; right after, the counters must equal the path's
-     calls (the convolution path runs ``conv`` / ``conv_real`` and, once a
-     ``fftconvolve`` call, the R2C or C2C kernel for the taps) and no other
-     kernel may have run.
+ 19. Parallel sweep (``smfft_tpu_torch.parallel``), (a) in a world of one
+     rank under NCCL in this process: ``sharded_fft`` forward and inverse,
+     ``sharded_rfft`` / ``sharded_irfft``, ``sharded_convolve`` with an
+     M_BANK bank at N = 1024 / 16384; ``distributed_fft`` natural and
+     transposed, ``distributed_ifft`` and the spectral filter applied in the
+     C-layout between a transposed forward and a ``transposed_input``
+     inverse at N = 2^15 / 2^20 / 2^24; ``distributed_rfft`` /
+     ``distributed_irfft`` at 2^16 / 2^24; both tiers; every element
+     against the same call under ``plain_on_card()`` and the first rows
+     against float64 ``torch.fft`` within PERF.md §2's bars (a chain of
+     k + 1 transforms 2 bound sqrt(k + 1)).  (b) PAR_GLOO gloo ranks
+     spawned on this one card (NCCL takes one rank a card): the same
+     functions at 2^20 and 2^24, the DTensor round trip and the C-layout
+     filter, against float64 and the world of one's plain version; each
+     rank's launch counters come back through its results file and are
+     summed.
+ 20. The parallel main path at 2^27 points or samples a call, under (a):
+     ``sharded_fft`` of (131072, 1024) (1 c2c), ``sharded_convolve`` with
+     a 4-filter bank at N = 1024 (1 conv), ``distributed_fft`` of one 2^27
+     vector (2 c2c), ``distributed_rfft`` of 2^28 real samples (2 c2c),
+     and ``examples/matched_filter_torch.py``'s correlation of 16384
+     streams of 8192 samples against 8 templates (1 conv_real; the bank's
+     spectra 1 r2c), then the whole example with ``--selfcheck``.  Each
+     checked and timed (median of 5 CUDA-event runs) beside a same-run
+     ``copy_`` of its input, the bound and ``torch.fft``'s call or
+     composition; after the counters are read, ``api.fft_large`` of the
+     same 2^27 vector.  Under (b): ``distributed_fft`` at 2^24 with 4 gloo
+     ranks, timed on rank 0 (gloo loopback: not NCCL across cards).
+  Before each of the main paths 4, 5, 8, 10, 12, 14, 16, 18 and 20 every
+     launch counter is set to 0; right after, the counters must equal the
+     path's calls (the convolution path runs ``conv`` / ``conv_real`` and,
+     once a ``fftconvolve`` call, the R2C or C2C kernel for the taps; a
+     ``sharded_*`` call is one launch of its kernel a rank, a distributed
+     C2C two ``c2c`` launches a rank) and no other kernel may have run;
+     the gloo ranks' summed counters likewise.
 
 The last lines are the card, a JSON line of kernel results and the device
 line.
@@ -254,21 +285,8 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 
 def launchers() -> dict:
     """Every kernel's wrapper, whose ``count`` it bumps once a launch."""
-    from smfft_tpu_torch.ops import c2c as C
-    from smfft_tpu_torch.ops import chirp as CH
-    from smfft_tpu_torch.ops import convolve as CV
-    from smfft_tpu_torch.ops import multiple as M
-    from smfft_tpu_torch.ops import real as R
-    from smfft_tpu_torch.ops import spectral as SP
-    from smfft_tpu_torch.ops import fourstep_fused as FF
-    from smfft_tpu_torch.ops import real_fused as RF
-    return {"c2c": C.launch, "r2c": R.launch_r2c, "c2r": R.launch_c2r,
-            "c2c_multiple": M.launch_multiple,
-            "real_multiple": M.launch_real_multiple,
-            "conv": CV.launch_conv, "conv_real": CV.launch_conv_real,
-            "power": SP.launch_power, "bluestein": CH.launch_bluestein,
-            "fourstep_pass": FF.launch_pass,
-            "real_huge": RF.launch_real_huge}
+    from smfft_tpu_torch.parallel import dryrun
+    return dryrun.launchers()
 
 
 def reset_counts() -> None:
@@ -2478,6 +2496,539 @@ def kernels_alone(rows: list) -> None:
               f"{row['ms']:.4f}; the torch copies around them "
               f"{row['ms'] - total:.4f} ms")
 
+
+# ---------------------------------------------------------------------------
+# Phases 19-20: parallel/ (batch sharding and the distributed four-step)
+# over torch.distributed: (a) a world of one rank under NCCL in this
+# process; (b) PAR_GLOO gloo ranks spawned on this one card (NCCL takes
+# one rank a card), the data moved between the processes by gloo
+# ---------------------------------------------------------------------------
+
+PAR_GLOO = 4
+PAR_SHARDED = (1024, 16384)
+PAR_DIST = (1 << 15, 1 << 20, 1 << 24)
+PAR_REAL = (1 << 16, 1 << 24)
+PAR_GLOO_SIZES = (1 << 20, 1 << 24)
+PAR_TIERS = ("highest", "exact")
+# phase 20's shapes, 2^27 points or samples a call: rows of 1024, one
+# vector (16384 x 8192), 2^28 real samples, the matched filter's streams
+PAR_ROWS = 131072
+PAR_BIG = 1 << 27
+MF_STREAMS, MF_LEN, MF_TEMPLATES, MF_K = 16384, 8192, 8, 256
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A process group of one rank under NCCL in this process (tcp
+    rendezvous on a free localhost port), destroyed on the way out."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def par_lim(n: int, k: int = 0, norm: bool = False) -> float:
+    """PERF.md §2's bar for an output of k + 1 chained transforms of
+    length n on data in [-0.5, 0.5): bound(n) for one transform,
+    2 bound(n) sqrt(k + 1) for a chain; a chain that ends in a normalised
+    inverse (each step a unitary F / sqrt(n)) divides by sqrt(n), a lone
+    normalised inverse by n (as fft_large's check)."""
+    lim = bound(n) if k == 0 else 2 * bound(n) * math.sqrt(k + 1)
+    if norm:
+        lim /= math.sqrt(n) if k else n
+    return lim
+
+
+def full(y) -> torch.Tensor:
+    """A DTensor gathered whole (a plain tensor as it is)."""
+    from smfft_tpu_torch.parallel.sharding import _full
+    from torch.distributed.tensor import DTensor
+    return _full(y) if isinstance(y, DTensor) else y
+
+
+def c_layout(v: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """X (..., N) -> the C-matrix C[k1, k2] = X[k2*n1 + k1]."""
+    return v.reshape(v.shape[:-1] + (n2, n1)).transpose(-1, -2)
+
+
+def times_block(c, h: torch.Tensor):
+    """A k1-sharded C-matrix DTensor times the global h, block by block."""
+    from smfft_tpu_torch.parallel.sharding import _block, _sharded
+    dim = c.placements[0].dim
+    return _sharded(c.to_local() * _block(h, c.device_mesh, "fft", dim),
+                    c.device_mesh, c.placements[0])
+
+
+def unpack(h: torch.Tensor) -> torch.Tensor:
+    """Packed half-spectrum (slot 0 = DC + i*Nyq) -> numpy rfft layout."""
+    return torch.cat([h[..., :1].real.to(h.dtype), h[..., 1:],
+                      h[..., :1].imag.to(h.dtype)], dim=-1)
+
+
+def par_check(what: str, fn, oracle_fn, lim: float, head, prec: str,
+              plain=None, plain_fn=None) -> tuple:
+    """One parallel call: the output gathered whole, against the same call
+    (or ``plain_fn``) under plain_on_card(), or ``plain``, on every element
+    and against the
+    float64 oracle on ``head`` of it, max abs error within lim; the
+    "exact" tier's ulp(max|X|) from float64 printed.  Returns (output,
+    error against the plain version)."""
+    out = full(fn())
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(torch.view_as_real(out) if out.is_complex()
+                               else out).all()):
+        fail(f"{what}: non-finite output")
+    if plain is None:
+        with plain_on_card():
+            plain = full((plain_fn or fn)())
+    err = check_all(out if out.dim() > 1 else out[None],
+                    plain if plain.dim() > 1 else plain[None], 0, what,
+                    lim=lim)
+    del plain
+    want = oracle_fn()
+    got = head(out)
+    if got.shape != want.shape:
+        fail(f"{what}: {tuple(got.shape)} against the oracle's "
+             f"{tuple(want.shape)}")
+    e64 = max_err(got, want)
+    note = (f", {e64 / ulp(want.abs().max().item()):.2f} ulp(max|X|)"
+            if prec == "exact" else "")
+    print(f"  {what}: the first rows vs float64 {e64:.3e} (bound "
+          f"{lim:.3e}){note}")
+    if not e64 <= lim:
+        fail(f"{what}: error against float64 over the bound")
+    return out, err
+
+
+def phase_parallel_sweep():
+    """Phase 19 (a): every public name of parallel/ in a world of one
+    under NCCL, both tiers, against its plain version on every element and
+    float64 torch.fft on the first rows.  Returns the worst error against
+    the plain versions."""
+    from smfft_tpu_torch import parallel as P
+    from smfft_tpu_torch.parallel import sharding as PS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    mesh = P.batch_mesh()
+    fmesh = P.batch_mesh(axis_name="fft")
+    worst, count = 0.0, 0
+    c128 = lambda a: a.to(torch.complex128)  # noqa: E731
+    rows64 = lambda a: a[:ORACLE_ROWS]  # noqa: E731
+    first = lambda a: a[:4]  # noqa: E731
+
+    def run(what, fn, oracle_fn, lim, head, prec):
+        nonlocal worst, count
+        out, e = par_check(what, fn, oracle_fn, lim, head, prec)
+        worst = max(worst, e)
+        count += 1
+        return out
+
+    for prec in PAR_TIERS:
+        for n in PAR_SHARDED:
+            x = rand_complex(SWEEP_POINTS // n, n, gen)
+            for inv in (False, True):
+                run(f"sharded_fft N={n} inverse={inv} {prec}",
+                    lambda: P.sharded_fft(x, mesh, inverse=inv,
+                                          precision=prec),
+                    lambda: oracle(x[:ORACLE_ROWS], inv) / (n if inv else 1),
+                    par_lim(n, norm=inv), rows64, prec)
+            h = rand_complex(M_BANK, n, gen)
+            run(f"sharded_convolve N={n} bank {M_BANK} {prec}",
+                lambda: P.sharded_convolve(x, h, mesh, precision=prec),
+                lambda: torch.fft.ifft(torch.fft.fft(c128(x[:ORACLE_ROWS]))
+                                       [None] * c128(h)[:, None]),
+                par_lim(n, 1, True), lambda a: a[:, :ORACLE_ROWS], prec)
+            del x, h
+            xr = torch.rand((SWEEP_POINTS // n, n), generator=gen,
+                            device="cuda") - 0.5
+            spec = run(f"sharded_rfft n={n} {prec}",
+                       lambda: PS.sharded_rfft(xr, mesh, precision=prec),
+                       lambda: torch.fft.rfft(xr[:ORACLE_ROWS].double()),
+                       par_lim(n), rows64, prec)
+            run(f"sharded_irfft n={n} {prec}",
+                lambda: PS.sharded_irfft(spec, mesh, n, precision=prec),
+                lambda: xr[:ORACLE_ROWS].double(), par_lim(n, 1, True),
+                rows64, prec)
+            del xr, spec
+        for n in PAR_DIST:
+            b = max(1, SWEEP_POINTS // n)
+            e = n.bit_length() - 1
+            x = rand_complex(b, n, gen)
+            n1, n2 = P.plan_distributed(n, 1)
+            want = torch.fft.fft(c128(x[:4]))
+            run(f"distributed_fft N=2^{e} ({b} rows) {prec}",
+                lambda: P.distributed_fft(x, fmesh, precision=prec),
+                lambda: want, par_lim(n), first, prec)
+            c = run(f"distributed_fft transposed N=2^{e} {prec}",
+                    lambda: P.distributed_fft(x, fmesh, precision=prec,
+                                              transposed_output=True),
+                    lambda: c_layout(want, n1, n2), par_lim(n), first, prec)
+            run(f"distributed_ifft N=2^{e} {prec}",
+                lambda: P.distributed_ifft(x, fmesh, precision=prec),
+                lambda: torch.fft.ifft(c128(x[:4])), par_lim(n, norm=True),
+                first, prec)
+            hf = rand_complex(1, n, gen)[0]
+            h_c = c_layout(hf, n1, n2).contiguous()
+            cd = P.distributed_fft(x, fmesh, precision=prec,
+                                   transposed_output=True)
+            run(f"distributed_ifft of the C-layout product N=2^{e} {prec}",
+                lambda: P.distributed_ifft(times_block(cd, h_c), fmesh,
+                                           precision=prec,
+                                           transposed_input=True),
+                lambda: torch.fft.ifft(want * c128(hf)),
+                par_lim(n, 1, True), first, prec)
+            del x, c, cd, hf, h_c, want
+        for n in PAR_REAL:
+            b = max(1, SWEEP_POINTS // n)
+            e = n.bit_length() - 1
+            xr = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+            hp = run(f"distributed_rfft n=2^{e} ({b} rows) {prec}",
+                     lambda: P.distributed_rfft(xr, fmesh, precision=prec),
+                     lambda: torch.fft.rfft(xr[:4].double()), par_lim(n),
+                     lambda a: unpack(a[:4]), prec)
+            run(f"distributed_irfft n=2^{e} {prec}",
+                lambda: P.distributed_irfft(hp, fmesh, precision=prec),
+                lambda: xr[:4].double(), par_lim(n, 1, True), first, prec)
+            del xr, hp
+        torch.cuda.empty_cache()
+    print(f"parallel sweep (a world of one under NCCL): {count} calls, "
+          f"worst error against the plain versions {worst:.3e}")
+    return worst
+
+
+def gloo_calls() -> tuple:
+    """Phase 19 (b)'s calls for the spawned gloo ranks (inputs made in
+    each rank from a seed) and the launches each rank should make."""
+    from smfft_tpu_torch.parallel import plan_distributed
+    calls, per_rank = [], {"c2c": 0, "conv": 0}
+    calls.append(dict(key="sharded_fft", fn="sharded_fft", axis="batch",
+                      args=[("rand", (4096, 1024), "complex64", 1), "MESH"]))
+    calls.append(dict(key="sharded_convolve", fn="sharded_convolve",
+                      axis="batch",
+                      args=[("rand", (4096, 1024), "complex64", 1),
+                            ("rand", (M_BANK, 1024), "complex64", 2),
+                            "MESH"]))
+    per_rank["c2c"] += 1
+    per_rank["conv"] += 1
+    for n in PAR_GLOO_SIZES:
+        e = n.bit_length() - 1
+        n1, n2 = plan_distributed(n, PAR_GLOO)
+        vec = ("rand", (n,), "complex64", e)
+        calls += [
+            dict(key=f"fft{e}", fn="distributed_fft", args=[vec, "MESH"]),
+            dict(key=f"fftT{e}", fn="distributed_fft", args=[vec, "MESH"],
+                 kwargs={"transposed_output": True}),
+            dict(key=f"filt{e}", fn="distributed_ifft",
+                 args=[("refmul", f"fftT{e}",
+                        ("rand", (n1, n2), "complex64", e + 50)), "MESH"],
+                 kwargs={"transposed_input": True}),
+            dict(key=f"back{e}", fn="distributed_ifft",
+                 args=[("ref", f"fft{e}"), "MESH"]),
+            dict(key=f"rfft{e}", fn="distributed_rfft",
+                 args=[("rand", (2, n), "float32", e + 100), "MESH"]),
+            dict(key=f"irfft{e}", fn="distributed_irfft",
+                 args=[("ref", f"rfft{e}"), "MESH"])]
+        per_rank["c2c"] += 6 * 2
+    calls.append(dict(key="fft20_exact", fn="distributed_fft",
+                      args=[("rand", (1 << 20,), "complex64", 20), "MESH"],
+                      kwargs={"precision": "exact"}))
+    calls.append(dict(key="timed24", fn="distributed_fft", time=True,
+                      gather=False, keep=False,
+                      args=[("rand", (1 << 24,), "complex64", 24), "MESH"]))
+    per_rank["c2c"] += 2 * 2
+    return calls, per_rank
+
+
+def phase_parallel_gloo(card: str):
+    """Phase 19 (b), with phase 20's gloo row: PAR_GLOO ranks spawned
+    under gloo, every rank's shards on this card, run gloo_calls(); each
+    output against float64 (made here from the same seeds) and against
+    the same call's plain version in the world of one (the four-step's
+    factors do not depend on the mesh size, so the plain version is the
+    same function).  Returns (the launches summed over the ranks and the
+    expected ones, the gloo-loopback row, worst error against the plain
+    versions)."""
+    from smfft_tpu_torch import parallel as P
+    from smfft_tpu_torch.parallel.dryrun import rand_input, run_calls, \
+        spawn_world
+    calls, per_rank = gloo_calls()
+    t0 = time.perf_counter()
+    ranks = spawn_world(PAR_GLOO, run_calls, (calls, "cuda", REPS_CONV),
+                        device="cuda", timeout=900)
+    print(f"gloo world of {PAR_GLOO} ranks on one card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    got = ranks[0]["calls"]
+    summed = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]
+              ["counts"]}
+    expected = {k: v * PAR_GLOO for k, v in per_rank.items()}
+    for r in ranks:
+        for key, rec in r["calls"].items():
+            if "placements" in rec and rec["mesh_size"] != PAR_GLOO:
+                fail(f"gloo {key}: mesh of {rec['mesh_size']} ranks")
+            if rec.get("local_device") not in (None, "cuda"):
+                fail(f"gloo {key}: shards on {rec['local_device']}")
+
+    def cu(spec):
+        return torch.from_numpy(rand_input(*spec[1:])).cuda()
+
+    fmesh = P.batch_mesh(axis_name="fft")
+    mesh = P.batch_mesh()
+    c128 = lambda a: a.to(torch.complex128)  # noqa: E731
+    worst = 0.0
+
+    def check(key, plain_fn, oracle_fn, lim, head=lambda a: a):
+        nonlocal worst
+        out = torch.from_numpy(got[key]["full"]).cuda()
+        with plain_on_card():
+            plain = full(plain_fn())
+        _, e = par_check(f"gloo x{PAR_GLOO} {key}", lambda: out, oracle_fn,
+                         lim, head, "highest", plain=plain)
+        worst = max(worst, e)
+
+    x = cu(calls[0]["args"][0])
+    check("sharded_fft", lambda: P.sharded_fft(x, mesh),
+          lambda: oracle(x[:ORACLE_ROWS], False), par_lim(1024),
+          lambda a: a[:ORACLE_ROWS])
+    h = cu(calls[1]["args"][1])
+    check("sharded_convolve", lambda: P.sharded_convolve(x, h, mesh),
+          lambda: torch.fft.ifft(torch.fft.fft(c128(x[:ORACLE_ROWS]))[None]
+                                 * c128(h)[:, None]),
+          par_lim(1024, 1, True), lambda a: a[:, :ORACLE_ROWS])
+    del x, h
+    for n in PAR_GLOO_SIZES:
+        e = n.bit_length() - 1
+        n1, n2 = P.plan_distributed(n, PAR_GLOO)
+        v = cu(("rand", (n,), "complex64", e))
+        want = torch.fft.fft(c128(v))
+        check(f"fft{e}", lambda: P.distributed_fft(v, fmesh), lambda: want,
+              par_lim(n))
+        check(f"fftT{e}", lambda: P.distributed_fft(
+            v, fmesh, transposed_output=True),
+            lambda: c_layout(want, n1, n2), par_lim(n))
+        h_c = cu(("rand", (n1, n2), "complex64", e + 50))
+        hf = h_c.transpose(0, 1).reshape(-1)
+        check(f"filt{e}", lambda: P.distributed_ifft(
+            P.distributed_fft(v, fmesh, transposed_output=True).to_local()
+            * h_c, fmesh, transposed_input=True),
+            lambda: torch.fft.ifft(want * c128(hf)), par_lim(n, 1, True))
+        check(f"back{e}", lambda: P.distributed_ifft(
+            P.distributed_fft(v, fmesh), fmesh), lambda: c128(v),
+            par_lim(n, 1, True))
+        del v, want, h_c, hf
+        xr = cu(("rand", (2, n), "float32", e + 100))
+        check(f"rfft{e}", lambda: P.distributed_rfft(xr, fmesh),
+              lambda: torch.fft.rfft(xr.double()), par_lim(n), unpack)
+        check(f"irfft{e}", lambda: P.distributed_irfft(
+            P.distributed_rfft(xr, fmesh), fmesh), lambda: xr.double(),
+            par_lim(n, 1, True))
+        del xr
+        torch.cuda.empty_cache()
+    v = cu(("rand", (1 << 20,), "complex64", 20))
+    check("fft20_exact", lambda: P.distributed_fft(v, fmesh,
+                                                   precision="exact"),
+          lambda: torch.fft.fft(c128(v)), par_lim(1 << 20))
+    del v
+    v = cu(("rand", (1 << 24,), "complex64", 24))
+    ms_one = cuda_ms(lambda: P.distributed_fft(v, fmesh), reps=REPS_CONV)
+    del v
+    torch.cuda.empty_cache()
+    row = {"what": f"distributed_fft N=2^24, {PAR_GLOO} gloo ranks on one "
+           "card (gloo loopback)", "ms": got["timed24"]["ms"],
+           "world_of_one_ms": ms_one, "launches_per_rank": {"c2c": 2}}
+    print(f"{row['what']} ({card}): {row['ms']:.4f} ms (rank 0, median of "
+          f"{REPS_CONV}) | the same call in the world of one (NCCL) "
+          f"{ms_one:.4f} ms")
+    print(f"gloo world: {len(calls)} calls, worst error against the plain "
+          f"versions {worst:.3e}")
+    return summed, expected, row, worst
+
+
+def load_example(name: str):
+    """A module of the checkout's examples/ directory."""
+    import importlib
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    return importlib.import_module(name)
+
+
+def phase_main_parallel(card: str):
+    """Phase 20: the parallel main path at 2^27 points or samples a call,
+    in the world of one under NCCL: sharded_fft of (PAR_ROWS, 1024),
+    sharded_convolve with an M_BANK bank at 1024, distributed_fft of one
+    2^27 vector, distributed_rfft of 2^28 real samples, and the matched
+    filter of MF_STREAMS x MF_LEN samples against MF_TEMPLATES templates.
+    Each call once checked (every element against its plain version, the
+    first rows against float64) and timed (median of REPS_CONV CUDA-event
+    runs) beside a same-run copy_ of its input, the bound (bytes in + out
+    over the memory rate) and torch.fft's call or composition.  Returns
+    (rows, expected launches, worst error against the plain versions,
+    the example's inputs for the references timed after the counters)."""
+    import numpy as np
+    from smfft_tpu_torch import parallel as P
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    mesh = P.batch_mesh()
+    fmesh = P.batch_mesh(axis_name="fft")
+    expected = {"c2c": 0, "conv": 0, "conv_real": 0, "r2c": 0}
+    rows, worst = [], 0.0
+    c128 = lambda a: a.to(torch.complex128)  # noqa: E731
+    rows64 = lambda a: a[:ORACLE_ROWS]  # noqa: E731
+
+    def counted(fn, per_call):
+        def run():
+            for k, v in per_call.items():
+                expected[k] += v
+            return fn()
+        return run
+
+    def path(what, fn, per_call, x, nbytes, oracle_fn, head, lim, library,
+             library_name):
+        nonlocal worst
+        run = counted(fn, per_call)
+        _, e = par_check(what, run, oracle_fn, lim, head, "highest",
+                         plain_fn=fn)
+        worst = max(worst, e)
+        torch.cuda.empty_cache()
+        ms = cuda_ms(run, reps=REPS_CONV)
+        dst = torch.empty_like(x)
+        ms_copy = cuda_ms(lambda: dst.copy_(x), reps=REPS_CONV)
+        del dst
+        with plain_on_card():
+            ms_plain = cuda_ms(fn, reps=1)
+        ms_lib = cuda_ms(library, reps=REPS_CONV)
+        torch.cuda.empty_cache()
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append({"what": what, "shape": list(x.shape), "ms": ms,
+                     "copy_ms": ms_copy, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "plain_ms": ms_plain,
+                     "library": library_name, "library_ms": ms_lib,
+                     "launches": per_call})
+        print(f"{what} ({card}): {ms:.4f} ms | copy_ of the input "
+              f"{ms_copy:.4f} ms | bound {bound_ms:.4f} ms, at "
+              f"{bound_ms / ms:.3f} | plain {ms_plain:.2f} ms | "
+              f"{library_name} {ms_lib:.4f} ms | {ms / ms_lib:.2f}x")
+
+    n = 1024
+    x = rand_complex(PAR_ROWS, n, gen)
+    path(f"sharded_fft ({PAR_ROWS}, {n}) c64", lambda: P.sharded_fft(x, mesh),
+         {"c2c": 1}, x, 16.0 * x.numel(),
+         lambda: oracle(x[:ORACLE_ROWS], False), rows64, par_lim(n),
+         lambda: torch.fft.fft(x), "torch.fft.fft")
+    h = rand_complex(M_BANK, n, gen)
+    path(f"sharded_convolve ({PAR_ROWS}, {n}) bank {M_BANK}",
+         lambda: P.sharded_convolve(x, h, mesh), {"conv": 1}, x,
+         (8.0 + 8.0 * M_BANK) * x.numel(),
+         lambda: torch.fft.ifft(torch.fft.fft(c128(x[:ORACLE_ROWS]))[None]
+                                * c128(h)[:, None]),
+         lambda a: a[:, :ORACLE_ROWS], par_lim(n, 1, True),
+         lambda: torch.fft.ifft(torch.fft.fft(x)[None] * h[:, None]),
+         "torch.fft composition")
+    del x, h
+    torch.cuda.empty_cache()
+    v = rand_complex(1, PAR_BIG, gen)[0]
+    path("distributed_fft N=2^27, one vector (16384 x 8192)",
+         lambda: P.distributed_fft(v, fmesh), {"c2c": 2}, v, 16.0 * PAR_BIG,
+         lambda: torch.fft.fft(c128(v)),
+         lambda a: a, par_lim(PAR_BIG), lambda: torch.fft.fft(v),
+         "torch.fft.fft")
+    torch.cuda.empty_cache()
+    xr = torch.rand(2 * PAR_BIG, generator=gen, device="cuda") - 0.5
+    path("distributed_rfft n=2^28, one vector", lambda: P.distributed_rfft(
+        xr, fmesh), {"c2c": 2}, xr, 8.0 * xr.numel(),
+        lambda: torch.fft.rfft(xr.double()), unpack, par_lim(2 * PAR_BIG),
+        lambda: torch.fft.rfft(xr), "torch.fft.rfft")
+    del xr
+    torch.cuda.empty_cache()
+
+    mf = load_example("matched_filter_torch")
+    rng = np.random.default_rng(7)
+    bank, truth_tpl, truth_off, xs = mf.simulate(
+        MF_STREAMS, MF_LEN, MF_TEMPLATES, MF_K, 0.6, rng)
+    xs = torch.from_numpy(xs).cuda()
+    hf = mf.filter_bank(bank, MF_LEN, "cuda")
+    expected["r2c"] += 1
+    scale = xs.abs().max().item() / 0.5
+    path(f"matched filter ({MF_STREAMS}, {MF_LEN}) x {MF_TEMPLATES} "
+         "templates (convolve_real bank)", lambda: mf.correlate(xs, hf),
+         {"conv_real": 1}, xs, (4.0 + 4.0 * MF_TEMPLATES) * xs.numel(),
+         lambda: torch.fft.irfft(torch.fft.rfft(xs[:ORACLE_ROWS].double())
+                                 [None] * c128(hf)[:, None], n=MF_LEN),
+         lambda a: a[:, :ORACLE_ROWS],
+         par_lim(MF_LEN, 1, True) * scale,
+         lambda: torch.fft.irfft(torch.fft.rfft(xs)[None] * hf[:, None],
+                                 n=MF_LEN), "torch.fft composition")
+    del xs, hf
+    torch.cuda.empty_cache()
+    # the whole example at this size, its self-check included
+    t0 = time.perf_counter()
+    rc = mf.main(["--streams", str(MF_STREAMS), "--length", str(MF_LEN),
+                  "--templates", str(MF_TEMPLATES), "--klen", str(MF_K),
+                  "--selfcheck"])
+    expected["r2c"] += 1
+    expected["conv_real"] += 1
+    if rc != 0:
+        fail("the matched-filter example's self-check failed at 2^27 "
+             "samples")
+    print(f"examples/matched_filter_torch.py at {MF_STREAMS} x {MF_LEN} "
+          f"({card}): {time.perf_counter() - t0:.2f} s end to end "
+          "(host simulation included)")
+    torch.cuda.synchronize()
+    return rows, expected, worst
+
+
+def parallel_references(rows: list, card: str) -> None:
+    """After the counters are read: the port's fft_large of the same 2^27
+    vector beside distributed_fft (another kernel, fourstep_pass), and
+    distributed_fft's steps timed one by one in the world of one (median
+    of REPS_CONV CUDA-event runs each), into the row as ``steps_ms``."""
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch.ops import fourstep
+    from smfft_tpu_torch.parallel import batch_mesh, plan_distributed
+    from smfft_tpu_torch.parallel import distributed as D
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    v = rand_complex(1, PAR_BIG, gen)[0]
+    ms = cuda_ms(lambda: T.fft_large(v), reps=REPS_CONV)
+    row = next(r for r in rows if r["what"].startswith("distributed_fft"))
+    row["fft_large_ms"] = ms
+    print(f"  api.fft_large of the same 2^27 vector ({card}): {ms:.4f} ms; "
+          f"distributed_fft at {row['ms'] / ms:.2f}x")
+    fmesh = batch_mesh(axis_name="fft")
+    n1, n2 = plan_distributed(PAR_BIG, 1)
+    cols = v.reshape(1, n1, n2).transpose(-1, -2)
+    rows1 = cols.contiguous()
+    b = D._row_fft(rows1, False, "auto", None, None)
+    n2_global = torch.arange(n2, device="cuda")
+    c = D._all_to_all(b, fmesh, "fft", swap=True)
+    out = D._row_fft(c, False, "auto", None, None)
+    steps = {
+        "stage 1 transposing copy": lambda: cols.contiguous(),
+        f"stage 1 c2c (rows of {n1})":
+            lambda: D._row_fft(rows1, False, "auto", None, None),
+        "twiddle_rows": lambda: fourstep.twiddle_rows(b, n2_global,
+                                                      PAR_BIG, False),
+        "exchange 1 (two permuting copies and all_to_all_single)":
+            lambda: D._all_to_all(b, fmesh, "fft", swap=True),
+        f"stage 2 c2c (rows of {n2})":
+            lambda: D._row_fft(c, False, "auto", None, None),
+        "exchange 2": lambda: D._all_to_all(out, fmesh, "fft", swap=True)}
+    row["steps_ms"] = {}
+    for what, fn in steps.items():
+        row["steps_ms"][what] = cuda_ms(fn, reps=REPS_CONV)
+        torch.cuda.empty_cache()
+    print(f"  distributed_fft N=2^27 step by step ({card}): "
+          + "; ".join(f"{k} {t:.4f} ms" for k, t in row["steps_ms"].items())
+          + f"; sum {sum(row['steps_ms'].values()):.4f} of {row['ms']:.4f}")
+    del v, cols, rows1, b, c, out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)")
@@ -2544,6 +3095,21 @@ def main() -> int:
     kernels_alone(nd_rows)
     print(f"ndim / DCT: worst relative error against the plain versions "
           f"{max(worst_nd, worst_nd_main):.3e}")
+    with nccl_world():
+        worst_par = phase_parallel_sweep()
+        reset_counts()
+        par_rows, par_calls, worst_par_main = phase_main_parallel(card)
+        par_counts = check_counts("parallel", par_calls)
+        parallel_references(par_rows, card)
+        gloo_counts, gloo_calls_expected, gloo_row, worst_gloo = \
+            phase_parallel_gloo(card)
+    want = {k: gloo_calls_expected.get(k, 0) for k in gloo_counts}
+    print(f"launch counters summed over the {PAR_GLOO} gloo ranks: "
+          f"{gloo_counts} (expected {want})")
+    if gloo_counts != want:
+        fail("the gloo ranks did not go through their kernels once per call")
+    print(f"parallel: worst error against the plain versions "
+          f"{max(worst_par, worst_par_main, worst_gloo):.3e}")
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -2684,6 +3250,18 @@ def main() -> int:
                     "ms": split_row["ms"], "plain_ms": split_row["plain_ms"],
                     "bound_ms": split_row["bound_ms"],
                     "bound_by": split_row["bound_by"], "library_ms": None})
+    print("main path rows: " + json.dumps({"card": card,
+                                           "parallel": par_rows,
+                                           "gloo": gloo_row}))
+    print("parallel_launches: each kernel's launches on the parallel main "
+          "path (phase 20, a world of one under NCCL); gloo_launches: "
+          f"summed over the {PAR_GLOO} gloo ranks on this card (phase 19 "
+          "(b)); the evidence for more than one rank is gloo on one card, "
+          "not NCCL across cards")
+    for entry in kernels:
+        if entry["name"] in par_counts:
+            entry["parallel_launches"] = par_counts[entry["name"]]
+            entry["gloo_launches"] = gloo_counts[entry["name"]]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

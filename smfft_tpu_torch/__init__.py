@@ -5,7 +5,7 @@ The port of ``smfft_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports no JAX: the JAX package stays beside it as the reference the
 port is tested against.
 
-Six slices so far:
+Seven slices so far:
 
   * batched fp32 power-of-two C2C transforms, N = 32..16384, forward and
     inverse, natural or revblock order: :func:`fft`, :func:`ifft`,
@@ -46,7 +46,11 @@ Six slices so far:
     :func:`fftfreq` / :func:`rfftfreq` (:mod:`smfft_tpu_torch.ndim`), and
     :func:`dct` / :func:`idct` / :func:`dst` / :func:`idst` of types 1-4
     with :func:`dctn` / :func:`idctn` / :func:`dstn` / :func:`idstn`
-    (:mod:`smfft_tpu_torch.dct`).
+    (:mod:`smfft_tpu_torch.dct`);
+  * across ranks (:mod:`smfft_tpu_torch.parallel`, on
+    ``torch.distributed``): batch sharding (``sharded_fft`` ... over a
+    ``DeviceMesh``, ``DTensor`` outputs) and one transform distributed by
+    the all-to-all four-step (``distributed_fft`` ... ``distributed_irfft``).
 
 A CUDA tensor runs the kernels (built with nvcc at first use); a CPU
 tensor runs their plain PyTorch versions.  ``precision="exact"`` runs the

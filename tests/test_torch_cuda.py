@@ -1289,3 +1289,144 @@ def test_real_kernel_operand_check_still_raises(dev):
     for dtype in (torch.int32, torch.float16):
         with pytest.raises(TypeError, match="float32"):
             R.launch_r2c(torch.zeros((4, 256), dtype=dtype, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# parallel/ on the card: a world of one under NCCL in this process, and a
+# 2-rank gloo world spawned on cuda:0 (NCCL takes one rank a card)
+# ---------------------------------------------------------------------------
+
+from smfft_tpu_torch import parallel as TP  # noqa: E402
+from smfft_tpu_torch.parallel import dryrun as DR  # noqa: E402
+from smfft_tpu_torch.parallel import sharding as TPS  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def nccl_one():
+    """A process group of one rank under NCCL (tcp rendezvous on a free
+    localhost port), destroyed after this module's parallel tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    yield TP.batch_mesh(), TP.batch_mesh(axis_name="fft")
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["fft", "ifft", "rfft", "irfft",
+                                  "convolve", "convolve_bank"])
+def test_parallel_sharded_on_card_world_of_one(nccl_one, name):
+    """sharded_* under NCCL: one launch of its kernel, the shard on the
+    card, every element equal to the plain version of the same rows."""
+    mesh, _ = nccl_one
+    x = rand_c(64, 1024, "cuda", seed=51)
+    xr = rand_r(64, 1024, "cuda", seed=52)
+    hb = rand_c(3, 1024, "cuda", seed=53)
+    spec = api.rfft(xr)
+    call, kernel, ref = {
+        "fft": (lambda: TP.sharded_fft(x, mesh), "c2c",
+                lambda: api.fft(x.cpu())),
+        "ifft": (lambda: TP.sharded_fft(x, mesh, inverse=True), "c2c",
+                 lambda: api.ifft(x.cpu())),
+        "rfft": (lambda: TPS.sharded_rfft(xr, mesh), "r2c",
+                 lambda: api.rfft(xr.cpu())),
+        "irfft": (lambda: TPS.sharded_irfft(spec, mesh, 1024), "c2r",
+                  lambda: api.irfft(spec.cpu(), 1024)),
+        "convolve": (lambda: TP.sharded_convolve(x, hb[0], mesh), "conv",
+                     lambda: api.convolve(x.cpu(), hb[0].cpu())),
+        "convolve_bank": (lambda: TP.sharded_convolve(x, hb, mesh), "conv",
+                          lambda: api.convolve(x.cpu(), hb.cpu())),
+    }[name]
+    y, ran = launches_of(call)
+    assert ran == {kernel: 1}
+    local = y.to_local()
+    assert local.device.type == "cuda" and y.device_mesh.size() == 1
+    want = ref()
+    assert local.shape == want.shape
+    assert max_err(local.cpu(), want) <= bound(1024)
+
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 20])
+def test_parallel_distributed_on_card_world_of_one(nccl_one, n):
+    """distributed_fft / ifft (natural, transposed, the C-layout round
+    trip) and distributed_rfft / irfft under NCCL: two c2c launches a
+    C2C, no other kernel, within the bound of float64 torch.fft."""
+    _, fmesh = nccl_one
+    x = rand_c(1, n, "cuda", seed=54)[0]
+    want = torch.fft.fft(x.to(torch.complex128))
+    y, ran = launches_of(lambda: TP.distributed_fft(x, fmesh))
+    assert ran == {"c2c": 2}
+    assert max_err(y.full_tensor(), want) <= bound(n)
+    c, ran = launches_of(lambda: TP.distributed_fft(
+        x, fmesh, transposed_output=True))
+    assert ran == {"c2c": 2}
+    n1, n2 = TP.plan_distributed(n, 1)
+    assert max_err(c.full_tensor(), want.reshape(n2, n1).T) <= bound(n)
+    back, ran = launches_of(lambda: TP.distributed_ifft(
+        c, fmesh, transposed_input=True))
+    assert ran == {"c2c": 2}
+    assert max_err(back.full_tensor(), x) <= 2 * bound(n) * 2 ** 0.5 / n ** 0.5
+    xr = rand_r(2, 2 * n, "cuda", seed=55)
+    h, ran = launches_of(lambda: TP.distributed_rfft(xr, fmesh))
+    assert ran == {"c2c": 2}
+    hw = torch.fft.rfft(xr.double())
+    hp = h.full_tensor()
+    assert max_err(hp[:, 1:], hw[:, 1:-1]) <= bound(2 * n)
+    assert max_err(hp[:, 0], torch.complex(hw[:, 0].real, hw[:, -1].real)) \
+        <= bound(2 * n)
+    r, ran = launches_of(lambda: TP.distributed_irfft(h, fmesh))
+    assert ran == {"c2c": 2}
+    assert max_err(r.full_tensor(), xr) <= 2 * bound(2 * n) / n ** 0.5
+
+
+def test_parallel_gloo_ranks_on_one_card(tmp_path):
+    """Two gloo ranks spawned on cuda:0: the shards on the card, the
+    exchanges through gloo, each rank two c2c launches a distributed C2C,
+    the outputs within the bound of float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    n = 1 << 20
+    calls = [dict(key="fft", fn="distributed_fft",
+                  args=[("rand", (n,), "complex64", 5), "MESH"]),
+             dict(key="back", fn="distributed_ifft",
+                  args=[("ref", "fft"), "MESH"]),
+             dict(key="rfft", fn="distributed_rfft",
+                  args=[("rand", (2, n), "float32", 6), "MESH"]),
+             dict(key="sharded", fn="sharded_fft", axis="batch",
+                  args=[("rand", (64, 1024), "complex64", 7), "MESH"])]
+    ranks = DR.spawn_world(2, DR.run_calls, (calls, "cuda"), device="cuda",
+                           workdir=str(tmp_path), timeout=300)
+    for r in ranks:
+        assert r["counts"]["c2c"] == 2 * 3 + 1
+        assert sum(r["counts"].values()) == r["counts"]["c2c"]
+        assert all(rec["local_device"] == "cuda" and rec["mesh_size"] == 2
+                   for rec in r["calls"].values())
+    got = ranks[0]["calls"]
+    x = torch.from_numpy(DR.rand_input((n,), "complex64", 5))
+    assert max_err(torch.from_numpy(got["fft"]["full"]),
+                   torch.fft.fft(x.to(torch.complex128))) <= bound(n)
+    assert max_err(torch.from_numpy(got["back"]["full"]), x) \
+        <= 2 * bound(n) * 2 ** 0.5 / n ** 0.5
+    xr = torch.from_numpy(DR.rand_input((2, n), "float32", 6)).double()
+    hp = torch.from_numpy(got["rfft"]["full"])
+    assert max_err(hp[:, 1:], torch.fft.rfft(xr)[:, 1:-1]) <= bound(n)
+
+
+def test_parallel_matched_filter_example_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel, no CPU mode)")
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
+    import matched_filter_torch
+    before = all_counts()
+    assert matched_filter_torch.main(
+        ["--streams", "64", "--length", "4096", "--selfcheck"]) == 0
+    after = all_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"r2c": 1, "conv_real": 1}
