@@ -57,6 +57,7 @@ from typing import Literal
 
 import torch
 
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.models import cooley_tukey
 from smfft_tpu_torch.models import real as real_model
 from smfft_tpu_torch.ops import c2c as C
@@ -117,8 +118,13 @@ class _OrderedC2C(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, inverse: bool, scale, exact: bool):
         ctx.inverse, ctx.scale, ctx.exact = inverse, scale, exact
-        return C.fft_complex(x, inverse=inverse, ordered=True, scale=scale,
-                             exact=exact)
+        t = _T.on and _T.now()
+        try:
+            return C.fft_complex(x, inverse=inverse, ordered=True, scale=scale,
+                                 exact=exact)
+        finally:
+            if t:
+                _T.record(t, "op:ordered_c2c")
 
     @staticmethod
     def backward(ctx, g):
@@ -159,8 +165,13 @@ def _c2c(x: torch.Tensor, inverse: bool, ordered: bool, backend: str,
         return out if scale is None else out * scale
     if ordered:
         return _OrderedC2C.apply(x, inverse, scale, exact)
-    return C.fft_complex(x, inverse=inverse, ordered=False, scale=scale,
-                         exact=exact)
+    t = _T.on and _T.now()
+    try:
+        return C.fft_complex(x, inverse=inverse, ordered=False, scale=scale,
+                             exact=exact)
+    finally:
+        if t:
+            _T.record(t, "op:fft_complex")
 
 
 def fft(x: torch.Tensor, ordered: bool = True, backend: Backend = "auto",
@@ -179,7 +190,12 @@ def fft(x: torch.Tensor, ordered: bool = True, backend: Backend = "auto",
       backend: "auto" (by device) | "spec".
       precision: tier name, accepted for parity; see the module docstring.
     """
-    return _c2c(x, False, ordered, backend, precision, None)
+    t = _T.on and _T.now()
+    try:
+        return _c2c(x, False, ordered, backend, precision, None)
+    finally:
+        if t:
+            _T.record(t, "call:fft", x)
 
 
 def ifft(x: torch.Tensor, ordered: bool = True, backend: Backend = "auto",
@@ -188,8 +204,13 @@ def ifft(x: torch.Tensor, ordered: bool = True, backend: Backend = "auto",
     """Batched inverse C2C FFT.  ``norm="backward"`` divides by N (numpy
     semantics); ``norm=None`` is the reference's unnormalized inverse.
     Differentiable when ``ordered=True``."""
-    return _c2c(x, True, ordered, backend, precision,
-                _norm_scale(norm, x.shape[-1]))
+    t = _T.on and _T.now()
+    try:
+        return _c2c(x, True, ordered, backend, precision,
+                    _norm_scale(norm, x.shape[-1]))
+    finally:
+        if t:
+            _T.record(t, "call:ifft", x)
 
 
 def ifft_unordered(x: torch.Tensor, backend: Backend = "auto",
@@ -198,18 +219,28 @@ def ifft_unordered(x: torch.Tensor, backend: Backend = "auto",
     """Inverse C2C FFT consuming the layout ``fft(ordered=False)`` produces
     (revblock; bit-reversed for ``backend="spec"``) and returning natural
     order in one kernel pass: the relayout-free convolution round trip."""
-    x = _as_complex(x)
-    n = x.shape[-1]
-    C.check_size(n)
-    exact = _exact(precision)
-    _check_backend(backend)
-    scale = _norm_scale(norm, n)
-    if backend == "spec":
-        perm = torch.from_numpy(cooley_tukey.bit_reverse_indices(n))
-        out = cooley_tukey.fft_dit(x[..., perm.to(x.device)], inverse=True)
-        return out if scale is None else out * scale
-    return C.fft_complex(x, inverse=True, rev_in=True, scale=scale,
-                         exact=exact)
+    t = _T.on and _T.now()
+    try:
+        x = _as_complex(x)
+        n = x.shape[-1]
+        C.check_size(n)
+        exact = _exact(precision)
+        _check_backend(backend)
+        scale = _norm_scale(norm, n)
+        if backend == "spec":
+            perm = torch.from_numpy(cooley_tukey.bit_reverse_indices(n))
+            out = cooley_tukey.fft_dit(x[..., perm.to(x.device)], inverse=True)
+            return out if scale is None else out * scale
+        t_op = _T.on and _T.now()
+        try:
+            return C.fft_complex(x, inverse=True, rev_in=True, scale=scale,
+                                 exact=exact)
+        finally:
+            if t_op:
+                _T.record(t_op, "op:fft_complex")
+    finally:
+        if t:
+            _T.record(t, "call:ifft_unordered", x)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +297,12 @@ class _RFFT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, backend: str, exact: bool):
         ctx.backend, ctx.exact = backend, exact
-        return _rfft_op(x, backend, exact, packed=False)
+        t = _T.on and _T.now()
+        try:
+            return _rfft_op(x, backend, exact, packed=False)
+        finally:
+            if t:
+                _T.record(t, "op:rfft")
 
     @staticmethod
     def backward(ctx, g):
@@ -289,7 +325,12 @@ class _IRFFT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, n: int, backend: str, exact: bool, scale):
         ctx.n, ctx.backend, ctx.exact, ctx.scale = n, backend, exact, scale
-        return _irfft_op(h, n, backend, exact, scale, packed=False)
+        t = _T.on and _T.now()
+        try:
+            return _irfft_op(h, n, backend, exact, scale, packed=False)
+        finally:
+            if t:
+                _T.record(t, "op:irfft")
 
     @staticmethod
     def backward(ctx, g):
@@ -305,7 +346,12 @@ class _Packed(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, run):
-        return run(x)
+        t = _T.on and _T.now()
+        try:
+            return run(x)
+        finally:
+            if t:
+                _T.record(t, "op:packed")
 
     @staticmethod
     def backward(ctx, g):
@@ -331,11 +377,16 @@ def rfft(x: torch.Tensor, backend: Backend = "auto",
     be a multiple of 4 / 2 (the JAX package's rule).  The CUDA kernel
     takes float32; CPU tensors may also be float64; integer, bool and
     half-precision tensors are promoted to float32.  Differentiable."""
-    x = _as_real(x)
-    R.check_size(x.shape[-1])
-    exact = _exact(precision)
-    _check_backend(backend)
-    return _RFFT.apply(x, backend, exact)
+    t = _T.on and _T.now()
+    try:
+        x = _as_real(x)
+        R.check_size(x.shape[-1])
+        exact = _exact(precision)
+        _check_backend(backend)
+        return _RFFT.apply(x, backend, exact)
+    finally:
+        if t:
+            _T.record(t, "call:rfft", x)
 
 
 def fft_packed_real(x: torch.Tensor, backend: Backend = "auto",
@@ -343,11 +394,16 @@ def fft_packed_real(x: torch.Tensor, backend: Backend = "auto",
     """R2C in the reference's packed layout: (..., N/2) complex with
     out[..., 0] = DC + 1j*Nyquist (FFT-GPU-32bit-Stockham.cu:332-340).
     Not differentiable."""
-    x = _as_real(x)
-    R.check_size(x.shape[-1])
-    exact = _exact(precision)
-    _check_backend(backend)
-    return _Packed.apply(x, lambda a: _rfft_op(a, backend, exact, True))
+    t = _T.on and _T.now()
+    try:
+        x = _as_real(x)
+        R.check_size(x.shape[-1])
+        exact = _exact(precision)
+        _check_backend(backend)
+        return _Packed.apply(x, lambda a: _rfft_op(a, backend, exact, True))
+    finally:
+        if t:
+            _T.record(t, "call:fft_packed_real", x)
 
 
 def irfft(x: torch.Tensor, n: int | None = None, backend: Backend = "auto",
@@ -361,22 +417,27 @@ def irfft(x: torch.Tensor, n: int | None = None, backend: Backend = "auto",
     ``norm=None`` returns the reference's raw (N/2)-scaled output
     (SMFFT_Stockham_R2C_C2R/FFT.c:170-171).  The numpy-layout form is
     differentiable."""
-    x = _as_complex(x)
     if n is None:
         n = (x.shape[-1] - 1) * 2 if not packed else x.shape[-1] * 2
-    R.check_size(n)
-    bins = n // 2 if packed else n // 2 + 1
-    if x.shape[-1] != bins:
-        raise ValueError(f"n={n} takes {bins} bins "
-                         f"({'packed' if packed else 'numpy'} layout), got "
-                         f"{x.shape[-1]}")
-    exact = _exact(precision)
-    _check_backend(backend)
-    scale = real_norm_scale(norm, n)
-    if packed:
-        return _Packed.apply(
-            x, lambda h: _irfft_op(h, n, backend, exact, scale, True))
-    return _IRFFT.apply(x, n, backend, exact, scale)
+    t = _T.on and _T.now()
+    try:
+        x = _as_complex(x)
+        R.check_size(n)
+        bins = n // 2 if packed else n // 2 + 1
+        if x.shape[-1] != bins:
+            layout = "packed" if packed else "numpy"
+            raise ValueError(f"n={n} takes {bins} bins ({layout} layout), "
+                             f"got {x.shape[-1]}")
+        exact = _exact(precision)
+        _check_backend(backend)
+        scale = real_norm_scale(norm, n)
+        if packed:
+            return _Packed.apply(
+                x, lambda h: _irfft_op(h, n, backend, exact, scale, True))
+        return _IRFFT.apply(x, n, backend, exact, scale)
+    finally:
+        if t:
+            _T.record(t, "call:irfft", x, n)
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +495,12 @@ class _Convolve(torch.autograd.Function):
     def forward(ctx, x, h, exact: bool, real: bool):
         ctx.exact, ctx.real = exact, real
         ctx.save_for_backward(x, h)
-        return _conv_op(x, h, exact, real)
+        t = _T.on and _T.now()
+        try:
+            return _conv_op(x, h, exact, real)
+        finally:
+            if t:
+                _T.record(t, "op:convolve")
 
     @staticmethod
     def backward(ctx, g):
@@ -473,22 +539,27 @@ def convolve(x: torch.Tensor, h: torch.Tensor, backend: Backend = "auto",
 
     Differentiable in both ``x`` and ``h``.
     """
-    n = x.shape[-1]
-    C.check_size(n)
-    bank = h.dim() == 2
-    if tuple(h.shape) != (n,) and not (bank and h.shape[-1] == n):
-        raise ValueError(f"filter must be natural-order frequency response "
-                         f"of shape ({n},) or (M, {n}), got "
-                         f"{tuple(h.shape)}")
-    exact = _exact(precision)
-    _check_backend(backend)
-    x = _as_complex(x)
-    if backend == "spec":
-        spec = fft(x, backend="spec")
-        spec = spec[None] * h.reshape((h.shape[0],) + (1,) * (x.dim() - 1)
-                                      + (n,)) if bank else spec * h
-        return ifft(spec, backend="spec")
-    return _Convolve.apply(x, h, exact, False)
+    t = _T.on and _T.now()
+    try:
+        n = x.shape[-1]
+        C.check_size(n)
+        bank = h.dim() == 2
+        if tuple(h.shape) != (n,) and not (bank and h.shape[-1] == n):
+            raise ValueError(f"filter must be natural-order frequency "
+                             f"response of shape ({n},) or (M, {n}), got "
+                             f"{tuple(h.shape)}")
+        exact = _exact(precision)
+        _check_backend(backend)
+        x = _as_complex(x)
+        if backend == "spec":
+            spec = fft(x, backend="spec")
+            spec = spec[None] * h.reshape((h.shape[0],) + (1,) * (x.dim() - 1)
+                                          + (n,)) if bank else spec * h
+            return ifft(spec, backend="spec")
+        return _Convolve.apply(x, h, exact, False)
+    finally:
+        if t:
+            _T.record(t, "call:convolve", x)
 
 
 def convolve_real(x: torch.Tensor, h: torch.Tensor,
@@ -506,26 +577,32 @@ def convolve_real(x: torch.Tensor, h: torch.Tensor,
 
     Differentiable in both ``x`` and ``h``.
     """
-    x = _as_real(x)
-    n = x.shape[-1]
-    if n not in SUPPORTED_REAL_SIZES or n < 256:
-        raise ValueError(
-            f"Error wrong FFT length! N={n}; real convolve supports "
-            f"{[s for s in SUPPORTED_REAL_SIZES if s >= 256]}")
-    bank = h.dim() == 2
-    if tuple(h.shape) != (n // 2 + 1,) and not (bank and h.shape[-1]
-                                                 == n // 2 + 1):
-        raise ValueError(f"filter must be an rfft-style frequency response "
-                         f"of shape ({n // 2 + 1},) or (M, {n // 2 + 1}), "
-                         f"got {tuple(h.shape)}")
-    exact = _exact(precision)
-    _check_backend(backend)
-    if backend == "spec":
-        spec = rfft(x, backend="spec")
-        spec = spec[None] * h.reshape((h.shape[0],) + (1,) * (x.dim() - 1)
-                                      + (n // 2 + 1,)) if bank else spec * h
-        return irfft(spec, n=n, backend="spec")
-    return _Convolve.apply(x, h, exact, True)
+    t = _T.on and _T.now()
+    try:
+        x = _as_real(x)
+        n = x.shape[-1]
+        if n not in SUPPORTED_REAL_SIZES or n < 256:
+            raise ValueError(
+                f"Error wrong FFT length! N={n}; real convolve supports "
+                f"{[s for s in SUPPORTED_REAL_SIZES if s >= 256]}")
+        bank = h.dim() == 2
+        if tuple(h.shape) != (n // 2 + 1,) and not (bank and h.shape[-1]
+                                                     == n // 2 + 1):
+            raise ValueError(f"filter must be an rfft-style frequency "
+                             f"response of shape ({n // 2 + 1},) or (M, "
+                             f"{n // 2 + 1}), got {tuple(h.shape)}")
+        exact = _exact(precision)
+        _check_backend(backend)
+        if backend == "spec":
+            spec = rfft(x, backend="spec")
+            spec = spec[None] * h.reshape(
+                (h.shape[0],) + (1,) * (x.dim() - 1)
+                + (n // 2 + 1,)) if bank else spec * h
+            return irfft(spec, n=n, backend="spec")
+        return _Convolve.apply(x, h, exact, True)
+    finally:
+        if t:
+            _T.record(t, "call:convolve_real", x)
 
 
 # ---------------------------------------------------------------------------
@@ -541,10 +618,15 @@ class _LargeC2C(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, inverse: bool, scale, exact: bool, backend: str):
         ctx.args = (inverse, scale, exact, backend)
-        return FS.fft_four_step(
-            x, inverse=inverse, backend=backend,
-            precision="exact" if exact else "highest",
-            scale=1.0 if scale is None else scale)
+        t = _T.on and _T.now()
+        try:
+            return FS.fft_four_step(
+                x, inverse=inverse, backend=backend,
+                precision="exact" if exact else "highest",
+                scale=1.0 if scale is None else scale)
+        finally:
+            if t:
+                _T.record(t, "op:large_c2c")
 
     @staticmethod
     def backward(ctx, g):
@@ -559,14 +641,19 @@ def fft_large(x: torch.Tensor, backend: Backend = "auto",
     leading axes: the multi-pass four-step (ops/fourstep_fused.py, one
     launch of ``csrc/fourstep.cu`` per pass).  Sizes <= 16384 route to
     :func:`fft`.  A real input is promoted to complex64.  Differentiable."""
-    x = _as_complex(x)
-    n = x.shape[-1]
-    if n in SUPPORTED_C2C_SIZES:
-        return fft(x, backend=backend, precision=precision)
-    FS.split_factors(n)
-    exact = _exact(precision)
-    _check_backend(backend)
-    return _LargeC2C.apply(x, False, None, exact, backend)
+    t = _T.on and _T.now()
+    try:
+        x = _as_complex(x)
+        n = x.shape[-1]
+        if n in SUPPORTED_C2C_SIZES:
+            return fft(x, backend=backend, precision=precision)
+        FS.split_factors(n)
+        exact = _exact(precision)
+        _check_backend(backend)
+        return _LargeC2C.apply(x, False, None, exact, backend)
+    finally:
+        if t:
+            _T.record(t, "call:fft_large", x)
 
 
 def ifft_large(x: torch.Tensor, backend: Backend = "auto",
@@ -575,18 +662,23 @@ def ifft_large(x: torch.Tensor, backend: Backend = "auto",
     """Inverse of :func:`fft_large`.  ``norm="backward"`` divides by N
     (numpy, folded into the first pass); ``norm=None`` is the reference's
     raw unnormalized inverse."""
-    x = _as_complex(x)
-    if norm not in ("backward", None):
-        raise ValueError(
-            f"ifft_large supports norm='backward' (numpy) or norm=None "
-            f"(raw reference scale); got {norm!r}")
-    n = x.shape[-1]
-    if n in SUPPORTED_C2C_SIZES:
-        return ifft(x, backend=backend, precision=precision, norm=norm)
-    FS.split_factors(n)
-    exact = _exact(precision)
-    _check_backend(backend)
-    return _LargeC2C.apply(x, True, _norm_scale(norm, n), exact, backend)
+    t = _T.on and _T.now()
+    try:
+        x = _as_complex(x)
+        if norm not in ("backward", None):
+            raise ValueError(
+                f"ifft_large supports norm='backward' (numpy) or norm=None "
+                f"(raw reference scale); got {norm!r}")
+        n = x.shape[-1]
+        if n in SUPPORTED_C2C_SIZES:
+            return ifft(x, backend=backend, precision=precision, norm=norm)
+        FS.split_factors(n)
+        exact = _exact(precision)
+        _check_backend(backend)
+        return _LargeC2C.apply(x, True, _norm_scale(norm, n), exact, backend)
+    finally:
+        if t:
+            _T.record(t, "call:ifft_large", x)
 
 
 class _RFFTLarge(torch.autograd.Function):
@@ -596,8 +688,13 @@ class _RFFTLarge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, exact: bool, backend: str):
         ctx.exact, ctx.backend = exact, backend
-        return FS.rfft_four_step(x, backend=backend,
-                                 precision="exact" if exact else "highest")
+        t = _T.on and _T.now()
+        try:
+            return FS.rfft_four_step(x, backend=backend,
+                                     precision="exact" if exact else "highest")
+        finally:
+            if t:
+                _T.record(t, "op:rfft_large")
 
     @staticmethod
     def backward(ctx, g):
@@ -614,8 +711,13 @@ class _IRFFTLarge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, n: int, exact: bool, backend: str, scale):
         ctx.n, ctx.exact, ctx.backend, ctx.scale = n, exact, backend, scale
-        return FS.irfft_scaled(h, n, packed=False, backend=backend,
-                               exact=exact, scale=scale)
+        t = _T.on and _T.now()
+        try:
+            return FS.irfft_scaled(h, n, packed=False, backend=backend,
+                                   exact=exact, scale=scale)
+        finally:
+            if t:
+                _T.record(t, "op:irfft_large")
 
     @staticmethod
     def backward(ctx, g):
@@ -635,20 +737,25 @@ def rfft_large(x: torch.Tensor, backend: Backend = "auto",
     (..., N/2+1), or with ``packed`` the reference's (..., N/2) with
     out[..., 0] = DC + 1j*Nyquist.  Sizes <= 16384 route to :func:`rfft` /
     :func:`fft_packed_real`.  The numpy layout is differentiable."""
-    x = _as_real(x)
-    n = x.shape[-1]
-    if n in SUPPORTED_REAL_SIZES:
+    t = _T.on and _T.now()
+    try:
+        x = _as_real(x)
+        n = x.shape[-1]
+        if n in SUPPORTED_REAL_SIZES:
+            if packed:
+                return fft_packed_real(x, backend=backend, precision=precision)
+            return rfft(x, backend=backend, precision=precision)
+        FS._check_real_n(n)
+        exact = _exact(precision)
+        _check_backend(backend)
         if packed:
-            return fft_packed_real(x, backend=backend, precision=precision)
-        return rfft(x, backend=backend, precision=precision)
-    FS._check_real_n(n)
-    exact = _exact(precision)
-    _check_backend(backend)
-    if packed:
-        return _Packed.apply(x, lambda a: FS.rfft_four_step(
-            a, packed=True, backend=backend,
-            precision="exact" if exact else "highest"))
-    return _RFFTLarge.apply(x, exact, backend)
+            return _Packed.apply(x, lambda a: FS.rfft_four_step(
+                a, packed=True, backend=backend,
+                precision="exact" if exact else "highest"))
+        return _RFFTLarge.apply(x, exact, backend)
+    finally:
+        if t:
+            _T.record(t, "call:rfft_large", x)
 
 
 def irfft_large(x: torch.Tensor, n: int | None = None,
@@ -659,20 +766,25 @@ def irfft_large(x: torch.Tensor, n: int | None = None,
     signal (numpy); ``norm=None`` keeps the reference's raw (N/2)-scaled
     output (SMFFT_Stockham_R2C_C2R/FFT.c:170-171).  The numpy layout is
     differentiable."""
-    if norm not in ("backward", None):
-        raise ValueError(
-            f"irfft_large supports norm='backward' (numpy) or norm=None "
-            f"(raw reference scale); got {norm!r}")
     if n is None:
         n = (x.shape[-1] - 1) * 2 if not packed else x.shape[-1] * 2
-    if n in SUPPORTED_REAL_SIZES:
-        return irfft(x, n=n, backend=backend, precision=precision,
-                     norm=norm, packed=packed)
-    FS._check_real_n(n)
-    exact = _exact(precision)
-    _check_backend(backend)
-    scale = real_norm_scale(norm, n)
-    if packed:
-        return _Packed.apply(x, lambda h: FS.irfft_scaled(
-            h, n, packed=True, backend=backend, exact=exact, scale=scale))
-    return _IRFFTLarge.apply(x, n, exact, backend, scale)
+    t = _T.on and _T.now()
+    try:
+        if norm not in ("backward", None):
+            raise ValueError(
+                f"irfft_large supports norm='backward' (numpy) or norm=None "
+                f"(raw reference scale); got {norm!r}")
+        if n in SUPPORTED_REAL_SIZES:
+            return irfft(x, n=n, backend=backend, precision=precision,
+                         norm=norm, packed=packed)
+        FS._check_real_n(n)
+        exact = _exact(precision)
+        _check_backend(backend)
+        scale = real_norm_scale(norm, n)
+        if packed:
+            return _Packed.apply(x, lambda h: FS.irfft_scaled(
+                h, n, packed=True, backend=backend, exact=exact, scale=scale))
+        return _IRFFTLarge.apply(x, n, exact, backend, scale)
+    finally:
+        if t:
+            _T.record(t, "call:irfft_large", x, n)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from smfft_tpu_torch import params as P
+from smfft_tpu_torch import trace as _T
 
 LANES = 128
 
@@ -207,18 +208,28 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     """
     from smfft_tpu_torch.ops import _cuda
 
-    out, ptrs, interleaved = io_pointers(x, xi)
-    b, n = x.shape
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        a = sp
+        out, ptrs, interleaved = io_pointers(x, xi)
+        b, n = x.shape
+        t = sp and _T.now()
         tw = device_twiddles(n, bool(inverse), bool(exact), x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_c2c(*ptrs, interleaved, b, n,
-                            int(inverse), int(rev_in), int(rev_out),
-                            1.0 if scale is None else float(scale),
-                            tw.data_ptr(), int(exact), stream)
-    _cuda.check(err, f"c2c kernel launch (n={n}, batch={b})")
-    launch.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_c2c(*ptrs, interleaved, b, n,
+                                int(inverse), int(rev_in), int(rev_out),
+                                1.0 if scale is None else float(scale),
+                                tw.data_ptr(), int(exact), stream)
+        _cuda.check(err, f"c2c kernel launch (n={n}, batch={b})")
+        launch.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:c2c",
+                        "interleaved" if xi is None else "planar", exact, b, n)
     return out
 
 

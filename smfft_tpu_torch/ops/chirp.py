@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from smfft_tpu_torch import api
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
 
@@ -162,33 +163,45 @@ def launch_bluestein(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     """
     from smfft_tpu_torch.ops import _cuda
 
-    check_length(n, m)
-    if xi is None:
-        _check_rows(x, "x", torch.complex64, n)
-        out = torch.empty_like(x)
-        ptrs = (x.data_ptr(), None, out.data_ptr(), None)
-    else:
-        _check_rows(x, "xr", torch.float32, n)
-        _check_rows(xi, "xi", torch.float32, n)
-        if x.shape != xi.shape or x.device != xi.device:
-            raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
-                             f"{x.device} vs {tuple(xi.shape)} on "
-                             f"{xi.device}")
-        out = (torch.empty_like(x), torch.empty_like(xi))
-        ptrs = (x.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
-                out[1].data_ptr())
-    b, ld = x.shape
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = 0
+    try:
+        check_length(n, m)
+        if xi is None:
+            _check_rows(x, "x", torch.complex64, n)
+            a = sp and _T.now()
+            out = torch.empty_like(x)
+            ptrs = (x.data_ptr(), None, out.data_ptr(), None)
+        else:
+            _check_rows(x, "xr", torch.float32, n)
+            _check_rows(xi, "xi", torch.float32, n)
+            if x.shape != xi.shape or x.device != xi.device:
+                raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
+                                 f"{x.device} vs {tuple(xi.shape)} on "
+                                 f"{xi.device}")
+            a = sp and _T.now()
+            out = (torch.empty_like(x), torch.empty_like(xi))
+            ptrs = (x.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
+                    out[1].data_ptr())
+        b, ld = x.shape
+        t = sp and _T.now()
         w, h = device_consts(n, m, bool(inverse), bool(exact), x.device)
         tw_f = C.device_twiddles(m, False, bool(exact), x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_bluestein(*ptrs, int(xi is None), b, n, ld, m,
-                                  w.data_ptr(), h.data_ptr(),
-                                  1.0 if scale is None else float(scale),
-                                  tw_f.data_ptr(), int(exact), stream)
-    _cuda.check(err, f"bluestein kernel launch (n={n}, m={m}, batch={b})")
-    launch_bluestein.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_bluestein(*ptrs, int(xi is None), b, n, ld, m,
+                                      w.data_ptr(), h.data_ptr(),
+                                      1.0 if scale is None else float(scale),
+                                      tw_f.data_ptr(), int(exact), stream)
+        _cuda.check(err, f"bluestein kernel launch (n={n}, m={m}, "
+                         f"batch={b})")
+        launch_bluestein.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:bluestein",
+                        "interleaved" if xi is None else "planar", exact, b, n)
     return out
 
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from smfft_tpu_torch import params as P
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
 
@@ -125,21 +126,31 @@ def launch_conv(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     """
     from smfft_tpu_torch.ops import _cuda
 
-    if x.dim() != 2:
-        raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
-    b, n = x.shape
-    m = _check_response(h, x, n, exact)
-    out, ptrs, interleaved = C.io_pointers(x, xi, lead=(m,))
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        if x.dim() != 2:
+            raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
+        b, n = x.shape
+        m = _check_response(h, x, n, exact)
+        a = sp and _T.now()
+        out, ptrs, interleaved = C.io_pointers(x, xi, lead=(m,))
+        t = sp and _T.now()
         # the inverse core reads the forward table conjugated: no inverse
         # table (the entry point's tw_i is not read)
         tw_f = C.device_twiddles(n, False, bool(exact), x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_conv(*ptrs, interleaved, b, n, m, h.data_ptr(),
-                             tw_f.data_ptr(), None, int(exact), stream)
-    _cuda.check(err, f"conv kernel launch (n={n}, batch={b}, m={m})")
-    launch_conv.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_conv(*ptrs, interleaved, b, n, m, h.data_ptr(),
+                                 tw_f.data_ptr(), None, int(exact), stream)
+        _cuda.check(err, f"conv kernel launch (n={n}, batch={b}, m={m})")
+        launch_conv.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:conv",
+                        "interleaved" if xi is None else "planar", exact, b, n)
     return out
 
 
@@ -156,23 +167,34 @@ def launch_conv_real(x: torch.Tensor, *, h: torch.Tensor,
     ``launch_conv_real.count``."""
     from smfft_tpu_torch.ops import _cuda
 
-    if x.dim() != 2:
-        raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
-    b, n = x.shape
-    check_real_size(n)
-    R.check_tensor(x, "x", torch.float32, n)
-    m = _check_response(h, x, n // 2, exact)
-    out = torch.empty((m, b, n), device=x.device)
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        if x.dim() != 2:
+            raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
+        b, n = x.shape
+        check_real_size(n)
+        R.check_tensor(x, "x", torch.float32, n)
+        m = _check_response(h, x, n // 2, exact)
+        a = sp and _T.now()
+        out = torch.empty((m, b, n), device=x.device)
+        t = sp and _T.now()
         tw_f = C.device_twiddles(n // 2, False, bool(exact), x.device)
         wn = R.split_table(n, bool(exact), x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_conv_real(x.data_ptr(), out.data_ptr(), b, n, m,
-                                  h.data_ptr(), tw_f.data_ptr(), None,
-                                  wn.data_ptr(), int(exact), stream)
-    _cuda.check(err, f"conv_real kernel launch (n={n}, batch={b}, m={m})")
-    launch_conv_real.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_conv_real(x.data_ptr(), out.data_ptr(), b, n, m,
+                                      h.data_ptr(), tw_f.data_ptr(), None,
+                                      wn.data_ptr(), int(exact), stream)
+        _cuda.check(err, f"conv_real kernel launch (n={n}, batch={b}, "
+                         f"m={m})")
+        launch_conv_real.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:conv_real", "real",
+                        exact, b, n)
     return out
 
 

@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from smfft_tpu_torch import params as P
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import fourstep as FS
 
@@ -229,32 +230,42 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     fp64 instantiation.  Each launch adds one to ``launch_pass.count``."""
     from smfft_tpu_torch.ops import _cuda
 
-    ia, ib, ik = _operand(src, n, "src")
-    oa, ob, ok = _operand(dst, n, "dst")
-    first = src[0] if isinstance(src, tuple) else src
-    rows = first.shape[0]
-    rows_out = (dst[0] if isinstance(dst, tuple) else dst).shape[0]
-    if rows_out != rows:
-        raise ValueError(f"src has {rows} rows, dst {rows_out}")
-    rad = next((m[1] for m in (p.src, p.dst) if m[0] == "rows"), ())
-    if len(rad) > 4:
-        raise ValueError("a row map takes at most 4 radices")
-    rad = tuple(rad) + (0,) * (4 - len(rad))
-    nr = sum(1 for v in rad if v)
-    lib = _cuda.library()
-    dev = first.device
-    with torch.cuda.device(dev):
+    sp = _T.on and _T.now()
+    t = c = rows = 0
+    try:
+        ia, ib, ik = _operand(src, n, "src")
+        oa, ob, ok = _operand(dst, n, "dst")
+        first = src[0] if isinstance(src, tuple) else src
+        rows = first.shape[0]
+        rows_out = (dst[0] if isinstance(dst, tuple) else dst).shape[0]
+        if rows_out != rows:
+            raise ValueError(f"src has {rows} rows, dst {rows_out}")
+        rad = next((m[1] for m in (p.src, p.dst) if m[0] == "rows"), ())
+        if len(rad) > 4:
+            raise ValueError("a row map takes at most 4 radices")
+        rad = tuple(rad) + (0,) * (4 - len(rad))
+        nr = sum(1 for v in rad if v)
+        dev = first.device
+        t = sp and _T.now()
         tw = C.device_twiddles(p.radix, bool(inverse), bool(exact), dev)
         lo, hi = FS.device_roots(n, bool(inverse), bool(exact), dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.smfft_fourstep_pass(
-            ia, ib, ik, *_map_args(p.src), oa, ob, ok, *_map_args(p.dst),
-            nr, *rad, rows, n, p.radix, p.tw_s,
-            float(scale) if p.scaled else 1.0, tw.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), FS.lo_bits(n), int(inverse), int(exact), stream)
-    _cuda.check(err, f"fourstep pass launch (n={n}, radix={p.radix}, "
-                     f"batch={rows})")
-    launch_pass.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.smfft_fourstep_pass(
+                ia, ib, ik, *_map_args(p.src), oa, ob, ok, *_map_args(p.dst),
+                nr, *rad, rows, n, p.radix, p.tw_s,
+                float(scale) if p.scaled else 1.0, tw.data_ptr(),
+                lo.data_ptr(), hi.data_ptr(), FS.lo_bits(n), int(inverse),
+                int(exact), stream)
+        _cuda.check(err, f"fourstep pass launch (n={n}, radix={p.radix}, "
+                         f"batch={rows})")
+        launch_pass.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, 0, t, c, 0, "launch:fourstep_pass",
+                        f"radix={p.radix}", exact, rows, n)
 
 
 launch_pass.count = 0

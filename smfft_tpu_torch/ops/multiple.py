@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
 
@@ -96,22 +97,32 @@ def launch_multiple(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     """
     from smfft_tpu_torch.ops import _cuda
 
-    if loops < 0:
-        raise ValueError(f"loops must be >= 0, got {loops}")
-    out, ptrs, interleaved = C.io_pointers(x, xi)
-    b, n = x.shape
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        if loops < 0:
+            raise ValueError(f"loops must be >= 0, got {loops}")
+        a = sp and _T.now()
+        out, ptrs, interleaved = C.io_pointers(x, xi)
+        b, n = x.shape
+        t = sp and _T.now()
         tw = C.device_twiddles(n, bool(inverse), bool(exact), x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_c2c_multiple(
-            *ptrs, interleaved, b, n, int(inverse), int(loops), int(fb_rev),
-            int(last_rev), int(rev_out), 1.0 if scale is None else
-            float(scale), 1.0 / math.sqrt(n), tw.data_ptr(), int(exact),
-            stream)
-    _cuda.check(err, f"c2c_multiple kernel launch (n={n}, batch={b}, "
-                     f"loops={loops})")
-    launch_multiple.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_c2c_multiple(
+                *ptrs, interleaved, b, n, int(inverse), int(loops),
+                int(fb_rev), int(last_rev), int(rev_out),
+                1.0 if scale is None else float(scale), 1.0 / math.sqrt(n),
+                tw.data_ptr(), int(exact), stream)
+        _cuda.check(err, f"c2c_multiple kernel launch (n={n}, batch={b}, "
+                         f"loops={loops})")
+        launch_multiple.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:c2c_multiple",
+                        "interleaved" if xi is None else "planar", exact, b, n)
     return out
 
 
@@ -125,27 +136,38 @@ def launch_real_multiple(x: torch.Tensor, pairs: int) -> torch.Tensor:
     Each launch adds one to ``launch_real_multiple.count``."""
     from smfft_tpu_torch.ops import _cuda
 
-    if x.dim() != 2:
-        raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
-    b, n = x.shape
-    check_pencil(n, 256, 4096)
-    R.check_tensor(x, "x", torch.float32, n)
-    if pairs < 1:
-        raise ValueError(f"pairs must be >= 1, got {pairs}")
-    L = n // 2
-    out = torch.empty_like(x)
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        if x.dim() != 2:
+            raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
+        b, n = x.shape
+        check_pencil(n, 256, 4096)
+        R.check_tensor(x, "x", torch.float32, n)
+        if pairs < 1:
+            raise ValueError(f"pairs must be >= 1, got {pairs}")
+        L = n // 2
+        a = sp and _T.now()
+        out = torch.empty_like(x)
+        t = sp and _T.now()
         tw_f = C.device_twiddles(L, False, False, x.device)
         tw_i = C.device_twiddles(L, True, False, x.device)
         wn = R.split_table(n, False, x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_real_multiple(x.data_ptr(), out.data_ptr(), b, n,
-                                      int(pairs), tw_f.data_ptr(),
-                                      tw_i.data_ptr(), wn.data_ptr(), stream)
-    _cuda.check(err, f"real_multiple kernel launch (n={n}, batch={b}, "
-                     f"pairs={pairs})")
-    launch_real_multiple.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_real_multiple(x.data_ptr(), out.data_ptr(), b, n,
+                                          int(pairs), tw_f.data_ptr(),
+                                          tw_i.data_ptr(), wn.data_ptr(),
+                                          stream)
+        _cuda.check(err, f"real_multiple kernel launch (n={n}, batch={b}, "
+                         f"pairs={pairs})")
+        launch_real_multiple.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:real_multiple",
+                        f"pairs={pairs}", False, b, n)
     return out
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from smfft_tpu_torch import params as P
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.ops import c2c as C
 
 LAYOUTS = ("planar", "planar_rev", "packed", "numpy")
@@ -205,30 +206,41 @@ def launch_r2c(x: torch.Tensor, layout: str = "planar", exact: bool = False):
     """
     from smfft_tpu_torch.ops import _cuda
 
-    code = _layout_code(layout)
-    if x.dim() != 2:
-        raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
-    b, n = x.shape
-    check_size(n)
-    check_tensor(x, "x", torch.float32, n)
-    L = n // 2
-    width, dtype = _spectrum_shape(layout, L)
-    if dtype == torch.float32:
-        out = (torch.empty((b, L), device=x.device),
-               torch.empty((b, L), device=x.device))
-        o_re, o_im = out[0].data_ptr(), out[1].data_ptr()
-    else:
-        out = torch.empty((b, width), dtype=dtype, device=x.device)
-        o_re, o_im = out.data_ptr(), None
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        code = _layout_code(layout)
+        if x.dim() != 2:
+            raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
+        b, n = x.shape
+        check_size(n)
+        check_tensor(x, "x", torch.float32, n)
+        L = n // 2
+        width, dtype = _spectrum_shape(layout, L)
+        a = sp and _T.now()
+        if dtype == torch.float32:
+            out = (torch.empty((b, L), device=x.device),
+                   torch.empty((b, L), device=x.device))
+            o_re, o_im = out[0].data_ptr(), out[1].data_ptr()
+        else:
+            out = torch.empty((b, width), dtype=dtype, device=x.device)
+            o_re, o_im = out.data_ptr(), None
+        t = sp and _T.now()
         tw = C.device_twiddles(L, False, bool(exact), x.device)
         wn = split_table(n, bool(exact), x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_r2c(x.data_ptr(), o_re, o_im, code, b, n,
-                            tw.data_ptr(), wn.data_ptr(), int(exact), stream)
-    _cuda.check(err, f"r2c kernel launch (n={n}, batch={b}, {layout})")
-    launch_r2c.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_r2c(x.data_ptr(), o_re, o_im, code, b, n,
+                                tw.data_ptr(), wn.data_ptr(), int(exact),
+                                stream)
+        _cuda.check(err, f"r2c kernel launch (n={n}, batch={b}, {layout})")
+        launch_r2c.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:r2c", layout,
+                        exact, b, n)
     return out
 
 
@@ -248,36 +260,49 @@ def launch_c2r(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
     """
     from smfft_tpu_torch.ops import _cuda
 
-    code = _layout_code(layout)
-    check_size(n)
-    L = n // 2
-    width, dtype = _spectrum_shape(layout, L)
-    check_tensor(spec, "spec", dtype, width)
-    if dtype == torch.float32:
-        if spec_im is None:
-            raise ValueError(f"layout {layout!r} takes two planes")
-        check_tensor(spec_im, "spec_im", dtype, width)
-        if spec_im.shape != spec.shape or spec_im.device != spec.device:
-            raise ValueError(f"planar pair differs: {tuple(spec.shape)} on "
-                             f"{spec.device} vs {tuple(spec_im.shape)} on "
-                             f"{spec_im.device}")
-        i_im = spec_im.data_ptr()
-    else:
-        if spec_im is not None:
-            raise ValueError(f"layout {layout!r} takes one complex tensor")
-        i_im = None
-    b = spec.shape[0]
-    out = torch.empty((b, n), device=spec.device)
-    lib = _cuda.library()
-    with torch.cuda.device(spec.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = 0
+    try:
+        code = _layout_code(layout)
+        check_size(n)
+        L = n // 2
+        width, dtype = _spectrum_shape(layout, L)
+        check_tensor(spec, "spec", dtype, width)
+        if dtype == torch.float32:
+            if spec_im is None:
+                raise ValueError(f"layout {layout!r} takes two planes")
+            check_tensor(spec_im, "spec_im", dtype, width)
+            if spec_im.shape != spec.shape or spec_im.device != spec.device:
+                raise ValueError(f"planar pair differs: {tuple(spec.shape)} "
+                                 f"on {spec.device} vs "
+                                 f"{tuple(spec_im.shape)} on "
+                                 f"{spec_im.device}")
+            i_im = spec_im.data_ptr()
+        else:
+            if spec_im is not None:
+                raise ValueError(f"layout {layout!r} takes one complex "
+                                 "tensor")
+            i_im = None
+        b = spec.shape[0]
+        a = sp and _T.now()
+        out = torch.empty((b, n), device=spec.device)
+        t = sp and _T.now()
         tw = C.device_twiddles(L, True, bool(exact), spec.device)
         wn = split_table(n, bool(exact), spec.device)
-        stream = torch.cuda.current_stream(spec.device).cuda_stream
-        err = lib.smfft_c2r(spec.data_ptr(), i_im, code, out.data_ptr(), b,
-                            n, 1.0 if scale is None else float(scale),
-                            tw.data_ptr(), wn.data_ptr(), int(exact), stream)
-    _cuda.check(err, f"c2r kernel launch (n={n}, batch={b}, {layout})")
-    launch_c2r.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(spec.device):
+            stream = torch.cuda.current_stream(spec.device).cuda_stream
+            err = lib.smfft_c2r(spec.data_ptr(), i_im, code, out.data_ptr(),
+                                b, n, 1.0 if scale is None else float(scale),
+                                tw.data_ptr(), wn.data_ptr(), int(exact),
+                                stream)
+        _cuda.check(err, f"c2r kernel launch (n={n}, batch={b}, {layout})")
+        launch_c2r.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:c2r", layout,
+                        exact, b, n)
     return out
 
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import fourstep as FS
 from smfft_tpu_torch.ops import fourstep_fused as FF
@@ -171,28 +172,39 @@ def launch_real_huge(mode: str, z: torch.Tensor, spec, n: int, *,
     Each launch adds one to ``launch_real_huge.count``."""
     from smfft_tpu_torch.ops import _cuda
 
-    codes = ("pair_split", "pair_merge", "halfc_split", "halfc_merge")
-    if mode not in codes:
-        raise ValueError(f"unknown mode {mode!r}; one of {codes}")
-    L = n // 2
-    pair = mode.startswith("pair")
-    za, _, zk = FF._operand(z, n if pair else L, "z")
-    xa, xb, layout, x_rows = _spec_args(spec, L)
-    rows = z.shape[0]
-    if (pair and not rows <= x_rows <= 2 * rows) or (not pair
-                                                      and x_rows != rows):
-        raise ValueError(f"{x_rows} spectra do not match {rows} rows of Z "
-                         f"in mode {mode}")
-    lib = _cuda.library()
-    with torch.cuda.device(z.device):
+    sp = _T.on and _T.now()
+    t = c = rows = 0
+    try:
+        codes = ("pair_split", "pair_merge", "halfc_split", "halfc_merge")
+        if mode not in codes:
+            raise ValueError(f"unknown mode {mode!r}; one of {codes}")
+        L = n // 2
+        pair = mode.startswith("pair")
+        za, _, zk = FF._operand(z, n if pair else L, "z")
+        xa, xb, layout, x_rows = _spec_args(spec, L)
+        rows = z.shape[0]
+        if (pair and not rows <= x_rows <= 2 * rows) or (not pair
+                                                          and x_rows != rows):
+            raise ValueError(f"{x_rows} spectra do not match {rows} rows of "
+                             f"Z in mode {mode}")
+        t = sp and _T.now()
         lo, hi = FS.device_roots(n, False, bool(exact), z.device)
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.smfft_real_huge(codes.index(mode), za, zk, xa, xb, layout,
-                                  rows, n, rows if pair else 0, x_rows,
-                                  float(scale), lo.data_ptr(), hi.data_ptr(),
-                                  FS.lo_bits(n), int(exact), stream)
-    _cuda.check(err, f"real_huge kernel launch ({mode}, n={n}, rows={rows})")
-    launch_real_huge.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(z.device):
+            stream = torch.cuda.current_stream(z.device).cuda_stream
+            err = lib.smfft_real_huge(codes.index(mode), za, zk, xa, xb,
+                                      layout, rows, n, rows if pair else 0,
+                                      x_rows, float(scale), lo.data_ptr(),
+                                      hi.data_ptr(), FS.lo_bits(n),
+                                      int(exact), stream)
+        _cuda.check(err, f"real_huge kernel launch ({mode}, n={n}, "
+                         f"rows={rows})")
+        launch_real_huge.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, 0, t, c, 0, "launch:real_huge", mode,
+                        exact, rows, n)
 
 
 launch_real_huge.count = 0

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from smfft_tpu_torch import trace as _T
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
 
@@ -61,27 +62,38 @@ def launch_power(x: torch.Tensor,
     to ``launch_power.count``."""
     from smfft_tpu_torch.ops import _cuda
 
-    if x.dim() != 2:
-        raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
-    b, n = x.shape
-    check_size(n)
-    R.check_tensor(x, "x", torch.float32, n)
-    w_ptr = None
-    if window is not None:
-        R.check_tensor(window.view(1, -1), "window", torch.float32, n)
-        if window.device != x.device:
-            raise ValueError(f"window is on {window.device}, x on {x.device}")
-        w_ptr = window.data_ptr()
-    out = torch.empty((b, n // 2), device=x.device)
-    lib = _cuda.library()
-    with torch.cuda.device(x.device):
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        if x.dim() != 2:
+            raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
+        b, n = x.shape
+        check_size(n)
+        R.check_tensor(x, "x", torch.float32, n)
+        w_ptr = None
+        if window is not None:
+            R.check_tensor(window.view(1, -1), "window", torch.float32, n)
+            if window.device != x.device:
+                raise ValueError(f"window is on {window.device}, x on "
+                                 f"{x.device}")
+            w_ptr = window.data_ptr()
+        a = sp and _T.now()
+        out = torch.empty((b, n // 2), device=x.device)
+        t = sp and _T.now()
         tw = C.device_twiddles(n // 2, False, False, x.device)
         wn = R.split_table(n, False, x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.smfft_power(x.data_ptr(), w_ptr, out.data_ptr(), b, n,
-                              tw.data_ptr(), wn.data_ptr(), stream)
-    _cuda.check(err, f"power kernel launch (n={n}, batch={b})")
-    launch_power.count += 1
+        c = sp and _T.now()
+        lib = _cuda.library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.smfft_power(x.data_ptr(), w_ptr, out.data_ptr(), b, n,
+                                  tw.data_ptr(), wn.data_ptr(), stream)
+        _cuda.check(err, f"power kernel launch (n={n}, batch={b})")
+        launch_power.count += 1
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:power",
+                        "plain" if window is None else "window", False, b, n)
     return out
 
 

@@ -1,0 +1,332 @@
+"""The port's spans (``smfft_tpu_torch.trace``) on the CPU: what the public
+calls, the ops and the launch wrappers record, the threads' parents, the
+switch, the clock against ``torch.profiler``'s, and the collector."""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import threading
+import time
+
+import pytest
+import torch
+
+from smfft_tpu_torch import api
+from smfft_tpu_torch import trace
+from smfft_tpu_torch.ops import _cuda
+from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import real as R
+
+
+@pytest.fixture(autouse=True)
+def recording_off():
+    """Each test starts and ends with recording off."""
+    trace.stop()
+    yield
+    trace.stop()
+
+
+def _spans(rec) -> list[dict]:
+    return [rec.span(i) for i in range(len(rec))]
+
+
+def _children(spans, i) -> list[dict]:
+    return [s for s in spans if s["parent"] == i]
+
+
+def _c(*shape):
+    g = torch.Generator().manual_seed(7)
+    return torch.complex(torch.randn(shape, generator=g),
+                         torch.randn(shape, generator=g))
+
+
+def _r(*shape):
+    return torch.randn(shape, generator=torch.Generator().manual_seed(8))
+
+
+def test_recording_is_off_at_import_and_calls_record_nothing():
+    assert trace.on is False
+    before = len(trace._log)
+    api.fft(_c(4, 256))
+    api.rfft(_r(2, 256))
+    assert len(trace._log) == before
+    trace.start()
+    assert len(trace.stop()) == 0
+
+
+# public call: (the call, the op under it, its n, its rows)
+CALLS = {
+    "fft": (lambda: api.fft(_c(4, 256)), "op:ordered_c2c", 256, 4),
+    "ifft": (lambda: api.ifft(_c(2, 3, 512)), "op:ordered_c2c", 512, 6),
+    "ifft_unordered": (lambda: api.ifft_unordered(_c(4, 256)),
+                       "op:fft_complex", 256, 4),
+    "rfft": (lambda: api.rfft(_r(3, 2, 256)), "op:rfft", 256, 6),
+    "irfft": (lambda: api.irfft(_c(4, 129)), "op:irfft", 256, 4),
+    "convolve_real": (lambda: api.convolve_real(_r(2, 512), _c(257)),
+                      "op:convolve", 512, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CALLS))
+def test_a_public_call_records_its_call_and_op(name):
+    run, op, n, rows = CALLS[name]
+    trace.start()
+    run()
+    spans = _spans(trace.stop())
+    roots = [i for i, s in enumerate(spans) if s["parent"] == -1]
+    assert len(roots) == 1
+    root = spans[roots[0]]
+    assert root["name"] == f"call:{name}"
+    assert root["attrs"] == {"n": n, "rows": rows}
+    ops = _children(spans, roots[0])
+    assert [s["name"] for s in ops] == [op]
+    assert root["start"] <= ops[0]["start"] <= ops[0]["end"] <= root["end"]
+    assert all(s["root"] == roots[0] and s["thread"] == 0 for s in spans)
+
+
+def test_fft_large_at_a_row_size_nests_call_fft():
+    trace.start()
+    api.fft_large(_c(2, 1024))
+    spans = _spans(trace.stop())
+    assert [(s["name"], s["parent"]) for s in spans] == [
+        ("call:fft_large", -1), ("call:fft", 0), ("op:ordered_c2c", 1)]
+    assert spans[1]["attrs"] == {"n": 1024, "rows": 2}
+    assert spans[0]["start"] <= spans[1]["start"]
+    assert spans[1]["end"] <= spans[0]["end"]
+
+
+def test_unordered_fft_records_the_op_that_bypasses_autograd():
+    trace.start()
+    api.fft(_c(4, 256), ordered=False)
+    spans = _spans(trace.stop())
+    assert [s["name"] for s in spans] == ["call:fft", "op:fft_complex"]
+
+
+def test_a_call_that_raises_closes_its_span():
+    trace.start()
+    with pytest.raises(ValueError):
+        api.fft(_c(3, 100))
+    api.fft(_c(4, 256))
+    spans = _spans(trace.stop())
+    assert [(s["name"], s["parent"]) for s in spans] == [
+        ("call:fft", -1), ("call:fft", -1), ("op:ordered_c2c", 1)]
+    assert spans[0]["attrs"] == {"n": 100, "rows": 3}
+
+
+def test_spans_nest_by_their_times():
+    trace.start()
+    outer = trace.now()
+    inner = trace.now()
+    trace.record(inner, "op:inner")
+    trace.record(outer, "call:outer")
+    after = trace.now()
+    trace.record(after, "call:after")
+    spans = _spans(trace.stop())
+    assert [(s["name"], s["parent"], s["root"]) for s in spans] == [
+        ("call:outer", -1, 0), ("op:inner", 0, 0), ("call:after", -1, 2)]
+
+
+def test_two_threads_never_take_each_others_parents():
+    barrier = threading.Barrier(2)
+
+    def work(tag):
+        outer = trace.now()
+        barrier.wait()
+        inner = trace.now()
+        barrier.wait()
+        trace.record(inner, f"op:{tag}")
+        barrier.wait()
+        trace.record(outer, f"call:{tag}")
+
+    trace.start()
+    threads = [threading.Thread(target=work, args=(t,)) for t in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    spans = _spans(trace.stop())
+    assert len(spans) == 4
+    for tag in "ab":
+        i = next(i for i, s in enumerate(spans) if s["name"] == f"call:{tag}")
+        op = next(s for s in spans if s["name"] == f"op:{tag}")
+        assert spans[i]["parent"] == -1
+        assert op["parent"] == i and op["root"] == i
+        assert op["thread"] == spans[i]["thread"]
+    assert len({s["thread"] for s in spans}) == 2
+
+
+def test_start_and_stop_are_idempotent():
+    trace.start()
+    t = trace.now()
+    anchor = trace._anchor
+    trace.start()
+    assert trace.on and trace._anchor == anchor
+    trace.record(t, "call:x", torch.zeros(8))
+    first = trace.stop()
+    assert trace.on is False and len(first) == 1
+    assert first.span(0)["attrs"] == {"n": 8, "rows": 1}
+    assert len(trace.stop()) == 0     # while off: empty records
+    trace.record(t, "call:x", torch.zeros(8))   # while off: nothing
+    trace.start()
+    assert len(trace.stop()) == 0
+
+
+def test_spans_lie_on_the_profilers_clock():
+    """A span inside a ``record_function`` region lies inside that event's
+    interval on the profiler's clock, within 20 us."""
+    act = torch.profiler.ProfilerActivity
+    trace.start()
+    with torch.profiler.profile(activities=[act.CPU]) as prof:
+        with torch.profiler.record_function("smfft_region"):
+            time.sleep(0.002)
+            t = trace.now()
+            time.sleep(0.001)
+            trace.record(t, "op:inside")
+            time.sleep(0.002)
+    span = trace.stop().span(0)
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.name() == "smfft_region"]
+    assert len(ev) == 1
+    tol = 20_000
+    assert ev[0].start_ns() - tol <= span["start"]
+    assert span["end"] <= ev[0].end_ns() + tol
+    assert span["end"] - span["start"] >= 1_000_000
+
+
+def test_recording_creates_no_object_the_collector_tracks():
+    xs = [torch.zeros(rows, 1024) for rows in range(1, 5)]
+    trace.start()
+    gc.collect()
+    before = len(gc.get_objects())
+    for i in range(100_000):
+        trace.record(trace.now(), "call:fft", xs[i % 4])
+    grown = len(gc.get_objects()) - before
+    rec = trace.stop()
+    assert len(rec) == 100_000
+    assert grown < 100
+    assert len(rec.attrs) == 4
+
+
+def _stand_in(x):
+    """A launch wrapper's shape: entry, alloc, tables, the call."""
+    sp = trace.on and trace.now()
+    a = t = c = out = b = n = 0
+    try:
+        b, n = x.shape
+        a = sp and trace.now()
+        out = torch.empty_like(x)
+        t = sp and trace.now()
+        c = sp and trace.now()
+        _stand_in.count += 1
+    finally:
+        if sp:
+            trace.launched(sp, a, t, c, out, "launch:c2c", "interleaved",
+                           False, b, n)
+    return out
+
+
+_stand_in.count = 0
+
+
+def test_a_launch_site_counts_and_records_its_children():
+    x = _c(4, 256)
+    _stand_in(x)
+    assert _stand_in.count == 1
+    trace.start()
+    _stand_in(x)
+    spans = _spans(trace.stop())
+    assert _stand_in.count == 2
+    assert spans[0]["name"] == "launch:c2c"
+    assert spans[0]["attrs"] == {"rows": 4, "n": 256,
+                                 "variant": "interleaved", "exact": False}
+    kids = _children(spans, 0)
+    assert [s["name"] for s in kids] == ["alloc", "tables", "call"]
+    assert kids[0]["attrs"] == {"bytes": 4 * 256 * 8}
+    assert all(spans[0]["start"] <= k["start"] <= k["end"] <= spans[0]["end"]
+               for k in kids)
+
+
+class _Lib:
+    """The kernel library's entry points, each doing nothing and returning
+    ``err``."""
+
+    def __init__(self, err=0):
+        self.err = err
+
+    def smfft_error_string(self, err):
+        return b"stand-in error"
+
+    def __getattr__(self, name):
+        return lambda *args: self.err
+
+
+@pytest.fixture
+def card_path(monkeypatch):
+    """The CUDA branch of the launch wrappers on CPU tensors: the checks
+    of the device, the library, the device guard and the stream stood
+    in."""
+    lib = _Lib()
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(C, "_check_rows", lambda *a: None)
+    monkeypatch.setattr(R, "check_tensor", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+
+    class _Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream())
+    return lib
+
+
+@pytest.mark.parametrize("kernel", ["c2c", "r2c", "c2r"])
+def test_a_launch_wrapper_records_launch_tables_alloc_and_call(card_path,
+                                                               kernel):
+    fn, args, kw, variant, out_bytes = {
+        "c2c": (C.launch, (_c(8, 256),), {}, "interleaved", 8 * 256 * 8),
+        "r2c": (R.launch_r2c, (_r(8, 256),), {"layout": "numpy"}, "numpy",
+                8 * 129 * 8),
+        "c2r": (R.launch_c2r, (_c(8, 129),), {"n": 256, "layout": "numpy"},
+                "numpy", 8 * 256 * 4),
+    }[kernel]
+    before = fn.count
+    trace.start()
+    fn(*args, **kw)
+    spans = _spans(trace.stop())
+    assert fn.count == before + 1
+    assert spans[0]["name"] == f"launch:{kernel}"
+    assert spans[0]["attrs"] == {"rows": 8, "n": 256, "variant": variant,
+                                 "exact": False}
+    kids = _children(spans, 0)
+    assert [s["name"] for s in kids] == ["alloc", "tables", "call"]
+    assert kids[0]["attrs"] == {"bytes": out_bytes}
+    assert len(spans) == 4
+
+
+def test_a_launch_that_fails_is_recorded_and_not_counted(card_path):
+    """The library call's error passes out of the launch with its span and
+    its children recorded, the ``call`` child ending with the launch; no
+    kernel ran, so the count stays."""
+    card_path.err = 700
+    before = C.launch.count
+    trace.start()
+    with pytest.raises(RuntimeError, match="stand-in error"):
+        C.launch(_c(8, 256))
+    spans = _spans(trace.stop())
+    assert C.launch.count == before
+    assert [(s["name"], s["parent"]) for s in spans] == [
+        ("launch:c2c", -1), ("alloc", 0), ("tables", 0), ("call", 0)]
+    assert spans[3]["end"] == spans[0]["end"]
+
+
+def test_a_launch_that_fails_in_its_checks_records_what_began(card_path):
+    """A check that raises before the output is allocated: the launch
+    alone, not counted."""
+    before = R.launch_r2c.count
+    trace.start()
+    with pytest.raises(ValueError, match="layout"):
+        R.launch_r2c(_r(8, 256), layout="no such layout")
+    spans = _spans(trace.stop())
+    assert R.launch_r2c.count == before
+    assert [s["name"] for s in spans] == ["launch:r2c"]
+    assert spans[0]["attrs"]["variant"] == "no such layout"
