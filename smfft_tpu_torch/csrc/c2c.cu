@@ -61,8 +61,9 @@
 //     splitting the row over distributed shared memory is the way past
 //     it, not taken here); the block holds 32 points a thread in place;
 //   * shared memory above 48 KB is dynamic only, after
-//     cudaFuncSetAttribute(MaxDynamicSharedMemorySize); the launcher sets
-//     it and returns cudaGetLastError() right after the launch;
+//     cudaFuncSetAttribute(MaxDynamicSharedMemorySize), which
+//     smfft_c2c_prepare sets once a plan (a device); smfft_c2c_run returns
+//     cudaGetLastError() right after the launch;
 //   * two data layouts, chosen by a runtime flag: interleaved complex64
 //     (one float2 load or store per point; the complex API hands over its
 //     tensor with no conversion pass) or two contiguous fp32 planes (the
@@ -172,57 +173,64 @@ c2c_kernel(Io io, int64_t batch, int inverse, int in_rev, int out_rev,
     }
 }
 
+// A launch of c2c_kernel for one (N, tier, layout, direction, orders),
+// worked out once by smfft_c2c_prepare and run by smfft_c2c_run: the
+// instantiation's launcher and the arguments every launch repeats.
+struct C2cPlan {
+    cudaError_t (*run)(const C2cPlan& plan, const Io& io, int64_t batch,
+                       float scale, cudaStream_t stream);
+    const void* twiddles;
+    int interleaved;
+    int inverse;
+    int in_rev;
+    int out_rev;
+};
+
 template <int N, bool EXACT>
-cudaError_t launch(const Io& io, int64_t batch, int inverse, int in_rev,
-                   int out_rev, float scale, const void* tw,
-                   cudaStream_t stream) {
+cudaError_t run_plan(const C2cPlan& p, const Io& io, int64_t batch,
+                     float scale, cudaStream_t stream) {
     using G = RowGeometry<N, EXACT>;
     using C = typename G::C;
-    auto kernel = c2c_kernel<N, EXACT>;
-    cudaError_t err = allow_smem(kernel, G::SMEM);
-    if (err != cudaSuccess) return err;
-    kernel<<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(
-        io, batch, inverse, in_rev, out_rev, scale,
-        static_cast<const C*>(tw));
+    c2c_kernel<N, EXACT><<<G::blocks(batch), G::THREADS, G::SMEM, stream>>>(
+        io, batch, p.inverse, p.in_rev, p.out_rev, scale,
+        static_cast<const C*>(p.twiddles));
     return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t launch_tier(int exact, const Io& io, int64_t batch, int inverse,
-                        int in_rev, int out_rev, float scale, const void* tw,
-                        cudaStream_t stream) {
-    if (exact)
-        return launch<N, true>(io, batch, inverse, in_rev, out_rev, scale,
-                               tw, stream);
-    return launch<N, false>(io, batch, inverse, in_rev, out_rev, scale, tw,
-                            stream);
+template <int N, bool EXACT>
+cudaError_t prepare_plan(C2cPlan& p) {
+    p.run = run_plan<N, EXACT>;
+    return allow_smem(c2c_kernel<N, EXACT>, RowGeometry<N, EXACT>::SMEM);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success).  interleaved != 0: in_re and
-// out_re point at complex64 data (8-byte aligned) and in_im, out_im are
-// unused; otherwise the four pointers are contiguous fp32 planes.  Rows are
-// contiguous, so transform b starts at point b*n.  twiddles is W_N^m,
-// m < N, as (re, im) float32 pairs, or float64 pairs when exact != 0.
-int smfft_c2c(const void* in_re, const void* in_im, void* out_re,
-              void* out_im, int interleaved, int64_t batch, int64_t n,
-              int inverse, int in_rev, int out_rev, float scale,
-              const void* twiddles, int exact, void* stream) {
-    if (batch <= 0) return (int)cudaSuccess;
-    Io io;
-    io.in_re = static_cast<const float*>(in_re);
-    io.in_im = static_cast<const float*>(in_im);
-    io.out_re = static_cast<float*>(out_re);
-    io.out_im = static_cast<float*>(out_im);
-    io.interleaved = interleaved != 0;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The bytes of a plan: the caller owns its storage (8-byte aligned).
+int smfft_c2c_plan_bytes(void) { return (int)sizeof(C2cPlan); }
+
+// Fills `plan` for n and the tier, and lets that instantiation take its
+// dynamic shared memory on the current device (cudaFuncSetAttribute), so
+// call it once per plan under the device that will run it.  Returns a
+// cudaError_t (0 on success).  interleaved != 0: complex64 rows (8-byte
+// aligned); otherwise two contiguous fp32 planes.  twiddles is W_N^m,
+// m < N, as (re, im) float32 pairs, or float64 pairs when exact != 0; it
+// has to outlive the plan.
+int smfft_c2c_prepare(void* plan, int64_t n, int exact, int interleaved,
+                      int inverse, int in_rev, int out_rev,
+                      const void* twiddles) {
+    C2cPlan& p = *static_cast<C2cPlan*>(plan);
+    p.run = nullptr;
+    p.twiddles = twiddles;
+    p.interleaved = interleaved;
+    p.inverse = inverse;
+    p.in_rev = in_rev;
+    p.out_rev = out_rev;
 #define SMFFT_CASE(NN)                                                      \
     case NN:                                                                \
-        return (int)launch_tier<NN>(exact, io, batch, inverse, in_rev,      \
-                                    out_rev, scale, twiddles, st);
+        return (int)(exact ? prepare_plan<NN, true>(p)                      \
+                           : prepare_plan<NN, false>(p));
     switch (n) {
         SMFFT_CASE(32)
         SMFFT_CASE(64)
@@ -238,6 +246,23 @@ int smfft_c2c(const void* in_re, const void* in_im, void* out_re,
             return (int)cudaErrorInvalidValue;
     }
 #undef SMFFT_CASE
+}
+
+// One launch of a prepared plan on `stream`: y = scale * DFT(x) over
+// `batch` contiguous rows (transform b starts at point b*n); in_im and
+// out_im are unused for interleaved data.  Returns a cudaError_t.
+int smfft_c2c_run(const void* plan, const void* in_re, const void* in_im,
+                  void* out_re, void* out_im, int64_t batch, float scale,
+                  void* stream) {
+    if (batch <= 0) return (int)cudaSuccess;
+    const C2cPlan& p = *static_cast<const C2cPlan*>(plan);
+    Io io;
+    io.in_re = static_cast<const float*>(in_re);
+    io.in_im = static_cast<const float*>(in_im);
+    io.out_re = static_cast<float*>(out_re);
+    io.out_im = static_cast<float*>(out_im);
+    io.interleaved = p.interleaved != 0;
+    return (int)p.run(p, io, batch, scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* smfft_error_string(int err) {

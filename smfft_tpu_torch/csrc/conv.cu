@@ -401,7 +401,7 @@ cudaError_t launch_conv_real(const float* x, float* y, int64_t batch, int m,
 
 extern "C" {
 
-// Rows (batch, n) as smfft_c2c's (interleaved complex64 or fp32 planes)
+// Rows (batch, n) as smfft_c2c_run's (interleaved complex64 or fp32 planes)
 // against m >= 1 responses h (m, n) -> out (m, batch, n) in the same
 // layout.  h: complex (re, im) pairs with 1/n folded in, float32, or
 // float64 when exact != 0, like the twiddles: tw_f = W_N^{-j}, j < N (the

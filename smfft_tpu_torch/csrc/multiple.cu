@@ -312,7 +312,7 @@ extern "C" {
 // loops) stores its spectrum in revblock order when fb_rev (last_rev for
 // hand-off `loops`), each later transform's input times loop_scale; the
 // output is natural or, with out_rev, revblock.  Data pointers and
-// twiddles as smfft_c2c's (float64 twiddles when exact != 0).  Returns a
+// twiddles as smfft_c2c_prepare's (float64 twiddles when exact != 0).  Returns a
 // cudaError_t (0 on success).
 int smfft_c2c_multiple(const void* in_re, const void* in_im, void* out_re,
                        void* out_im, int interleaved, int64_t batch,

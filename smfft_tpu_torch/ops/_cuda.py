@@ -167,8 +167,9 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build(find_nvcc())))
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         f32 = ctypes.c_float
-        lib.smfft_c2c.argtypes = [vp, vp, vp, vp, ci, i64, i64, ci, ci, ci,
-                                  f32, vp, ci, vp]
+        lib.smfft_c2c_plan_bytes.argtypes = []
+        lib.smfft_c2c_prepare.argtypes = [vp, i64, ci, ci, ci, ci, ci, vp]
+        lib.smfft_c2c_run.argtypes = [vp, vp, vp, vp, vp, i64, f32, vp]
         lib.smfft_r2c.argtypes = [vp, vp, vp, ci, i64, i64, vp, vp, ci, vp]
         lib.smfft_c2r.argtypes = [vp, vp, ci, vp, i64, i64, f32, vp, vp, ci,
                                   vp]
@@ -193,7 +194,8 @@ def library() -> ctypes.CDLL:
         lib.smfft_real_huge.argtypes = [ci, vp, ci, vp, vp, ci, i64, i64, i64,
                                         i64, ctypes.c_double, vp, vp, ci, ci,
                                         vp]
-        for fn in (lib.smfft_c2c, lib.smfft_r2c, lib.smfft_c2r,
+        for fn in (lib.smfft_c2c_plan_bytes, lib.smfft_c2c_prepare,
+                   lib.smfft_c2c_run, lib.smfft_r2c, lib.smfft_c2r,
                    lib.smfft_c2c_multiple, lib.smfft_real_multiple,
                    lib.smfft_conv, lib.smfft_conv_real, lib.smfft_power,
                    lib.smfft_bluestein, lib.smfft_fourstep_pass,

@@ -28,6 +28,7 @@ the ragged tail of the batch itself, so no padding pass exists here.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -195,6 +196,81 @@ def io_pointers(x: torch.Tensor, xi: torch.Tensor | None = None,
                  out[1].data_ptr()), 0
 
 
+def _no_cuda(*_):
+    raise RuntimeError("smfft_tpu_torch: this PyTorch build has no CUDA")
+
+
+# the current device's index, and the raw handle of a device's current
+# stream with no ``torch.cuda.Stream`` object built (the accessor Triton's
+# launchers use); a plan never holds a stream: each launch reads it
+_current_device = getattr(torch._C, "_cuda_getDevice", _no_cuda)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _no_cuda)
+
+#: the most plans the cache holds; past it the least recently used goes
+PLAN_SLOTS = 64
+# launch plans by key, least recently used first: a hit pops its plan and
+# sets it again (two steps, each atomic), so it needs no lock; two threads
+# that miss one key together may both build it, and either plan serves
+_plans: dict = {}
+
+
+class _Plan:
+    """What every launch of one key repeats, worked out once: the library's
+    run entry, the address of the constants ``smfft_c2c_prepare`` filled
+    (the instantiation, the layout, the direction and orders, the twiddle
+    table's pointer), the storage of both, and the device's index."""
+
+    __slots__ = ("run", "addr", "consts", "twiddles", "index")
+
+    def __init__(self, run, consts, twiddles, index):
+        self.run, self.consts, self.twiddles = run, consts, twiddles
+        self.addr, self.index = ctypes.addressof(consts), index
+
+
+def _check_io(x: torch.Tensor, xi: torch.Tensor | None) -> None:
+    """Every check of a launch's input: :func:`io_pointers`' and that a
+    complex input is no conjugate view."""
+    if xi is None:
+        _check_rows(x, "x", torch.complex64)
+        if x.data_ptr() % 8:
+            raise ValueError("complex64 data must be 8-byte aligned")
+        if x.is_conj():
+            raise ValueError("x is a conjugate view: resolve_conj() it")
+        return
+    _check_rows(x, "xr", torch.float32)
+    _check_rows(xi, "xi", torch.float32)
+    if x.shape != xi.shape or x.device != xi.device:
+        raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
+                         f"{x.device} vs {tuple(xi.shape)} on {xi.device}")
+
+
+def _build_plan(key: tuple, x: torch.Tensor,
+                xi: torch.Tensor | None) -> _Plan:
+    """A key's plan: the input's checks, the device's twiddle table and the
+    library's constants, prepared under the device's guard (which lets the
+    instantiation take its shared memory on that device).  Adds one to
+    ``launch.plans``."""
+    from smfft_tpu_torch.ops import _cuda
+
+    _check_io(x, xi)
+    n, _, interleaved, index, inverse, rev_in, rev_out, exact = key
+    tw = device_twiddles(n, bool(inverse), bool(exact), x.device)
+    lib = _cuda.library()
+    consts = (ctypes.c_uint64 * -(-lib.smfft_c2c_plan_bytes() // 8))()
+    with torch.cuda.device(x.device):
+        err = lib.smfft_c2c_prepare(ctypes.addressof(consts), n, int(exact),
+                                    int(interleaved), int(inverse),
+                                    int(rev_in), int(rev_out), tw.data_ptr())
+    _cuda.check(err, f"c2c plan (n={n})")
+    # list() reads the keys in one step, so another thread's hit (a pop
+    # and a set) cannot change the dict under an iterator
+    keys = list(_plans)
+    for old in keys[:max(0, len(keys) + 1 - PLAN_SLOTS)]:
+        _plans.pop(old, None)
+    launch.plans += 1
+    return _Plan(lib.smfft_c2c_run, consts, tw, index)
+
+
 def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
            inverse: bool = False, rev_in: bool = False,
            rev_out: bool = False, scale: float | None = None,
@@ -204,27 +280,53 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     ``x`` complex64 (B, n) -> complex64 (B, n) (interleaved); or ``x, xi``
     planar float32 (B, n) -> planar pair.  ``exact`` runs the fp64
     arithmetic instantiation (the "exact" tier).  Outputs are allocated
-    with ``torch.empty``.  Each launch adds one to ``launch.count``.
-    """
-    from smfft_tpu_torch.ops import _cuda
+    with ``torch.empty_like``.
 
+    The launch plan of the key (n, dtype, layout, device, ``inverse``,
+    ``rev_in``, ``rev_out``, ``exact``) is built at its first launch and
+    cached (:data:`PLAN_SLOTS`); a later launch checks only what the key
+    cannot hold (shape, contiguity, conjugation, alignment), allocates,
+    reads the current stream and makes one library call, under the device
+    guard only when the tensor's device is not the current one.  The batch
+    and ``scale`` travel with each launch.  Each launch adds one to
+    ``launch.count``, each plan built one to ``launch.plans``.
+    """
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
     try:
         a = sp
-        out, ptrs, interleaved = io_pointers(x, xi)
+        if x.dim() != 2 or x.is_conj() or not x.is_contiguous() or (
+                x.data_ptr() % 8 if xi is None else
+                xi.dtype != x.dtype or xi.shape != x.shape
+                or xi.get_device() != x.get_device()
+                or not xi.is_contiguous()):
+            _check_io(x, xi)
         b, n = x.shape
+        if xi is None:
+            out = torch.empty_like(x)
+            ptrs = (x.data_ptr(), None, out.data_ptr(), None)
+        else:
+            out = (torch.empty_like(x), torch.empty_like(xi))
+            ptrs = (x.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
+                    out[1].data_ptr())
         t = sp and _T.now()
-        tw = device_twiddles(n, bool(inverse), bool(exact), x.device)
+        key = (n, x.dtype, xi is None, x.get_device(), inverse, rev_in,
+               rev_out, exact)
+        plan = _plans.pop(key, None)
+        if plan is None:
+            plan = _build_plan(key, x, xi)
+        _plans[key] = plan
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_c2c(*ptrs, interleaved, b, n,
-                                int(inverse), int(rev_in), int(rev_out),
-                                1.0 if scale is None else float(scale),
-                                tw.data_ptr(), int(exact), stream)
-        _cuda.check(err, f"c2c kernel launch (n={n}, batch={b})")
+        scale = 1.0 if scale is None else float(scale)
+        stream = _raw_stream(plan.index)
+        if _current_device() == plan.index:
+            err = plan.run(plan.addr, *ptrs, b, scale, stream)
+        else:
+            with torch.cuda.device(plan.index):
+                err = plan.run(plan.addr, *ptrs, b, scale, stream)
+        if err:
+            from smfft_tpu_torch.ops import _cuda
+            _cuda.check(err, f"c2c kernel launch (n={n}, batch={b})")
         launch.count += 1
     finally:
         if sp:
@@ -234,6 +336,7 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
 
 
 launch.count = 0
+launch.plans = 0
 
 
 # ---------------------------------------------------------------------------
@@ -338,16 +441,21 @@ def fft_complex(x: torch.Tensor, inverse: bool = False,
     ``pallas_c2c.fft_pallas``.  ``rev_in=True``: revblock in, natural out
     — ``pallas_c2c.ifft_pallas_rev``.
     """
-    n = x.shape[-1]
+    shape = x.shape
+    n = shape[-1]
     check_size(n)
-    batch_shape = x.shape[:-1]
-    b = int(np.prod(batch_shape)) if batch_shape else 1
+    b = x.numel() // n
     check_pack(b, n)
-    kw = dict(inverse=inverse, rev_in=rev_in,
-              rev_out=not (ordered or rev_in), scale=scale, exact=exact)
-    x = x.reshape(b, n).resolve_conj().contiguous()
+    if x.is_conj() or not x.is_contiguous():
+        x = x.resolve_conj().contiguous()
+    rows = x if x.dim() == 2 else x.view(b, n)
+    rev_out = not (ordered or rev_in)
     if is_cpu(x):
-        y = torch.complex(*plain(x.real, x.imag, **kw))
+        y = torch.complex(*plain(rows.real, rows.imag, inverse=inverse,
+                                 rev_in=rev_in, rev_out=rev_out, scale=scale,
+                                 exact=exact))
     else:
-        y = launch(x, **kw)  # interleaved: no conversion pass
-    return y.reshape(batch_shape + (n,))
+        # interleaved: no conversion pass
+        y = launch(rows, inverse=inverse, rev_in=rev_in, rev_out=rev_out,
+                   scale=scale, exact=exact)
+    return y if rows is x else y.view(shape)

@@ -14,14 +14,17 @@ Three layers record:
   * ``launch:<kernel>``: each kernel's launch wrapper in ``ops/*``
     (``kernel`` one of ``parallel.dryrun.KERNELS``), with ``rows``, ``n``,
     ``variant`` (the layout, mode or radix) and ``exact``, and its
-    children ``tables`` (the cached device tables), ``alloc`` (the
-    output's ``torch.empty``, with ``bytes``) and ``call`` (the device
-    guard, the stream, the library call and its error check), each from
-    its start to the next one's (the last to the launch's end).  The
-    wrapper's entry reads the span's start, reads the clock where each
-    child starts, adds one to its ``count`` once the library call has
-    returned without error, and records all four spans in one call of
-    :func:`launched`::
+    children ``tables`` (the cached device tables; for ``launch:c2c``
+    the lookup of its launch plan, or the plan's build on a miss),
+    ``alloc`` (the checks and the output's ``torch.empty``, with
+    ``bytes``) and ``call`` (the device guard, the stream, the library
+    call and its error check), each from its start to the next one's (the
+    last to the launch's end).  The wrapper's entry reads the span's
+    start, reads the clock where each child starts, adds one to its
+    ``count`` once the library call has returned without error, and
+    records all four spans in one call of :func:`launched`.  The C2C
+    wrapper also counts the plans it builds, ``launch.plans``: a window's
+    plan hit share is ``1 - plans / count`` over it::
 
         sp = trace.on and trace.now()
         a = t = c = out = b = n = 0

@@ -12,6 +12,8 @@ suite's), 2 * tol(n) against JAX, since both sides sit within tol(n) of
 the oracle.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,3 +197,232 @@ def test_cpu_tensor_never_reaches_kernel(rng, monkeypatch):
     vr, vi = rand_planar(rng, 256)
     port_planar(vr, vi, 256, ordered=True)
     assert C.launch.count == before
+
+
+# ---------------------------------------------------------------------------
+# The launch plan cache, on CPU tensors with the CUDA branch stood in: the
+# library, the checks of the device, the stream accessor and the guard.
+# ---------------------------------------------------------------------------
+
+
+class _PlanLib:
+    """The kernel library's C2C entry points, recording their calls."""
+
+    def __init__(self):
+        self.prepared, self.runs, self.err = [], [], 0
+
+    def smfft_c2c_plan_bytes(self):
+        return 40
+
+    def smfft_c2c_prepare(self, *args):
+        self.prepared.append(args)
+        return self.err
+
+    def smfft_c2c_run(self, *args):
+        self.runs.append(args)
+        return 0
+
+    def smfft_error_string(self, err):
+        return b"stand-in error"
+
+
+@pytest.fixture
+def plan_path(monkeypatch):
+    """C.launch's card path on CPU tensors, with an empty plan cache; the
+    current device is 0, so a tensor's device is another one (-1) unless a
+    test says otherwise."""
+    from smfft_tpu_torch.ops import _cuda
+
+    lib = _PlanLib()
+    lib.streams, lib.guards = [], []
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(C, "_check_rows", lambda *a: None)
+    monkeypatch.setattr(C, "_plans", {})
+    monkeypatch.setattr(C, "_current_device", lambda: 0)
+
+    def raw_stream(index):
+        lib.streams.append(index)
+        return 1000 + len(lib.streams)
+
+    def guard(d):
+        lib.guards.append(d)
+        return contextlib.nullcontext()
+    monkeypatch.setattr(C, "_raw_stream", raw_stream)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    return lib
+
+
+def _rows_c(b, n, device=None):
+    x = torch.zeros((b, n), dtype=torch.complex64)
+    if device is not None:
+        x.get_device = lambda: device
+    return x
+
+
+def test_one_key_builds_one_plan(plan_path):
+    plans, count = C.launch.plans, C.launch.count
+    x = _rows_c(8, 256)
+    C.launch(x)
+    C.launch(x)
+    assert (C.launch.plans, C.launch.count) == (plans + 1, count + 2)
+    assert len(plan_path.prepared) == 1 and len(plan_path.runs) == 2
+    # both runs take the one prepared plan's constants
+    assert plan_path.runs[0][0] == plan_path.runs[1][0]
+    assert plan_path.prepared[0][0] == plan_path.runs[0][0]
+    assert plan_path.prepared[0][1:7] == (256, 0, 1, 0, 0, 0)
+
+
+_KEYED = {
+    "n": ((_rows_c(8, 512),), {}),
+    "layout": ((torch.zeros(8, 256), torch.zeros(8, 256)), {}),
+    "device": ((_rows_c(8, 256, device=3),), {}),
+    "inverse": ((_rows_c(8, 256),), {"inverse": True}),
+    "rev_in": ((_rows_c(8, 256),), {"rev_in": True}),
+    "rev_out": ((_rows_c(8, 256),), {"rev_out": True}),
+    "exact": ((_rows_c(8, 256),), {"exact": True}),
+}
+
+
+@pytest.mark.parametrize("field", list(_KEYED))
+def test_each_keyed_field_builds_a_plan(plan_path, field):
+    C.launch(_rows_c(8, 256))
+    plans = C.launch.plans
+    args, kw = _KEYED[field]
+    C.launch(*args, **kw)
+    assert C.launch.plans == plans + 1
+    assert len(C._plans) == 2
+    C.launch(*args, **kw)
+    assert C.launch.plans == plans + 1
+
+
+def test_batch_and_scale_ride_with_each_launch(plan_path):
+    plans = C.launch.plans
+    C.launch(_rows_c(8, 256))
+    C.launch(_rows_c(24, 256), scale=0.5)
+    C.launch(_rows_c(3, 256), scale=2)
+    assert C.launch.plans == plans + 1
+    assert [r[5:7] for r in plan_path.runs] == [(8, 1.0), (24, 0.5),
+                                                (3, 2.0)]
+
+
+def test_planar_launch_passes_both_planes(plan_path):
+    xr, xi = torch.zeros(8, 256), torch.ones(8, 256)
+    o_r, o_i = C.launch(xr, xi)
+    run = plan_path.runs[0]
+    assert run[1:5] == (xr.data_ptr(), xi.data_ptr(), o_r.data_ptr(),
+                        o_i.data_ptr())
+    assert plan_path.prepared[0][3] == 0
+    x = _rows_c(8, 256)
+    y = C.launch(x)
+    assert plan_path.runs[1][1:5] == (x.data_ptr(), None, y.data_ptr(), None)
+    assert plan_path.prepared[1][3] == 1
+
+
+def test_plan_cache_keeps_its_size(plan_path, monkeypatch):
+    """Past PLAN_SLOTS the least recently used plan goes; a plan used
+    since it was built stays."""
+    monkeypatch.setattr(C, "PLAN_SLOTS", 3)
+    sizes = (256, 512, 1024)
+    for n in sizes:
+        C.launch(_rows_c(8, n))
+    C.launch(_rows_c(8, 256))      # 256 is now the most recently used
+    plans = C.launch.plans
+    C.launch(_rows_c(8, 2048))     # evicts 512
+    assert len(C._plans) == 3
+    assert sorted(k[0] for k in C._plans) == [256, 1024, 2048]
+    C.launch(_rows_c(8, 256))
+    assert C.launch.plans == plans + 1
+    C.launch(_rows_c(8, 512))
+    assert C.launch.plans == plans + 2
+    assert len(C._plans) == 3
+    for n in SUPPORTED_C2C_SIZES:
+        C.launch(_rows_c(128, n))
+        assert len(C._plans) == 3
+    # at its own size: nothing goes before the cache is full, then one
+    # plan a miss
+    monkeypatch.setattr(C, "PLAN_SLOTS", 64)
+    monkeypatch.setattr(C, "_plans", {})
+    keys = [(n, dict(inverse=i, rev_in=r, rev_out=o, exact=e))
+            for n in SUPPORTED_C2C_SIZES for i in (False, True)
+            for r in (False, True) for o in (False, True)
+            for e in (False, True)]
+    for i, (n, kw) in enumerate(keys[:70]):
+        C.launch(_rows_c(128, n), **kw)
+        assert len(C._plans) == min(i + 1, 64)
+
+
+def test_stream_is_read_and_guard_taken_per_launch(plan_path, monkeypatch):
+    """Every launch reads its device's current stream; the guard is taken
+    only where the tensor's device is not the current one."""
+    x = _rows_c(8, 256)
+    C.launch(x)
+    C.launch(x)
+    assert plan_path.streams == [-1, -1]
+    assert [r[7] for r in plan_path.runs] == [1001, 1002]
+    # the build's guard, and one for each launch on another device
+    assert plan_path.guards == [x.device, -1, -1]
+    monkeypatch.setattr(C, "_current_device", lambda: -1)
+    C.launch(x)
+    assert len(plan_path.guards) == 3
+    assert plan_path.runs[-1][7] == 1003
+
+
+def test_a_failed_build_caches_nothing(plan_path):
+    plan_path.err = 700
+    plans, count = C.launch.plans, C.launch.count
+    with pytest.raises(RuntimeError, match="stand-in error"):
+        C.launch(_rows_c(8, 256))
+    assert (C.launch.plans, C.launch.count) == (plans, count)
+    assert not C._plans and not plan_path.runs
+    plan_path.err = 0
+    C.launch(_rows_c(8, 256))
+    assert (C.launch.plans, C.launch.count) == (plans + 1, count + 1)
+
+
+def test_launch_refuses_what_the_plan_cannot_carry(plan_path):
+    """The checks a plan's key cannot hold run on every launch: a hit
+    refuses a conjugate view, rows that are not 2-D or contiguous, and a
+    planar pair that differs."""
+    x = _rows_c(8, 256)
+    C.launch(x)
+    with pytest.raises(ValueError, match="conjugate view"):
+        C.launch(x.conj())
+    C.launch(torch.zeros(8, 256), torch.zeros(8, 256))
+    with pytest.raises(ValueError, match="planar pair"):
+        C.launch(torch.zeros(8, 256), torch.zeros(4, 256))
+    assert len(plan_path.runs) == 2
+
+
+def test_cpu_tensor_never_builds_a_plan(rng, monkeypatch):
+    """CPU tensors run the plain version through fft_complex and
+    fft_planar: no plan, no library."""
+    from smfft_tpu_torch.ops import _cuda
+
+    def boom():
+        raise AssertionError("kernel library requested for a CPU tensor")
+    monkeypatch.setattr(_cuda, "library", boom)
+    plans, count = C.launch.plans, C.launch.count
+    x = torch.from_numpy(as_transforms(*rand_planar(rng, 256), 256)
+                         .astype(np.complex64))
+    C.fft_complex(x)
+    C.fft_complex(x.conj(), inverse=True, scale=0.5)
+    port_planar(*rand_planar(rng, 256), 256, ordered=True)
+    assert (C.launch.plans, C.launch.count) == (plans, count)
+
+
+def test_fft_complex_hands_the_plan_resolved_rows(plan_path, monkeypatch):
+    """fft_complex's card path: contiguous rows go to the launch as they
+    are; a conjugate view or a strided input is resolved first, and the
+    output takes the input's shape."""
+    monkeypatch.setattr(C, "is_cpu", lambda t: False)
+    x = _rows_c(8, 256)
+    y = C.fft_complex(x)
+    assert plan_path.runs[-1][1] == x.data_ptr() and y.shape == x.shape
+    z = torch.zeros((2, 256, 4), dtype=torch.complex64).transpose(1, 2)
+    for v in (z, z.contiguous().conj()):
+        y = C.fft_complex(v, ordered=False)
+        assert plan_path.runs[-1][1] not in (v.data_ptr(), None)
+        assert y.shape == (2, 4, 256)
+    assert C.launch.plans >= 1 and len(C._plans) == 2
+    with pytest.raises(ValueError, match="multiple of 4"):
+        C.fft_complex(_rows_c(3, 32))

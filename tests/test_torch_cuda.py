@@ -82,13 +82,22 @@ def test_kernel_matches_plain_and_oracle(dev, n, inverse, mode):
             < bound(n)
 
 
-def test_api_goes_through_kernel(dev):
+def test_api_goes_through_kernel(dev, monkeypatch):
+    """Four C2C launches of four keys: four plans built, then none on a
+    second round of the same calls."""
+    monkeypatch.setattr(C, "_plans", {})
     x = rand_c(64, 1024, dev)
-    before = C.launch.count
+    before, plans = C.launch.count, C.launch.plans
     y = api.fft(x)
     o_r, o_i = planar.ifft(x.real.contiguous(), x.imag.contiguous())
     back = api.ifft_unordered(api.fft(x, ordered=False))
     assert C.launch.count == before + 4
+    assert C.launch.plans == plans + 4
+    api.fft(x)
+    planar.ifft(x.real.contiguous(), x.imag.contiguous())
+    api.ifft_unordered(api.fft(x, ordered=False))
+    assert C.launch.count == before + 8
+    assert C.launch.plans == plans + 4
     assert (y.to(torch.complex128) - oracle(x, False)).abs().max() < bound(1024)
     want = oracle(x, True) / 1024
     assert (torch.complex(o_r, o_i) - want).abs().max() < bound(1024)
@@ -144,6 +153,102 @@ def test_launches_on_current_stream(dev):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     assert (y.to(torch.complex128) - oracle(x, False)).abs().max() < bound(512)
+
+
+@pytest.mark.parametrize("n", SUPPORTED_C2C_SIZES)
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+@pytest.mark.parametrize("exact", [False, True])
+def test_plan_miss_and_hit_agree(dev, monkeypatch, n, layout, exact):
+    """A plan's first launch (built: a miss) and its second (a hit) give
+    the same bits, within the oracle's bound, in every order and
+    direction, with a scale."""
+    monkeypatch.setattr(C, "_plans", {})
+    b = 37 if n >= 128 else 132
+    x = rand_c(b, n, dev, seed=n + 11)
+    for inverse in (False, True):
+        want = oracle(x, inverse) * 0.25
+        for rev_in, rev_out in ((False, False), (True, False),
+                                (False, True), (True, True)):
+            xin = to_revblock(x) if rev_in else x
+            w = to_revblock(want) if rev_out else want
+            kw = dict(inverse=inverse, rev_in=rev_in, rev_out=rev_out,
+                      scale=0.25, exact=exact)
+            args = ((xin.contiguous(),) if layout == "interleaved" else
+                    (xin.real.contiguous(), xin.imag.contiguous()))
+            plans = C.launch.plans
+            first = C.launch(*args, **kw)
+            assert C.launch.plans == plans + 1
+            second = C.launch(*args, **kw)
+            assert C.launch.plans == plans + 1
+            torch.cuda.synchronize()
+            if layout == "planar":
+                first, second = torch.complex(*first), torch.complex(*second)
+            assert torch.equal(torch.view_as_real(first),
+                               torch.view_as_real(second))
+            assert (first.to(torch.complex128) - w).abs().max().item() \
+                < bound(n)
+
+
+def test_plan_takes_conjugate_and_strided_inputs(dev):
+    """fft_complex resolves a conjugate view or a strided input before the
+    plan: the same bits as the resolved copies."""
+    x = rand_c(64, 1024, dev, seed=5)
+    for v in (x.conj(), x.t().contiguous().t(),
+              torch.cat([x, x], dim=1)[:, ::2]):
+        got = C.fft_complex(v, ordered=True)
+        want = C.fft_complex(v.resolve_conj().contiguous(), ordered=True)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+    got = api.fft(x.conj())
+    assert (got.to(torch.complex128) - oracle(x.conj(), False)).abs().max() \
+        < bound(1024)
+
+
+def test_plan_reads_the_stream_per_call(dev, monkeypatch):
+    """A plan holds no stream: a launch under torch.cuda.stream(s) lands on
+    s (it waits for a copy queued on s behind a long sleep, and an event
+    on s orders it), and the next launch on the default stream takes the
+    default stream's handle."""
+    seen = []
+    raw = C._raw_stream
+    monkeypatch.setattr(C, "_raw_stream",
+                        lambda i: seen.append(raw(i)) or seen[-1])
+    src = rand_c(64, 512, dev, seed=9)
+    want = oracle(src, False)
+    x = torch.zeros_like(src)
+    default = torch.cuda.current_stream()
+    api.fft(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(default)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        x.copy_(src)
+        y = api.fft(x)
+        done = torch.cuda.Event()
+        done.record(side)
+    y2 = api.fft(src)
+    default.wait_event(done)
+    torch.cuda.synchronize()
+    assert seen == [default.cuda_stream, side.cuda_stream,
+                    default.cuda_stream]
+    for got in (y, y2):
+        assert (got.to(torch.complex128) - want).abs().max() < bound(512)
+
+
+def test_plan_on_another_device_takes_the_guard(dev):
+    """An input on a device other than the current one: its plan is built
+    and run under that device's guard."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    x = rand_c(64, 1024, torch.device("cuda:1"), seed=4)
+    assert torch.cuda.current_device() == 0
+    for _ in range(2):
+        y = api.fft(x)
+        torch.cuda.synchronize(1)
+        assert y.device == x.device
+        assert (y.to(torch.complex128) - oracle(x, False)).abs().max() \
+            < bound(1024)
+    assert any(k[3] == 1 for k in C._plans)
 
 
 def ulp(v):

@@ -264,8 +264,8 @@ class _Lib:
 @pytest.fixture
 def card_path(monkeypatch):
     """The CUDA branch of the launch wrappers on CPU tensors: the checks
-    of the device, the library, the device guard and the stream stood
-    in."""
+    of the device, the library, the device guard, the stream and the C2C
+    plan cache stood in."""
     lib = _Lib()
     monkeypatch.setattr(_cuda, "library", lambda: lib)
     monkeypatch.setattr(C, "_check_rows", lambda *a: None)
@@ -276,6 +276,9 @@ def card_path(monkeypatch):
     class _Stream:
         cuda_stream = 0
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream())
+    monkeypatch.setattr(C, "_raw_stream", lambda index: 0)
+    monkeypatch.setattr(C, "_current_device", lambda: -1)
+    monkeypatch.setattr(C, "_plans", {})
     return lib
 
 
@@ -306,7 +309,9 @@ def test_a_launch_wrapper_records_launch_tables_alloc_and_call(card_path,
 def test_a_launch_that_fails_is_recorded_and_not_counted(card_path):
     """The library call's error passes out of the launch with its span and
     its children recorded, the ``call`` child ending with the launch; no
-    kernel ran, so the count stays."""
+    kernel ran, so the count stays.  The first launch builds the plan, so
+    the second's error is the run's."""
+    C.launch(_c(8, 256))
     card_path.err = 700
     before = C.launch.count
     trace.start()
