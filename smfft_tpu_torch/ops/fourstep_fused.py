@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -222,18 +223,25 @@ def _map_args(m: tuple):
 
 
 def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
-                scale: float = 1.0, exact: bool = False) -> None:
+                scale: float = 1.0, exact: bool = False,
+                at: tuple[int, int] | None = None):
     """Launch ``fourstep_pass_kernel`` of ``csrc/fourstep.cu`` once on the
     current CUDA stream: pass ``p`` from ``src`` into ``dst`` (each a
     complex64 / complex128 (B, N) tensor or a planar float32 pair; they may
-    be the same tensor for a column pass in place).  ``exact`` runs the
-    fp64 instantiation.  Each launch adds one to ``launch_pass.count``."""
+    be the same tensor for a column pass in place), and return ``dst``.
+    ``dst`` may be a function that makes it, called here: the launch's
+    ``alloc`` span.  ``exact`` runs the fp64 instantiation.  ``at`` = (i,
+    p): pass i of a plan of p, named in the span's variant.  Each launch
+    adds one to ``launch_pass.count``."""
     from smfft_tpu_torch.ops import _cuda
 
     sp = _T.on and _T.now()
-    t = c = rows = 0
+    a = t = c = rows = out = 0
     try:
         ia, ib, ik = _operand(src, n, "src")
+        if callable(dst):
+            a = sp and _T.now()
+            dst = out = dst()
         oa, ob, ok = _operand(dst, n, "dst")
         first = src[0] if isinstance(src, tuple) else src
         rows = first.shape[0]
@@ -264,8 +272,11 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
         launch_pass.count += 1
     finally:
         if sp:
-            _T.launched(sp, 0, t, c, 0, "launch:fourstep_pass",
-                        f"radix={p.radix}", exact, rows, n)
+            variant = f"radix={p.radix}" + (f" pass={at[0]}/{at[1]}"
+                                             if at else "")
+            _T.launched(sp, a, t, c, out, "launch:fourstep_pass", variant,
+                        exact, rows, n)
+    return dst
 
 
 launch_pass.count = 0
@@ -287,8 +298,10 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
     src's form (complex64, or planar float32 when ``planar_out``).
 
     CUDA: one launch a pass, the middle passes in place on one
-    intermediate (complex64, complex128 for ``exact``).  CPU: the plain
-    version at the tier's precision (``c2c.at_tier``)."""
+    intermediate (complex64, complex128 for ``exact``), made by the first
+    pass; ``dst`` may be a function that makes it, called by the last
+    pass, which makes the new result too (each launch's ``alloc`` span).
+    CPU: the plain version at the tier's precision (``c2c.at_tier``)."""
     planar_in = isinstance(src, tuple)
     planar_out = planar_in if planar_out is None else planar_out
     first = src[0] if planar_in else src
@@ -297,6 +310,8 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
         yr, yi = transform_plain(*planes, n, passes, inverse, scale, exact)
         if dst is None:
             return (yr, yi) if planar_out else torch.complex(yr, yi)
+        if callable(dst):
+            dst = dst()
         if isinstance(dst, tuple):
             dst[0].copy_(yr)
             dst[1].copy_(yi)
@@ -305,17 +320,17 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
         return dst
     rows = first.shape[0]
     if dst is None:
-        dst = _alloc(first, rows, n, planar_out)
-    tmp = torch.empty((rows, n) if len(passes) > 1 else (0,),
-                      device=first.device,
-                      dtype=torch.complex128 if exact else torch.complex64)
-    cur = src
-    for i, p in enumerate(passes):
-        out = dst if i == len(passes) - 1 else tmp
-        launch_pass(cur, out, n, p, inverse=inverse, scale=scale,
-                    exact=exact)
-        cur = tmp
-    return dst
+        dst = partial(_alloc, first, rows, n, planar_out)
+    tmp = partial(torch.empty, (rows, n), device=first.device,
+                  dtype=torch.complex128 if exact else torch.complex64)
+    # the first pass makes tmp, the middle ones run in place on it, the
+    # last writes dst
+    cur, k = src, len(passes)
+    for i, p in enumerate(passes, 1):
+        cur = tmp = launch_pass(cur, dst if i == k else tmp, n, p,
+                                inverse=inverse, scale=scale, exact=exact,
+                                at=(i, k))
+    return cur
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,8 @@ or raises; a CPU tensor runs the plain versions, never ``torch.fft``.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from smfft_tpu_torch import trace as _T
@@ -169,15 +171,24 @@ def launch_real_huge(mode: str, z: torch.Tensor, spec, n: int, *,
     ``exact``) rows of n points (pair) or n/2 (halfc); ``spec``: the packed
     spectra (see :func:`_spec_args`), read by the merges and written by
     the splits; a pair's q spectra are the rows after the B2 p rows.
-    Each launch adds one to ``launch_real_huge.count``."""
+    Returns the operand it writes (``spec`` for a split, ``z`` for a
+    merge), which may be given as a function that makes it, called here:
+    the launch's ``alloc`` span.  Each launch adds one to
+    ``launch_real_huge.count``."""
     from smfft_tpu_torch.ops import _cuda
 
     sp = _T.on and _T.now()
-    t = c = rows = 0
+    a = t = c = rows = out = 0
     try:
         codes = ("pair_split", "pair_merge", "halfc_split", "halfc_merge")
         if mode not in codes:
             raise ValueError(f"unknown mode {mode!r}; one of {codes}")
+        if callable(z):
+            a = sp and _T.now()
+            z = out = z()
+        elif callable(spec):
+            a = sp and _T.now()
+            spec = out = spec()
         L = n // 2
         pair = mode.startswith("pair")
         za, _, zk = FF._operand(z, n if pair else L, "z")
@@ -203,8 +214,9 @@ def launch_real_huge(mode: str, z: torch.Tensor, spec, n: int, *,
         launch_real_huge.count += 1
     finally:
         if sp:
-            _T.launched(sp, 0, t, c, 0, "launch:real_huge", mode,
+            _T.launched(sp, a, t, c, out, "launch:real_huge", mode,
                         exact, rows, n)
+    return spec if mode.endswith("split") else z
 
 
 launch_real_huge.count = 0
@@ -285,23 +297,22 @@ def rfft_large_rows(x: torch.Tensor, layout: str = "planar",
     if C.is_cpu(x):
         return rfft_large_plain(x, layout, exact, mode)
     x = x.contiguous()
-    zdt = torch.complex128 if exact else torch.complex64
-    spec = _alloc_spec(layout, b, L, x.device)
+    # z and the spectrum are made by the launches that first write them
+    new_z = partial(torch.empty, dtype=torch.complex128 if exact
+                    else torch.complex64, device=x.device)
+    new_spec = partial(_alloc_spec, layout, b, L, x.device)
     if mode == "halfc":
         if x.dtype != torch.float32:
             raise TypeError(f"x must be float32, got {x.dtype}")
-        z = torch.empty((b, L), dtype=zdt, device=x.device)
-        FF.run_passes(torch.view_as_complex(x.view(b, L, 2)), L,
-                      FF.default_passes(L), exact=exact, dst=z)
-        launch_real_huge("halfc_split", z, spec, n, exact=exact)
-        return spec
+        z = FF.run_passes(torch.view_as_complex(x.view(b, L, 2)), L,
+                          FF.default_passes(L), exact=exact,
+                          dst=partial(new_z, (b, L)))
+        return launch_real_huge("halfc_split", z, new_spec, n, exact=exact)
     if 2 * b2 > b:
         x = torch.cat([x, torch.zeros_like(x[:1])])
-    z = torch.empty((b2, n), dtype=zdt, device=x.device)
-    FF.run_passes((x[:b2], x[b2:]), n, FF.default_passes(n), exact=exact,
-                  dst=z)
-    launch_real_huge("pair_split", z, spec, n, exact=exact)
-    return spec
+    z = FF.run_passes((x[:b2], x[b2:]), n, FF.default_passes(n),
+                      exact=exact, dst=partial(new_z, (b2, n)))
+    return launch_real_huge("pair_split", z, new_spec, n, exact=exact)
 
 
 def irfft_large_rows(spec: torch.Tensor, spec_im: torch.Tensor | None,
@@ -322,20 +333,27 @@ def irfft_large_rows(spec: torch.Tensor, spec_im: torch.Tensor | None,
     if C.is_cpu(spec):
         return irfft_large_plain(spec, spec_im, n, layout, exact, scale,
                                  mode)
-    zdt = torch.complex128 if exact else torch.complex64
+    # z and the signal are made by the launches that first write them
+    new_z = partial(torch.empty, dtype=torch.complex128 if exact
+                    else torch.complex64, device=spec.device)
     if mode == "halfc":
-        z = torch.empty((b, L), dtype=zdt, device=spec.device)
-        launch_real_huge("halfc_merge", z, operand, n, scale=s, exact=exact)
-        out = torch.empty((b, n), device=spec.device)
-        FF.run_passes(z, L, FF.default_passes(L), inverse=True, exact=exact,
-                      dst=torch.view_as_complex(out.view(b, L, 2)))
-        return out
-    z = torch.empty((b2, n), dtype=zdt, device=spec.device)
-    launch_real_huge("pair_merge", z, operand, n, scale=0.5 * s, exact=exact)
-    out = torch.empty((2 * b2, n), device=spec.device)
+        z = launch_real_huge("halfc_merge", partial(new_z, (b, L)), operand,
+                             n, scale=s, exact=exact)
+        y = FF.run_passes(z, L, FF.default_passes(L), inverse=True,
+                          exact=exact, dst=lambda: torch.view_as_complex(
+                              torch.empty((b, L, 2), device=spec.device)))
+        return torch.view_as_real(y).view(b, n)
+    z = launch_real_huge("pair_merge", partial(new_z, (b2, n)), operand, n,
+                         scale=0.5 * s, exact=exact)
+    signal = None
+
+    def planes():       # x_p's rows, then x_q's, in one block
+        nonlocal signal
+        signal = torch.empty((2 * b2, n), device=spec.device)
+        return signal[:b2], signal[b2:]
     FF.run_passes(z, n, FF.default_passes(n), inverse=True, exact=exact,
-                  dst=(out[:b2], out[b2:]))
-    return out[:b]
+                  dst=planes)
+    return signal[:b]
 
 
 # ---------------------------------------------------------------------------

@@ -1106,6 +1106,33 @@ def test_large_apis_go_through_kernels_and_backward(dev):
     assert rel.item() < 1e-5
 
 
+@pytest.mark.parametrize("rows", [4, 3])
+def test_rfft_large_matches_the_deployments_reference_and_records_buffers(
+        dev, rows):
+    """The periodicity-search call (``api.rfft_large``, "highest") at 2^21
+    samples a trial, pair mode (4 rows) and halfc (3), held to the plain
+    reference as the CPU tests hold it (2e-5 of the spectrum's rms,
+    tests/test_torch_periodicity.py).  Traced, the intermediate, ``z``
+    and the spectrum are each the ``alloc`` of the launch that first
+    writes it, with its bytes (rows * n * 4 for either Z layout)."""
+    from smfft_tpu_torch import trace
+    from smfft_tpu_torch.reference import periodicity_search as ref
+    n = 1 << 21
+    x = rand_r(rows, n, dev, seed=rows) * 2
+    trace.start()
+    try:
+        y = api.rfft_large(x, precision="highest")
+        torch.cuda.synchronize()
+    finally:
+        rec = trace.stop()
+    want = ref.expected(x)
+    rms = want.abs().square().mean().sqrt()
+    assert ((y.to(want.dtype) - want).abs().max() / rms).item() < 2e-5
+    allocs = [rec.span(i)["attrs"]["bytes"] for i in range(len(rec))
+              if rec.span(i)["name"] == "alloc"]
+    assert allocs == [rows * n * 4] * 2 + [rows * (n // 2 + 1) * 8]
+
+
 def test_huge_launchers_refuse_what_they_cannot_take(dev):
     n = 1 << 15
     x = rand_c(2, n, dev)

@@ -416,7 +416,8 @@ def test_mode_chosen_by_padded_rows(interpret):
 
 
 def _fake_launch_pass(src, dst, n, p, *, inverse=False, scale=1.0,
-                      exact=False):
+                      exact=False, at=None):
+    dst = dst() if callable(dst) else dst
     x = torch.complex(*src) if isinstance(src, tuple) else src
     y = FF.pass_plain(x.to(torch.complex128 if exact else torch.complex64),
                       n, p, inverse, scale)
@@ -426,9 +427,12 @@ def _fake_launch_pass(src, dst, n, p, *, inverse=False, scale=1.0,
     else:
         dst.copy_(y)
     FF.launch_pass.count += 1
+    return dst
 
 
 def _fake_launch_real_huge(mode, z, spec, n, *, scale=1.0, exact=False):
+    z = z() if callable(z) else z
+    spec = spec() if callable(spec) else spec
     L = n // 2
     layout = ("planar" if isinstance(spec, tuple) else
               "packed" if spec.shape[-1] == L else "numpy")
@@ -446,6 +450,7 @@ def _fake_launch_real_huge(mode, z, spec, n, *, scale=1.0, exact=False):
                 if mode == "pair_merge" else
                 RF.halfc_merge_plain(xr, xi, n, scale))
     RF.launch_real_huge.count += 1
+    return spec if mode.endswith("split") else z
 
 
 @pytest.mark.parametrize("b", [1, 3, 4])

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import subprocess
+import sys
 import threading
 import time
 
@@ -335,3 +337,79 @@ def test_a_launch_that_fails_in_its_checks_records_what_began(card_path):
     assert R.launch_r2c.count == before
     assert [s["name"] for s in spans] == ["launch:r2c"]
     assert spans[0]["attrs"]["variant"] == "no such layout"
+
+
+def test_rfft_large_records_its_passes_its_split_and_their_buffers(
+        card_path, monkeypatch):
+    """A traced (2, 2^21) ``rfft_large`` on the card path (pair mode, the
+    "three" plan): the call, its op, three pass launches named by their
+    place in the plan, and the pair split.  The intermediate, ``z`` and the
+    spectrum are each the ``alloc`` of the launch that first writes it,
+    with its bytes; the middle pass, in place, allocates nothing."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    monkeypatch.setattr(C, "is_cpu", lambda t: False)
+    monkeypatch.setattr(FF, "_operand", lambda t, n, name: (0, None, 0))
+    n = 1 << 21
+    trace.start()
+    out = api.rfft_large(_r(2, n), precision="highest")
+    spans = _spans(trace.stop())
+    assert out.shape == (2, n // 2 + 1)
+    assert [s["name"] for s in spans if s["parent"] == -1] == [
+        "call:rfft_large"]
+    assert spans[0]["attrs"] == {"n": n, "rows": 2}
+    assert [s["name"] for s in _children(spans, 0)] == ["op:rfft_large"]
+    launches = [i for i, s in enumerate(spans)
+                if s["name"].startswith("launch:")]
+    assert [(spans[i]["name"], spans[i]["attrs"]["variant"],
+             spans[i]["parent"]) for i in launches] == [
+        ("launch:fourstep_pass", "radix=128 pass=1/3", 1),
+        ("launch:fourstep_pass", "radix=128 pass=2/3", 1),
+        ("launch:fourstep_pass", "radix=128 pass=3/3", 1),
+        ("launch:real_huge", "pair_split", 1)]
+    assert spans[launches[0]]["attrs"]["rows"] == 1   # one pair of trials
+    allocs = [[k["attrs"]["bytes"] for k in _children(spans, i)
+               if k["name"] == "alloc"] for i in launches]
+    assert allocs == [[n * 8], [], [n * 8], [2 * (n // 2 + 1) * 8]]
+    assert all([k["name"] for k in _children(spans, i)][-2:]
+               == ["tables", "call"] for i in launches)
+
+
+@pytest.mark.parametrize("rows,mode", [(2, "pair"), (1, "halfc")])
+def test_irfft_large_records_its_merge_its_passes_and_their_buffers(
+        card_path, monkeypatch, rows, mode):
+    """The inverse on the card path: the merge makes ``z``, the first pass
+    the intermediate and the last pass the signal (one allocation for
+    both planes of a pair), each the ``alloc`` of its launch."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    monkeypatch.setattr(C, "is_cpu", lambda t: False)
+    monkeypatch.setattr(FF, "_operand", lambda t, n, name: (0, None, 0))
+    n = 1 << 21
+    L = n // 2 if mode == "halfc" else n       # a Z row's points
+    trace.start()
+    out = api.irfft_large(_c(rows, n // 2 + 1), n=n, precision="highest")
+    spans = _spans(trace.stop())
+    assert out.shape == (rows, n) and out.dtype == torch.float32
+    launches = [i for i, s in enumerate(spans)
+                if s["name"].startswith("launch:")]
+    assert [spans[i]["attrs"]["variant"] for i in launches] == [
+        f"{mode}_merge"] + [f"radix={128 if mode == 'pair' else 1024} "
+                            f"pass={k}/{3 if mode == 'pair' else 2}"
+                            for k in range(1, 4 if mode == "pair" else 3)]
+    allocs = [sum(k["attrs"]["bytes"] for k in _children(spans, i)
+                  if k["name"] == "alloc") for i in launches]
+    z = L * 8                                  # one Z row, complex64
+    assert allocs == ([z, z, 0, n * 4 * 2] if mode == "pair"
+                      else [z, z, n * 4])
+
+
+def test_huge_n_recording_stays_off_at_import():
+    """A fresh process that imports the port and runs the huge-N real
+    path records nothing: recording is off until ``trace.start``."""
+    code = ("import torch\n"
+            "from smfft_tpu_torch import api, trace\n"
+            "from smfft_tpu_torch.ops import real_fused\n"
+            "assert trace.on is False\n"
+            "x = torch.rand((2, 1 << 15))\n"
+            "api.irfft_large(api.rfft_large(x))\n"
+            "assert trace.on is False and len(trace._log) == 0\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
