@@ -98,10 +98,12 @@ Phases (each failure exits non-zero at once):
  15. Huge-N sweep: ``fourstep_pass_kernel`` through the default plan at N =
      2^15, 2^16, 2^17, 2^18, 2^20, 2^22, 2^24, 2^28 and the named plans
      "two:fold" and "three" at 2^20, "five" at 2^24 (complex64 and planar,
-     forward and inverse with 1/N, both tiers), and ``real_huge_kernel``
-     through ``rfft_large`` / ``irfft_large`` rows at n = 2^15, 2^20, 2^24
-     (pair and halfc) and 2^29 (halfc), against the plain versions and
-     float64 ``torch.fft``; "exact" within 2 ulp(max|X|).  Then the plan
+     forward and inverse with 1/N, both tiers), and the real transforms
+     (the pair split in the last pass to radix 256, ``real_huge_kernel``'s
+     other splits and the merges) through ``rfft_large`` / ``irfft_large``
+     rows at n = 2^15, 2^20, 2^24 (pair and halfc) and 2^29 (halfc),
+     against the plain versions and float64 ``torch.fft``; "exact" within
+     2 ulp(max|X|).  Then the plan
      table: every plan's time at N = 2^18..2^28 with 2^27 points a call.
  16. The huge-N main path at 2^27 points or samples a call: ``fft_large``
      at N = 2^15 (4096 rows), 2^20 (128), 2^24 (8), 2^27 (1), ``ifft_large``
@@ -1774,10 +1776,12 @@ def huge_oracle(x: torch.Tensor, inverse: bool, scale: float) -> torch.Tensor:
 
 
 def phase_huge_sweep(card: str):
-    """fourstep_pass_kernel through every huge-N plan and size, and
-    real_huge_kernel in both modes, against the plain versions (every row)
-    and float64 torch.fft, both tiers; "exact" within 2 ulp(max|X|).  Then
-    the plan table: each plan's time at 2^27 points a call.  Returns
+    """fourstep_pass_kernel through every huge-N plan and size, and the
+    real transforms in both modes (the pair split in the last pass to
+    radix 256, real_huge_kernel's other splits and the merges), against
+    the plain versions (every row) and float64 torch.fft, both tiers;
+    "exact" within 2 ulp(max|X|).  Then the plan table: each plan's time
+    at 2^27 points a call.  Returns
     ({kernel: max |kernel - plain|}, worst "exact" ulp, plan table)."""
     from smfft_tpu_torch.ops import fourstep_fused as FF
     from smfft_tpu_torch.ops import hugefft
@@ -1999,9 +2003,13 @@ def phase_main_huge(card: str):
         x = torch.rand((b, n), generator=gen, device="cuda") - 0.5
         mode = RF.choose_mode(b, n)
         npass = len(FF.default_passes(n if mode == "pair" else L))
+        # the forward's split: a real_huge launch, or the last pass's in
+        # pair mode to radix 256
+        split = int(mode == "halfc"
+                    or not FF.pair_split_plan(n)[-1].split)
         hr, hi = T.planar.rfft_large(x)
         calls["fourstep_pass"] += npass
-        calls["real_huge"] += 1
+        calls["real_huge"] += split
         tag = f"n=2^{n.bit_length() - 1} batch={b} {mode} ({npass} passes)"
         worst["real_huge"] = max(worst["real_huge"], check_all(
             (hr, hi), RF.rfft_large_plain(x, "planar", mode=mode), n,
@@ -2022,7 +2030,7 @@ def phase_main_huge(card: str):
             8.0 * MAIN_POINTS, MAIN_POINTS * (2.5 * math.log2(n) + 5.0)))
         rows[-1]["n"] = n
         calls["fourstep_pass"] += npass * (1 + REPS_CONV)
-        calls["real_huge"] += 1 + REPS_CONV
+        calls["real_huge"] += split * (1 + REPS_CONV)
         back = T.planar.irfft_large(hr, hi)
         calls["fourstep_pass"] += npass
         calls["real_huge"] += 1

@@ -37,7 +37,8 @@ Seven slices so far:
   * huge N: :func:`fft_large` / :func:`ifft_large` (C2C to 2^28) and
     :func:`rfft_large` / :func:`irfft_large` (real to 2^29), and the same
     four in :mod:`smfft_tpu_torch.planar`, as passes of one four-step
-    kernel (``csrc/fourstep.cu``) and a Hermitian split / merge kernel
+    kernel (``csrc/fourstep.cu``, whose last pass does the pair mode's
+    split to radix 256) and a Hermitian split / merge kernel
     (``csrc/real_huge.cu``);
   * N-D transforms and the DCT / DST, composed over the row kernels:
     :func:`fftn` / :func:`ifftn` / :func:`fft2` / :func:`ifft2`,

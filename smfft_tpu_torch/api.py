@@ -45,9 +45,10 @@ signal and the filter.
 
 ``fft_large`` / ``ifft_large`` (N to 2^28) and ``rfft_large`` /
 ``irfft_large`` (n to 2^29) run the huge-N passes (``csrc/fourstep.cu``,
-and ``csrc/real_huge.cu``'s split and merge); sizes the row kernels take
-route to ``fft`` / ``rfft`` / ``irfft``.  They are differentiable, the
-packed real layout excepted.
+whose last pass does the pair mode's split to radix 256, and
+``csrc/real_huge.cu``'s other splits and the merges); sizes the row
+kernels take route to ``fft`` / ``rfft`` / ``irfft``.  They are
+differentiable, the packed real layout excepted.
 """
 
 from __future__ import annotations
@@ -732,7 +733,8 @@ def rfft_large(x: torch.Tensor, backend: Backend = "auto",
                precision: str | None = None,
                packed: bool = False) -> torch.Tensor:
     """R2C FFT for huge power-of-two N (2**15..2**29): the huge-N C2C
-    passes and one split pass (ops/real_fused.py; the mode by batch,
+    passes and the split, in the last pass (pair mode, its radix at most
+    256) or a pass of its own (ops/real_fused.py; the mode by batch,
     :func:`~smfft_tpu_torch.ops.real_fused.choose_mode`).  Numpy layout
     (..., N/2+1), or with ``packed`` the reference's (..., N/2) with
     out[..., 0] = DC + 1j*Nyquist.  Sizes <= 16384 route to :func:`rfft` /

@@ -82,6 +82,34 @@
 //     (b * N passes 2^31 points at N = 2^28, b = 8); the ragged tail of the
 //     transforms is masked; the launcher returns cudaGetLastError() right
 //     after the launch.
+//
+// The pair split (fourstep_pass_kernel<R, EXACT, true>: the last pass of a
+// plan with the split as its epilogue; it replaces the pair split of
+// real_huge.cu, B25).  A forward
+// real transform in pair mode runs Z = FFT_N(x_p + i x_q) and wants the
+// packed half-spectra X_p[j] = (Z[j] + conj Z[N-j]) / 2 and X_q[j] = -i
+// (Z[j] - conj Z[N-j]) / 2, j < N/2, slot 0 = (Re Z[0], Re Z[N/2]) and
+// (Im Z[0], Im Z[N/2]).  The last pass (digit-reversed rows in, columns
+// of stride S = N/R out) has transform c write Z[c + k*S], k < R, and
+// Z[N - c - k*S] is point R-1-k of transform S-c (c != 0): the split
+// pairs whole transforms, c with S-c, and 0 and S/2 each with itself
+// (k with R-k, and k with R-1-k; DC and Nyquist are both transform 0's).
+// So a split tile (SplitTile) holds T/2 pairs: slot f < T/2 transform c =
+// P, slot f + T/2 its mirror S-P (S/2 for P = 0), pair P of its row (the
+// pairs run over the rows, so a tile may span rows where S/2 < T/2).
+// After the last stage each thread puts its outputs k >= R/2 into its
+// slot (every mirror of a point k < R/2 is one of those), reads its
+// points' mirrors from the other slot of its pair, and streams the bins
+// c + k*S < N/2 of both rows of the pair from the unrounded outputs: no Z
+// array is written or read back, and the pass moves its input once and
+// the spectra once.  Bins of adjacent transforms are adjacent, so a warp
+// stores a run of T/2 bins a row at most.  The spectrum is huge.cuh's
+// Spectrum (planar, packed or numpy), its rows r and r + batch for Z row
+// r (the q rows past the spectrum's last are left out: an odd batch).  The
+// split is an overload of the pass kernel with its flag after EXACT, so
+// that the plain passes' code, names and registers stay as they are; it
+// has their loads, core and slots, twice their transforms a tile, and no
+// twiddle, for last passes of radix 16..256.
 
 #include "hcore.cuh"
 #include "huge.cuh"
@@ -367,10 +395,206 @@ fourstep_pass_kernel(PassArgs a, double scale,
     cp_wait<0>();
 }
 
+// The split pass's tile (models/hcore.py split_geometry): T slots hold T/2
+// pairs, and a spectrum row's bins of a side's T/2 adjacent transforms are
+// one contiguous run of T/2 * 8 bytes.  At the plain pass's T those runs
+// are 128 bytes at R = 128, and on an H100 the last pass of a 2^23-point
+// pair-mode call of 4 GiB took 6.1-6.4 ms where the plain pass takes 3.3;
+// at twice the transforms, 256-byte runs, 4.4 (PERF.md section 6).  So
+// the tile holds twice the plain pass's transforms in two buffers, which
+// fit the plain pass's budget to R = 256 (ops/fourstep_fused.py
+// SPLIT_MAX_RADIX: above it the runs would stay 32-64 bytes, and the pair
+// split runs as real_huge.cu's own pass); E = 16 points a thread up to
+// 512 threads (256 for "exact"), else 32; the lanes of a warp across 32
+// transforms of a side where a side has 32 (a warp stores 256 contiguous
+// bytes of complex64), else the plain pass's FW.
+template <int R, bool EXACT>
+struct SplitTile {
+    using P = PassTile<R, EXACT>;
+    using C = typename P::C;
+    static constexpr int ELEM = P::ELEM;
+    static constexpr int LD = P::LD;
+    static constexpr int T = 2 * P::T;
+    static constexpr int E = T * R / 16 <= (EXACT ? 256 : 512) ? 16 : 32;
+    static constexpr int TPF = R / E;
+    static constexpr int FW = T / 2 >= 32 ? 32 : P::FW;
+    static constexpr int THREADS = T * TPF;
+    using Core = hc::Core<R, TPF, false, false>;
+    static constexpr size_t SMEM = ((size_t)2 * T * LD + Core::TAB) * ELEM;
+    static constexpr int BY_SMEM = (int)(233472 / (SMEM + 1024));
+    static constexpr int MINB = BY_SMEM < 2 ? 1 : 2;
+};
+
+// The transform in slot f of split tile `tile`, or -1 past the last pair:
+// pair P (over every row, S/2 a row) = tile * T/2 + f mod T/2; slot f <
+// T/2 holds transform P of the pair's row, slot f + T/2 its mirror S - P,
+// or S/2 for P = 0 (0 and S/2 each pair with themselves).
+template <typename G>
+__device__ __forceinline__ int64_t split_transform(const PassArgs& a,
+                                                   int64_t tile, int f) {
+    constexpr int H = G::T / 2;
+    const int64_t pg = tile * H + (f & (H - 1));
+    if (pg >= a.total / 2) return -1;
+    const int64_t half = int64_t(1) << (a.log_pr - 1);  // S/2
+    const int64_t p = pg & (half - 1);
+    const int64_t c = f < H ? p : (p ? 2 * half - p : half);
+    return ((pg >> (a.log_pr - 1)) << a.log_pr) + c;
+}
+
+// Where the split writes: the packed spectra (huge.cuh's Spectrum), rows
+// of them in all (the q rows past the last are left out).
+struct SplitOut {
+    Spectrum spec;
+    int64_t rows;
+};
+
+// Issue the loads of split tile `tile` into buf: each slot's transform, a
+// contiguous row of the digit-reversed map, point-fastest.
+template <int R, bool EXACT>
+__device__ __forceinline__ void issue_split_tile(
+    const PassArgs& a, int64_t tile, typename SplitTile<R, EXACT>::C* buf) {
+    using G = SplitTile<R, EXACT>;
+    constexpr int LOG_R = ilog2(R);
+    const int tid = threadIdx.x;
+#pragma unroll 4
+    for (int k = 0; k < G::E; ++k) {
+        const int e = tid + k * G::THREADS;
+        const int f = e >> LOG_R, j = e & (R - 1);
+        const int64_t g = split_transform<G>(a, tile, f);
+        if (g < 0) continue;
+        stage_point<EXACT>(buf + f * G::LD + G::Core::pos(j), a.in,
+                           transform_at(a, 1, 0, LOG_R, g) + j);
+    }
+}
+
+// The pair split of the last stage's outputs u (points t + s*TPF of
+// transform g, slot f of cur), in place in u: the outputs k >= R/2
+// through the slot to the pair's other transform, then X_p of the points
+// k < R/2 into u[s] and X_q into u[s + E/2], s < E/2.  Returns with every
+// read of the slots done by the calling thread.
+template <int R, bool EXACT, typename C>
+__device__ __forceinline__ void split_pairs(
+    const PassArgs& a, C* cur, C (&u)[SplitTile<R, EXACT>::E], int f, int t,
+    int64_t g) {
+    using G = SplitTile<R, EXACT>;
+    using Core = typename G::Core;
+    using Tr = real_t<C>;
+    constexpr int E = G::E, TPF = G::TPF, H = G::T / 2;
+    __syncthreads();  // every read of the slot by the last stage is done
+#pragma unroll
+    for (int s = E / 2; s < E; ++s)
+        cur[f * G::LD + Core::pos(t + s * TPF)] = u[s];
+    __syncthreads();
+    const int64_t S = int64_t(1) << a.log_pr;
+    const int64_t c = g & (S - 1);
+    const C* own = cur + f * G::LD;
+    const C* mate = c == 0 || c == S / 2 ? own : cur + (f ^ H) * G::LD;
+    const Tr h = Tr(0.5);
+#pragma unroll
+    for (int s = 0; s < E / 2; ++s) {
+        const int k = t + s * TPF;
+        const C z = u[s];
+        if (c == 0 && k == 0) {
+            const C ny = own[Core::pos(R / 2)];  // Z[N/2]
+            u[s] = cmake(z.x, ny.x);
+            u[s + E / 2] = cmake(z.y, ny.y);
+        } else {
+            // Z[N - c - k S]: point R-k of transform 0, else R-1-k of S-c
+            const C m = c == 0 ? own[Core::pos(R - k)]
+                               : mate[Core::pos(R - 1 - k)];
+            u[s] = cmake(h * (z.x + m.x), h * (z.y - m.y));
+            u[s + E / 2] = cmake(h * (z.y + m.y), h * (m.x - z.x));
+        }
+    }
+}
+
+// The last pass of a plan with the pair split as its epilogue: the plain
+// kernel's loads and core over split tiles (two buffers, the next tile in
+// flight; no twiddle), the split through the slots, and each thread's
+// bins c + k*S, k < R/2, of the pair's two spectrum rows streamed from
+// the registers.
+template <int R, bool EXACT, bool SPLIT>
+__global__ void __launch_bounds__(SplitTile<R, EXACT>::THREADS,
+                                  SplitTile<R, EXACT>::MINB)
+fourstep_pass_kernel(PassArgs a, SplitOut o, double scale,
+                     const typename PassTile<R, EXACT>::C* __restrict__ tw,
+                     int inverse) {
+    using G = SplitTile<R, EXACT>;
+    using C = typename G::C;
+    using Tr = real_t<C>;
+    using Core = typename G::Core;
+    constexpr int E = G::E;
+    static_assert(SPLIT, "the plain pass is fourstep_pass_kernel<R, EXACT>");
+    static_assert(!G::P::PAD && 2 * G::T * G::LD * G::ELEM <= G::P::BUDGET,
+                  "two unpadded buffers of the split tile fit the budget");
+    C* smem = shared_buffer<C>();
+    C* tab = smem + 2 * G::T * G::LD;
+    const int tid = threadIdx.x;
+    const Tr sgn = inverse ? Tr(1) : Tr(-1);
+    const int64_t ntiles = (a.total + G::T - 1) / G::T;
+    const int f = tid % G::FW + G::FW * (tid / (G::FW * G::TPF));
+    const int t = (tid / G::FW) % G::TPF;
+    const int64_t q_off = a.total >> a.log_pr;  // the rows of Z
+
+    Core::fill(tab, tw, tid, G::THREADS);
+    constexpr int64_t SLOTS = (int64_t)G::T * G::LD;
+    const int64_t step = gridDim.x;
+    int64_t tile = blockIdx.x;
+    if (tile < ntiles) issue_split_tile<R, EXACT>(a, tile, smem);
+    cp_commit();
+    for (int it = 0; tile < ntiles; tile += step, ++it) {
+        C* cur = smem + (it % 2) * SLOTS;
+        if (tile + step < ntiles)
+            issue_split_tile<R, EXACT>(a, tile + step,
+                                       smem + ((it + 1) % 2) * SLOTS);
+        cp_commit();
+        cp_wait<1>();
+        __syncthreads();
+        C u[E];
+        Core::run_smem(cur + f * G::LD, u, t, tab, false, sgn, Tr(scale),
+                       [](int, C v) { return v; });
+        const int64_t g = split_transform<G>(a, tile, f);
+        split_pairs<R, EXACT>(a, cur, u, f, t, g);
+        if (g >= 0) {
+            const int64_t row = g >> a.log_pr;
+            const int64_t c = g & ((int64_t(1) << a.log_pr) - 1);
+#pragma unroll
+            for (int s = 0; s < E / 2; ++s) {
+                const int64_t bin = c + ((int64_t)(t + s * G::TPF)
+                                         << a.log_pr);
+                o.spec.store<true>(row, bin, u[s]);
+                if (row + q_off < o.rows)
+                    o.spec.store<true>(row + q_off, bin, u[s + E / 2]);
+            }
+        }
+        __syncthreads();  // cur is refilled at it + 2
+    }
+    cp_wait<0>();
+}
+
 __host__ int ilog2_64(int64_t v) {
     int k = 0;
     while ((int64_t(1) << (k + 1)) <= v) ++k;
     return k;
+}
+
+// Blocks of a persistent grid of `kernel` (THREADS threads, SMEM bytes
+// of shared memory): as many as fit the card, at most one a tile.
+template <typename K>
+cudaError_t persistent_grid(K kernel, int threads, size_t smem,
+                            int64_t ntiles, unsigned* grid) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    const int64_t g = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    *grid = (unsigned)(g < ntiles ? g : ntiles);
+    return cudaSuccess;
 }
 
 template <int R, bool EXACT>
@@ -379,23 +603,53 @@ cudaError_t launch(const PassArgs& args, double scale, const void* tw,
                    cudaStream_t stream) {
     using G = PassTile<R, EXACT>;
     using C = typename G::C;
-    auto kernel = fourstep_pass_kernel<R, EXACT>;
-    cudaError_t err = allow_smem(kernel, G::SMEM);
+    void (*kernel)(PassArgs, double, const C*, const C*, const C*, int) =
+        fourstep_pass_kernel<R, EXACT>;
+    unsigned grid = 0;
+    cudaError_t err = persistent_grid(kernel, G::THREADS, G::SMEM,
+                                      (args.total + G::T - 1) / G::T, &grid);
     if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, G::THREADS, G::SMEM);
-    if (err != cudaSuccess) return err;
-    const int64_t ntiles = (args.total + G::T - 1) / G::T;
-    int64_t grid = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-    if (grid > ntiles) grid = ntiles;
-    kernel<<<(unsigned)grid, G::THREADS, G::SMEM, stream>>>(
+    kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
         args, scale, static_cast<const C*>(tw), static_cast<const C*>(lo),
         static_cast<const C*>(hi), inverse);
     return cudaGetLastError();
+}
+
+// The split pass (T/2 of the total / 2 pairs a tile), to R = 256.
+template <int R, bool EXACT>
+cudaError_t launch_split(const PassArgs& args, const SplitOut& out,
+                         double scale, const void* tw, int inverse,
+                         cudaStream_t stream) {
+    if constexpr (R > 256) {
+        return cudaErrorInvalidValue;
+    } else {
+        using G = SplitTile<R, EXACT>;
+        using C = typename G::C;
+        void (*kernel)(PassArgs, SplitOut, double, const C*, int) =
+            fourstep_pass_kernel<R, EXACT, true>;
+        unsigned grid = 0;
+        cudaError_t err = persistent_grid(
+            kernel, G::THREADS, G::SMEM, (args.total + G::T - 1) / G::T,
+            &grid);
+        if (err != cudaSuccess) return err;
+        kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
+            args, out, scale, static_cast<const C*>(tw), inverse);
+        return cudaGetLastError();
+    }
+}
+
+template <int R>
+cudaError_t dispatch(const PassArgs& args, const SplitOut* split,
+                     double scale, const void* tw, const void* lo,
+                     const void* hi, int inverse, int exact,
+                     cudaStream_t st) {
+    if (split)
+        return exact ? launch_split<R, true>(args, *split, scale, tw,
+                                             inverse, st)
+                     : launch_split<R, false>(args, *split, scale, tw,
+                                              inverse, st);
+    return exact ? launch<R, true>(args, scale, tw, lo, hi, inverse, st)
+                 : launch<R, false>(args, scale, tw, lo, hi, inverse, st);
 }
 
 }  // namespace
@@ -409,16 +663,28 @@ extern "C" {
 // radices are powers of two; the radix divides n; tw_s = 0 omits the
 // twiddle.  tw: W_radix^m, m < radix; lo, hi: W_n^j, j < 2^lo_bits, and
 // W_n^(i * 2^lo_bits); all three (re, im) float32 pairs, or float64 when
-// exact != 0.  Returns a cudaError_t (0 on success).
+// exact != 0.  spec_layout >= 0: the pass is a plan's last (row map in,
+// columns of stride n / radix out, no twiddle, radix <= 256) and writes
+// the pair split of its output into spec_rows rows of packed spectra of
+// n/2 bins at out_a / out_b in layout spec_layout (0 planar pair, 1 packed
+// complex64, 2 numpy complex64 of n/2 + 1 bins), the q rows batch after
+// the p rows (out_kind unused); -1: out is the pass's output.  Returns a
+// cudaError_t (0 on success).
 int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                         int64_t in_s, void* out_a, void* out_b, int out_kind,
                         int out_map, int64_t out_s, int nr, int64_t r0,
                         int64_t r1, int64_t r2, int64_t r3, int64_t batch,
                         int64_t n, int64_t radix, int64_t tw_s, double scale,
                         const void* tw, const void* lo, const void* hi,
-                        int lo_bits, int inverse, int exact, void* stream) {
+                        int lo_bits, int inverse, int exact, int spec_layout,
+                        int64_t spec_rows, void* stream) {
     if (batch <= 0) return (int)cudaSuccess;
     if (nr < 0 || nr > 4 || n % radix) return (int)cudaErrorInvalidValue;
+    const bool split = spec_layout >= 0;
+    if (split && (spec_layout > 2 || in_map != 1 || out_map != 0 ||
+                  out_s != n / radix || tw_s != 0 || n / radix < 2 ||
+                  spec_rows < batch || spec_rows > 2 * batch))
+        return (int)cudaErrorInvalidValue;
     const int64_t rs[4] = {r0, r1, r2, r3};
     const int64_t pow2[5] = {n, radix, in_map == 0 ? in_s : 1,
                              out_map == 0 ? out_s : 1, tw_s ? tw_s : 1};
@@ -443,13 +709,15 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
     args.tw_mask = tw_s ? tw_s - 1 : -1;
     args.log_tw_step = tw_s ? ilog2_64(n / (radix * tw_s)) : 0;
     args.lo_bits = lo_bits;
+    const SplitOut out{Spectrum{static_cast<float*>(out_a),
+                                static_cast<float*>(out_b), spec_layout,
+                                n / 2},
+                       spec_rows};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SMFFT_CASE(RR)                                                     \
     case RR:                                                               \
-        return exact ? (int)launch<RR, true>(args, scale, tw, lo, hi,      \
-                                             inverse, st)                  \
-                     : (int)launch<RR, false>(args, scale, tw, lo, hi,     \
-                                              inverse, st);
+        return (int)dispatch<RR>(args, split ? &out : nullptr, scale, tw,  \
+                                 lo, hi, inverse, exact, st);
     switch (radix) {
         SMFFT_CASE(16)
         SMFFT_CASE(32)

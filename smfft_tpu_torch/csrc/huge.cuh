@@ -1,6 +1,7 @@
 // What the huge-N kernels (fourstep.cu, real_huge.cu) share: the view of
 // one operand in device memory in any of the three element types the
-// passes exchange, and the exact root W_N^m from two small tables.
+// passes exchange, the view of the real transforms' packed spectra, and
+// the exact root W_N^m from two small tables.
 
 #pragma once
 
@@ -37,6 +38,56 @@ struct Cells {
         } else {
             static_cast<float2*>(a)[g] = as<float2>(v);
         }
+    }
+};
+
+// The spectrum side: rows of L packed bins (slot 0 = (DC, Nyquist)) as a
+// planar pair (layout 0), complex64 (1), or numpy complex64 rows of L + 1
+// bins with DC and Nyquist in their own real slots (2).
+struct Spectrum {
+    float* re;
+    float* im;
+    int layout;
+    int64_t L;
+
+    __device__ __forceinline__ int64_t at(int64_t row, int64_t k) const {
+        return row * (layout == 2 ? L + 1 : L) + k;
+    }
+    template <typename C>
+    __device__ __forceinline__ C load(int64_t row, int64_t k) const {
+        const int64_t g = at(row, k);
+        if (layout == 0) return as<C>(make_float2(re[g], im[g]));
+        const float2* z = reinterpret_cast<const float2*>(re);
+        if (layout == 2 && k == 0)
+            return as<C>(make_float2(z[g].x, z[g + L].x));
+        return as<C>(z[g]);
+    }
+    // STREAM: with the streaming hint (st.global.cs), for a spectrum that
+    // the kernel writing it does not read again
+    template <bool STREAM = false, typename C>
+    __device__ __forceinline__ void store(int64_t row, int64_t k,
+                                          C v) const {
+        const int64_t g = at(row, k);
+        const float2 f = as<float2>(v);
+        if (layout == 0) {
+            put_to<STREAM>(re + g, f.x);
+            put_to<STREAM>(im + g, f.y);
+            return;
+        }
+        float2* z = reinterpret_cast<float2*>(re);
+        if (layout == 2 && k == 0) {
+            put_to<STREAM>(z + g, make_float2(f.x, 0.0f));
+            put_to<STREAM>(z + g + L, make_float2(f.y, 0.0f));
+            return;
+        }
+        put_to<STREAM>(z + g, f);
+    }
+    template <bool STREAM, typename V>
+    static __device__ __forceinline__ void put_to(V* p, V v) {
+        if constexpr (STREAM)
+            __stcs(p, v);
+        else
+            *p = v;
     }
 };
 

@@ -5,7 +5,11 @@
 // real_huge_kernel replaces the TPU kernels
 //   smfft_tpu/ops/real_fused.py::_build_split       (B24, "halfc", both
 //                                                    directions)
-//   smfft_tpu/ops/real_fused.py::_build_pair_split  (B25)
+//   smfft_tpu/ops/real_fused.py::_build_pair_split  (B25; where the last
+//                                                    pass's radix is at
+//                                                    most 256 the split
+//                                                    is that pass's own,
+//                                                    fourstep.cu)
 //   smfft_tpu/ops/real_fused.py::_build_pair_merge  (B26)
 // Around it, ops/real_fused.py runs the huge-N C2C passes (fourstep.cu):
 //   * pair split (mode 0): Z = FFT_n(x_p + i x_q) for two real rows p, q
@@ -41,47 +45,6 @@
 namespace {
 
 using namespace smfft;
-
-// The spectrum side: rows of L packed bins (slot 0 = (DC, Nyquist)) as a
-// planar pair (layout 0), complex64 (1), or numpy complex64 rows of L + 1
-// bins with DC and Nyquist in their own real slots (2).
-struct Spectrum {
-    float* re;
-    float* im;
-    int layout;
-    int64_t L;
-
-    __device__ __forceinline__ int64_t at(int64_t row, int64_t k) const {
-        return row * (layout == 2 ? L + 1 : L) + k;
-    }
-    template <typename C>
-    __device__ __forceinline__ C load(int64_t row, int64_t k) const {
-        const int64_t g = at(row, k);
-        if (layout == 0) return as<C>(make_float2(re[g], im[g]));
-        const float2* z = reinterpret_cast<const float2*>(re);
-        if (layout == 2 && k == 0)
-            return as<C>(make_float2(z[g].x, z[g + L].x));
-        return as<C>(z[g]);
-    }
-    template <typename C>
-    __device__ __forceinline__ void store(int64_t row, int64_t k,
-                                          C v) const {
-        const int64_t g = at(row, k);
-        const float2 f = as<float2>(v);
-        if (layout == 0) {
-            re[g] = f.x;
-            im[g] = f.y;
-            return;
-        }
-        float2* z = reinterpret_cast<float2*>(re);
-        if (layout == 2 && k == 0) {
-            z[g] = make_float2(f.x, 0.0f);
-            z[g + L] = make_float2(f.y, 0.0f);
-            return;
-        }
-        z[g] = f;
-    }
-};
 
 template <typename C>
 __global__ void __launch_bounds__(256)

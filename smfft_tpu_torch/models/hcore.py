@@ -19,7 +19,12 @@ kernels' own index arithmetic written out in numpy:
     for them (:func:`wavefronts`, :func:`bluestein_patterns`,
     :func:`pass_patterns`);
   * the persistent tile schedule of the pass kernel
-    (:func:`tile_schedule`);
+    (:func:`tile_schedule`), and its pair-split epilogue: the split
+    pass's tile (:func:`split_geometry`), the pairs of transforms its
+    slots hold (:func:`pass_split_slot`), the mirror
+    points read through the slots and the bins stored
+    (:func:`pass_split`), and the wavefronts of what it adds
+    (:func:`pass_split_patterns`);
   * the row kernels' block layout (:func:`row_geometry`), their revblock
     staging (:func:`stage_pos`), the C2C kernel's layouts
     (:func:`c2c_rows`), the R2C kernel's pair split and its stores in
@@ -270,12 +275,13 @@ def pass_lane(tid: int, g: dict) -> tuple[int, int]:
     return tid % fw + fw * (tid // (fw * tpf)), (tid // fw) % tpf
 
 
-def pass_patterns(r: int, exact: bool):
+def pass_patterns(r: int, exact: bool, g: dict | None = None):
     """(what, wavefronts) for every shared-memory access of one pass
     tile: the copy of a column tile (element e -> transform e mod T, point
     e / T) and of a row tile (transform e / R, point e mod R), the stages
-    from the staged tile under :func:`pass_lane`, the row-out staging."""
-    g = pass_geometry(r, exact)
+    from the staged tile under :func:`pass_lane`, the row-out staging;
+    under geometry ``g`` (default :func:`pass_geometry`)."""
+    g = g or pass_geometry(r, exact)
     elem, ld, th = g["elem"], g["LD"], g["threads"]
     t_n = g["T"]
     pad = pad16 if g["pad"] else (lambda i: i)
@@ -316,6 +322,112 @@ def grid_size(n_tiles: int, sms: int, per_sm: int) -> int:
     """Blocks the launcher starts: one for every resident slot on the card,
     at most one a tile."""
     return max(1, min(n_tiles, sms * per_sm))
+
+
+def split_geometry(r: int, exact: bool) -> dict:
+    """The split pass's tile (``csrc/fourstep.cu`` SplitTile, R = 16..256):
+    two buffers of twice the plain pass's transforms, so that a side's T/2
+    adjacent transforms store runs of T/2 bins; E = 16 points a thread up
+    to 512 threads (256 for "exact"), else 32; the lanes of a warp across
+    32 transforms of a side where a side has 32, else the plain pass's
+    FW."""
+    g = pass_geometry(r, exact)
+    t = 2 * g["T"]
+    e = 16 if t * r // 16 <= (256 if exact else 512) else 32
+    fw = 32 if t // 2 >= 32 else g["FW"]
+    return {**g, "T": t, "NB": 2, "E": e, "TPF": r // e, "FW": fw,
+            "threads": t * (r // e)}
+
+
+def pass_split_slot(g: dict, tile: int, f: int, s: int, total: int) -> int:
+    """The transform in slot f of tile ``tile`` of a split pass (S = N/R
+    transforms a row, ``total`` in all), or -1 past the last pair
+    (``csrc/fourstep.cu`` split_transform): pair P = tile * T/2 + f mod
+    T/2 over every row, S/2 a row; slot f < T/2 transform P of its row,
+    slot f + T/2 its mirror S - P, or S/2 for P = 0."""
+    h = g["T"] // 2
+    pg = tile * h + f % h
+    if pg >= total // 2:
+        return -1
+    half = s // 2
+    p = pg % half
+    c = p if f < h else (s - p if p else half)
+    return (pg // half) * s + c
+
+
+def pass_split(z: np.ndarray, r: int, exact: bool, rows: int):
+    """The pair split as the last pass's epilogue forms it, from the pass's
+    output Z (B, N) in natural order (transform c's point k is Z[c + k S]):
+    each tile's slots hold its transforms' points k >= R/2, each thread
+    reads the mirrors of its points k < R/2 from the other slot of its
+    pair (its own slot for transforms 0 and S/2), and stores bins c + k S
+    of spectrum rows r (X_p) and r + B (X_q, if < ``rows``).  Returns the
+    packed spectra (rows, N/2) and how many times each bin was stored."""
+    b, n = z.shape
+    s = n // r
+    g = split_geometry(r, exact)
+    t_n, e, tpf, ld = g["T"], g["E"], g["TPF"], g["LD"]
+    h = t_n // 2
+    pad = pad16 if g["pad"] else (lambda i: i)
+    total = b * s
+    spec = np.zeros((rows, n // 2), complex)
+    stores = np.zeros((rows, n // 2), int)
+    lanes = [pass_lane(tid, g) for tid in range(g["threads"])]
+    upper = np.arange(r // 2, r)
+    for tile in range(-(-total // t_n)):
+        slots = np.full(t_n * ld, np.nan, complex)
+        gs = [pass_split_slot(g, tile, f, s, total) for f in range(t_n)]
+        for f, gf in enumerate(gs):
+            if gf >= 0:
+                row, c = divmod(gf, s)
+                slots[f * ld + pad(upper)] = z[row, c + upper * s]
+        for f, t in lanes:
+            if gs[f] < 0:
+                continue
+            row, c = divmod(gs[f], s)
+            mate = f if c in (0, s // 2) else f ^ h
+            k = t + np.arange(e // 2) * tpf
+            a = z[row, c + k * s]
+            if c == 0:
+                m = slots[f * ld + pad(np.where(k > 0, r - k, r // 2))]
+            else:
+                m = slots[mate * ld + pad(r - 1 - k)]
+            p = 0.5 * (a + m.conj())
+            q = -0.5j * (a - m.conj())
+            if c == 0 and t == 0:   # k = 0: (DC, Nyquist) of each row
+                p[0] = complex(a[0].real, m[0].real)
+                q[0] = complex(a[0].imag, m[0].imag)
+            bins = c + k * s
+            spec[row, bins] = p
+            stores[row, bins] += 1
+            if row + b < rows:
+                spec[row + b, bins] = q
+                stores[row + b, bins] += 1
+    return spec, stores
+
+
+def pass_split_patterns(r: int, exact: bool):
+    """(what, wavefronts) for the shared-memory accesses of one split
+    tile: the row copy and the core's stages under its geometry
+    (:func:`pass_patterns`), each thread's outputs k >= R/2 into its slot,
+    and the mirrors R-1-k of its points k < R/2 from the other slot of its
+    pair."""
+    g = split_geometry(r, exact)
+    elem, ld, th, e, tpf = g["elem"], g["LD"], g["threads"], g["E"], g["TPF"]
+    h = g["T"] // 2
+    pad = pad16 if g["pad"] else (lambda i: i)
+    lanes = [pass_lane(tid, g) for tid in range(th)]
+    out = [w for w in pass_patterns(r, exact, g) if w[0] != "copy col"]
+    for w0 in range(0, th, 32):
+        warp = lanes[w0:w0 + 32]
+        for j in range(e // 2):
+            out.append(("split w", wavefronts(
+                [(f * ld + pad(t + (e // 2 + j) * tpf)) * elem
+                 for f, t in warp], elem)))
+            out.append(("split mirror", wavefronts(
+                [((f ^ h) * ld + pad(r - 1 - t - j * tpf)) * elem
+                 for f, t in warp], elem)))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -125,8 +125,9 @@ def _build(nvcc: str) -> Path:
 
 def register_report(log: str | None = None) -> list[str]:
     """One line per kernel instantiation from ptxas's report in a build
-    log: the kernel, its integer template arguments, fp32 or fp64,
-    registers and spill stores."""
+    log: the kernel, its integer template arguments (and ``bank`` or
+    ``split`` for a second flag set), fp32 or fp64, registers and spill
+    stores."""
     lines, name, spill = [], None, 0
     for line in (build_log if log is None else log).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -144,10 +145,13 @@ def register_report(log: str | None = None) -> list[str]:
                           r"fourstep_pass_kernel|real_huge_kernel)"
                           r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?", name)
             # the integer template arguments, and a second flag after
-            # EXACT (the convolutions' bank form)
+            # EXACT (the convolutions' bank form, the pass kernel's pair
+            # split)
+            flag = ("" if not k or not k.group(4) else ",split"
+                    if k.group(1) == "fourstep_pass_kernel" else ",bank")
             label = (f"{k.group(1)}<"
                      f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}"
-                     f"{',bank' if k.group(4) else ''}>" if k else name)
+                     f"{flag}>" if k else name)
             # the "exact" instantiations compute in double2, or carry the
             # template flag EXACT = true after the sizes
             kind = ("fp64" if "double2" in name
@@ -190,7 +194,7 @@ def library() -> ctypes.CDLL:
                                             ci, i64, ci, i64, i64, i64, i64,
                                             i64, i64, i64, i64,
                                             ctypes.c_double, vp, vp, vp, ci,
-                                            ci, ci, vp]
+                                            ci, ci, ci, i64, vp]
         lib.smfft_real_huge.argtypes = [ci, vp, ci, vp, vp, ci, i64, i64, i64,
                                         i64, ctypes.c_double, vp, vp, ci, ci,
                                         vp]

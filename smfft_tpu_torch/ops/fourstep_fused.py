@@ -19,9 +19,12 @@ for every row:
 
 A pass is described by a :class:`Pass`: its radix, the index map of its
 input and of its output (``("col", S)`` or ``("rows", radices)``), the
-twiddle's column count (0: none) and whether the scale applies there.  The
-passes exchange complex64 intermediates, complex128 for the "exact" tier,
-so that tier's only fp32 rounding is the output's.
+twiddle's column count (0: none), whether the scale applies there, and its
+epilogue: ``split="pair"`` on a plan's last pass (:func:`pair_split_plan`)
+writes the pair split of the real transforms (``ops/real_fused.py``)
+straight from the pass's outputs, the packed half-spectra in place of the
+pass's output.  The passes exchange complex64 intermediates, complex128
+for the "exact" tier, so that tier's only fp32 rounding is the output's.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel once
 per pass (:func:`launch_pass`, counted) or raises; a CPU tensor runs
@@ -32,7 +35,7 @@ hi/lo twiddles in plain PyTorch, never ``torch.fft``.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 
 import torch
@@ -44,6 +47,14 @@ from smfft_tpu_torch.ops import fourstep as FS
 
 MIN_RADIX, MAX_RADIX = 16, 2048
 
+#: The largest last radix that takes the pair split as its epilogue
+#: (``csrc/fourstep.cu`` SplitTile: two buffers of twice the plain pass's
+#: transforms fit to 256).  Above it a tile holds 4-8 adjacent transforms a
+#: side, and its 32-64-byte runs wrote slower than the plain pass and
+#: ``real_huge_kernel``'s split together (on an H100, 2^28 samples a call:
+#: 4.0 against 3.2 ms at n = 2^20, 4.6 against 4.2 at 2^27).
+SPLIT_MAX_RADIX = 256
+
 
 @dataclass(frozen=True)
 class Pass:
@@ -52,12 +63,15 @@ class Pass:
     o*S + s at o*R*S + s + j*S; ``("rows", (R1, ..., Rq))``: the contiguous
     row ((d1*R2 + d2)*R3 + ...) for c = d1 + R1*(d2 + R2*...)), each output
     point k times W_(R*tw_s)^((c mod tw_s)*k) when tw_s, the input times the
-    scale when ``scaled``."""
+    scale when ``scaled``.  ``split="pair"``: the output Z (B, N) of two
+    real rows a complex row goes on as their packed half-spectra, rows b
+    and b + B (``real_fused.pair_split_plain``), in place of Z."""
     radix: int
     src: tuple
     dst: tuple
     tw_s: int
     scaled: bool
+    split: str | None = None
 
 
 def radices(n: int, passes: int) -> tuple[int, ...]:
@@ -83,6 +97,29 @@ def plan(rs: tuple[int, ...]) -> tuple[Pass, ...]:
     out.append(Pass(rs[-1], ("rows", tuple(rs[:-1])), ("col", n // rs[-1]),
                     0, len(rs) == 1))
     return tuple(out)
+
+
+def pair_split_plan(n: int) -> tuple[Pass, ...]:
+    """The forward pair-mode R2C's plan at N (real rows of N samples, two a
+    complex row): :func:`default_passes` with the pair split in the last
+    pass where its radix is at most :data:`SPLIT_MAX_RADIX`, else as it is
+    (the split a launch of its own, ``real_fused``)."""
+    passes = default_passes(n)
+    if passes[-1].radix > SPLIT_MAX_RADIX:
+        return passes
+    return passes[:-1] + (replace(passes[-1], split="pair"),)
+
+
+def _check_split(n: int, p: Pass) -> None:
+    """The split is the epilogue of a plan's last pass: rows in, columns
+    of stride N / R out, no twiddle (the kernel's to R = 256)."""
+    if p.split not in (None, "pair"):
+        raise ValueError(f"unknown split {p.split!r}")
+    if p.split and (p.src[0] != "rows" or p.dst != ("col", n // p.radix)
+                    or p.tw_s):
+        raise ValueError("the pair split is the epilogue of a plan's last "
+                         f"pass (rows in, columns of {n // p.radix} out, no "
+                         f"twiddle); got {p}")
 
 
 def factors_plan(n1: int, n2: int) -> tuple[Pass, ...]:
@@ -150,9 +187,11 @@ def _pass_twiddle(n: int, p: Pass, inverse: bool,
 
 
 def pass_plain(x: torch.Tensor, n: int, p: Pass, inverse: bool = False,
-               scale: float = 1.0) -> torch.Tensor:
+               scale: float = 1.0):
     """One pass of :func:`launch_pass` in plain PyTorch: complex (B, N) ->
-    complex (B, N), in x's precision."""
+    complex (B, N), in x's precision; a ``split="pair"`` pass -> the
+    packed planar half-spectra (2B, N/2) of its output."""
+    _check_split(n, p)
     b, r = x.shape[0], p.radix
     a = _gather(x, r, p.src)
     if p.scaled and scale != 1.0:
@@ -162,12 +201,17 @@ def pass_plain(x: torch.Tensor, n: int, p: Pass, inverse: bool = False,
     y = torch.complex(yr, yi).reshape(b, n // r, r)
     if p.tw_s:
         y = y * _pass_twiddle(n, p, inverse, y.dtype, y.device)
-    return _scatter(y, r, p.dst)
+    y = _scatter(y, r, p.dst)
+    if p.split:
+        from smfft_tpu_torch.ops import real_fused as RF
+        return RF.pair_split_plain(y, 2 * b)
+    return y
 
 
 def passes_plain(x: torch.Tensor, n: int, passes: tuple[Pass, ...],
-                 inverse: bool = False, scale: float = 1.0) -> torch.Tensor:
-    """Every pass of a plan in plain PyTorch (complex in, complex out)."""
+                 inverse: bool = False, scale: float = 1.0):
+    """Every pass of a plan in plain PyTorch (complex in, complex out; the
+    planar spectra out of a plan whose last pass splits)."""
     for p in passes:
         x = pass_plain(x, n, p, inverse, scale)
     return x
@@ -229,25 +273,39 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     current CUDA stream: pass ``p`` from ``src`` into ``dst`` (each a
     complex64 / complex128 (B, N) tensor or a planar float32 pair; they may
     be the same tensor for a column pass in place), and return ``dst``.
-    ``dst`` may be a function that makes it, called here: the launch's
-    ``alloc`` span.  ``exact`` runs the fp64 instantiation.  ``at`` = (i,
-    p): pass i of a plan of p, named in the span's variant.  Each launch
-    adds one to ``launch_pass.count``."""
+    A ``split="pair"`` pass writes the packed half-spectra instead: ``dst``
+    is a spectrum of B..2B rows of N/2 bins as ``real_fused`` takes it (a
+    planar pair, packed or numpy complex64), its q rows B after the p rows
+    (a q row past its last is left out).  ``dst`` may be a function that
+    makes it, called here: the launch's ``alloc`` span.  ``exact`` runs the
+    fp64 instantiation.  ``at`` = (i, p): pass i of a plan of p, named in
+    the span's variant.  Each launch adds one to ``launch_pass.count``, a
+    split one to ``launch_pass.fused`` as well."""
     from smfft_tpu_torch.ops import _cuda
 
     sp = _T.on and _T.now()
     a = t = c = rows = out = 0
     try:
+        _check_split(n, p)
         ia, ib, ik = _operand(src, n, "src")
         if callable(dst):
             a = sp and _T.now()
             dst = out = dst()
-        oa, ob, ok = _operand(dst, n, "dst")
         first = src[0] if isinstance(src, tuple) else src
         rows = first.shape[0]
-        rows_out = (dst[0] if isinstance(dst, tuple) else dst).shape[0]
-        if rows_out != rows:
-            raise ValueError(f"src has {rows} rows, dst {rows_out}")
+        if p.split:
+            from smfft_tpu_torch.ops import real_fused as RF
+            oa, ob, layout, rows_out = RF._spec_args(dst, n // 2)
+            ok = 0
+            if not rows <= rows_out <= 2 * rows:
+                raise ValueError(f"{rows_out} spectra do not match {rows} "
+                                 "rows of the pair split's src")
+        else:
+            oa, ob, ok = _operand(dst, n, "dst")
+            layout = -1
+            rows_out = (dst[0] if isinstance(dst, tuple) else dst).shape[0]
+            if rows_out != rows:
+                raise ValueError(f"src has {rows} rows, dst {rows_out}")
         rad = next((m[1] for m in (p.src, p.dst) if m[0] == "rows"), ())
         if len(rad) > 4:
             raise ValueError("a row map takes at most 4 radices")
@@ -266,20 +324,23 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
                 nr, *rad, rows, n, p.radix, p.tw_s,
                 float(scale) if p.scaled else 1.0, tw.data_ptr(),
                 lo.data_ptr(), hi.data_ptr(), FS.lo_bits(n), int(inverse),
-                int(exact), stream)
+                int(exact), layout, rows_out, stream)
         _cuda.check(err, f"fourstep pass launch (n={n}, radix={p.radix}, "
                          f"batch={rows})")
         launch_pass.count += 1
+        launch_pass.fused += bool(p.split)
     finally:
         if sp:
-            variant = f"radix={p.radix}" + (f" pass={at[0]}/{at[1]}"
-                                             if at else "")
+            variant = (f"radix={p.radix}"
+                       + (f" pass={at[0]}/{at[1]}" if at else "")
+                       + (f" split={p.split}" if p.split else ""))
             _T.launched(sp, a, t, c, out, "launch:fourstep_pass", variant,
                         exact, rows, n)
     return dst
 
 
 launch_pass.count = 0
+launch_pass.fused = 0
 
 
 def _alloc(like: torch.Tensor, rows: int, n: int, planar: bool):
@@ -301,6 +362,9 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
     intermediate (complex64, complex128 for ``exact``), made by the first
     pass; ``dst`` may be a function that makes it, called by the last
     pass, which makes the new result too (each launch's ``alloc`` span).
+    A plan whose last pass splits (:func:`pair_split_plan`) writes its
+    spectra into ``dst`` (:func:`launch_pass`); its plain version is
+    ``real_fused.rfft_large_plain``.
     CPU: the plain version at the tier's precision (``c2c.at_tier``)."""
     planar_in = isinstance(src, tuple)
     planar_out = planar_in if planar_out is None else planar_out

@@ -4,7 +4,8 @@ kernel's wrapper, its plain version, and the two packing modes.
 Counterpart of ``smfft_tpu/ops/real_fused.py`` (B24-B26).  A real
 transform of n = 2**15..2**29 samples is a complex transform (the passes of
 ops/fourstep_fused.py) and one elementwise Hermitian pass of
-``csrc/real_huge.cu`` (``real_huge_kernel``):
+``csrc/real_huge.cu`` (``real_huge_kernel``), or the pair split in the
+plan's last pass:
 
   * "halfc" (B24): z[t] = x[2t] + i x[2t+1], read in place (a float32 row
     viewed as complex64), Z = FFT_L(z), L = n/2, then the split X[k] = E[k]
@@ -14,8 +15,10 @@ ops/fourstep_fused.py) and one elementwise Hermitian pass of
     planes of one complex row (the planar layout makes that free: the
     first half of the rows and the second), Z = FFT_n(x_p + i x_q), and
     the split writes X_p = (Z + conj Z[n-k]) / 2 and X_q = -i (Z - conj
-    Z[n-k]) / 2 with no twiddle; the inverse merges two half-spectra into
-    one Z whose inverse FFT holds x_p and x_q in its two planes.
+    Z[n-k]) / 2 with no twiddle, in the plan's last pass where its radix
+    is at most 256 (``fourstep_fused.pair_split_plan``: Z is never stored);
+    the inverse merges two half-spectra into one Z whose inverse FFT holds
+    x_p and x_q in its two planes.
 
 Pairing couples the rows' rounding: x_p's spectrum carries rounding error
 in proportion to the size of x_q's as well (one complex transform holds
@@ -110,7 +113,8 @@ def halfc_merge_plain(xr: torch.Tensor, xi: torch.Tensor, n: int,
 
 def pair_split_plain(z: torch.Tensor, b: int):
     """Z = FFT_n(x_p + i x_q) (B2, n) -> packed planar spectra (b, L): rows
-    r (of x_p = row r) and r + B2 (of x_q) for every Z row r."""
+    r (of x_p = row r) and r + B2 (of x_q) for every Z row r; also the
+    split pass's (``fourstep_fused.pass_plain``)."""
     b2, n = z.shape
     L = n // 2
     m = R._mirror(z).conj()[:, :L]
@@ -310,8 +314,13 @@ def rfft_large_rows(x: torch.Tensor, layout: str = "planar",
         return launch_real_huge("halfc_split", z, new_spec, n, exact=exact)
     if 2 * b2 > b:
         x = torch.cat([x, torch.zeros_like(x[:1])])
-    z = FF.run_passes((x[:b2], x[b2:]), n, FF.default_passes(n),
-                      exact=exact, dst=partial(new_z, (b2, n)))
+    passes = FF.pair_split_plan(n)
+    if passes[-1].split:
+        # the last pass splits: no z, the spectra straight from its outputs
+        return FF.run_passes((x[:b2], x[b2:]), n, passes, exact=exact,
+                             dst=new_spec)
+    z = FF.run_passes((x[:b2], x[b2:]), n, passes, exact=exact,
+                      dst=partial(new_z, (b2, n)))
     return launch_real_huge("pair_split", z, new_spec, n, exact=exact)
 
 

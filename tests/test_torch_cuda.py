@@ -13,6 +13,7 @@ machine run:
 does not use.)
 """
 
+import dataclasses
 import math
 import re
 
@@ -1073,9 +1074,10 @@ def test_real_huge_matches_plain_and_oracle(dev, n, mode, layout, exact):
 
 def test_large_apis_go_through_kernels_and_backward(dev):
     """fft_large / ifft_large launch the pass kernel once a pass and
-    nothing else; rfft_large / irfft_large add one real_huge launch; sizes
-    <= 16384 run the row kernels; the backward of fft_large is a kernel
-    run too."""
+    nothing else; rfft_large in pair mode is its plan's passes alone, the
+    last one splitting (``launch_pass.fused``), and irfft_large adds one
+    real_huge launch (the merge); sizes <= 16384 run the row kernels; the
+    backward of fft_large is a kernel run too."""
     import smfft_tpu_torch as T
     n = 1 << 18
     x = rand_c(2, n, dev, seed=3)
@@ -1083,6 +1085,7 @@ def test_large_apis_go_through_kernels_and_backward(dev):
     fs = {"pass": FF.launch_pass, "real": RFU.launch_real_huge,
           "c2c": C.launch, "r2c": R.launch_r2c}
     before = {k: f.count for k, f in fs.items()}
+    fused = FF.launch_pass.fused
 
     def delta():
         return {k: f.count - before[k] for k, f in fs.items()}
@@ -1092,7 +1095,8 @@ def test_large_apis_go_through_kernels_and_backward(dev):
     xb = T.planar.irfft_large(hr, hi)
     torch.cuda.synchronize()
     two = len(FF.default_passes(n))
-    assert delta() == {"pass": 2 * two + 4, "real": 2, "c2c": 0, "r2c": 0}
+    assert delta() == {"pass": 2 * two + 4, "real": 1, "c2c": 0, "r2c": 0}
+    assert FF.launch_pass.fused - fused == 1
     assert max_err(back, x) < bound(n)
     assert max_err(xb, xr) < bound(1 << 16)
     T.fft_large(x[:, :16384].contiguous())
@@ -1113,8 +1117,9 @@ def test_rfft_large_matches_the_deployments_reference_and_records_buffers(
     samples a trial, pair mode (4 rows) and halfc (3), held to the plain
     reference as the CPU tests hold it (2e-5 of the spectrum's rms,
     tests/test_torch_periodicity.py).  Traced, the intermediate, ``z``
-    and the spectrum are each the ``alloc`` of the launch that first
-    writes it, with its bytes (rows * n * 4 for either Z layout)."""
+    (halfc only: the pair split is the last pass's) and the spectrum are
+    each the ``alloc`` of the launch that first writes it, with its bytes
+    (rows * n * 4 for either Z layout)."""
     from smfft_tpu_torch import trace
     from smfft_tpu_torch.reference import periodicity_search as ref
     n = 1 << 21
@@ -1130,7 +1135,8 @@ def test_rfft_large_matches_the_deployments_reference_and_records_buffers(
     assert ((y.to(want.dtype) - want).abs().max() / rms).item() < 2e-5
     allocs = [rec.span(i)["attrs"]["bytes"] for i in range(len(rec))
               if rec.span(i)["name"] == "alloc"]
-    assert allocs == [rows * n * 4] * 2 + [rows * (n // 2 + 1) * 8]
+    zs = 1 if RFU.choose_mode(rows, n) == "pair" else 2
+    assert allocs == [rows * n * 4] * zs + [rows * (n // 2 + 1) * 8]
 
 
 def test_huge_launchers_refuse_what_they_cannot_take(dev):
@@ -1147,6 +1153,12 @@ def test_huge_launchers_refuse_what_they_cannot_take(dev):
         FF.launch_pass(x, x[:1].contiguous(), n, p)
     with pytest.raises(ValueError, match="unknown mode"):
         RFU.launch_real_huge("split", x, x, n)
+    last = FF.pair_split_plan(n)[-1]
+    spec = torch.empty((5, n // 2), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="do not match"):
+        FF.launch_pass(x, spec, n, last)
+    with pytest.raises(ValueError, match="last pass"):
+        FF.launch_pass(x, spec[:2], n, dataclasses.replace(p, split="pair"))
     with pytest.raises(ValueError, match="do not match"):
         RFU.launch_real_huge("halfc_split", x[:, :n // 2].contiguous(),
                              torch.empty((3, n // 2), dtype=torch.complex64,
@@ -1158,6 +1170,108 @@ def test_huge_launchers_refuse_what_they_cannot_take(dev):
 TILE_EDGES = [(1 << 11, 3, (32, 64)), (1 << 15, 1, (256, 128)),
               (1 << 15, 64, (256, 128)), (1 << 16, 5, (2048, 32)),
               (1 << 20, 2, (1024, 1024))]
+
+
+def fused_case(x, layout, exact, mode=None):
+    """rfft_large_rows on the card and its plain version on the card, the
+    spectra as numpy rows, and the launches it made (passes, split passes,
+    real_huge)."""
+    before = (FF.launch_pass.count, FF.launch_pass.fused,
+              RFU.launch_real_huge.count)
+    got = RFU.rfft_large_rows(x, layout, exact, mode)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(
+        (FF.launch_pass.count, FF.launch_pass.fused,
+         RFU.launch_real_huge.count), before))
+    plain = RFU.rfft_large_plain(x, layout, exact, mode)
+    n = x.shape[1]
+
+    def nat(t):
+        return R.to_layout(*R.from_layout(
+            *(t if isinstance(t, tuple) else (t, None)), layout, n // 2),
+            "numpy")
+    return nat(got), nat(plain), launched
+
+
+# the pair-mode R2C with the split in its last pass: rowfour's 256 x 128
+# (2^15), three passes 128^3 (2^21), the cell's 256 x 256 x 128 (2^23) and
+# 256^3 (2^24); "two:revisit" 512 x 512 (2^18) keeps the split a launch of
+# its own (radix 512); one to three pairs of rows
+@pytest.mark.parametrize("n", [1 << 15, 1 << 18, 1 << 21, 1 << 23, 1 << 24])
+@pytest.mark.parametrize("b", [2, 4, 6])
+@pytest.mark.parametrize("layout", ["planar", "packed", "numpy"])
+@pytest.mark.parametrize("exact", [False, True])
+def test_fused_split_matches_plain_and_oracle(dev, n, b, layout, exact):
+    x = rand_r(b, n, dev, seed=n % 1009 + b)
+    got, plain, launched = fused_case(x, layout, exact)
+    want = torch.fft.rfft(x.double())
+    fused = int(FF.default_passes(n)[-1].radix <= FF.SPLIT_MAX_RADIX)
+    assert launched == (len(FF.default_passes(n)), fused, 1 - fused)
+    assert max_err(got, plain) < bound(n)
+    assert max_err(got, want) < bound(n)
+    if exact:
+        assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+# Tile edges of the split: tiles spanning rows with a ragged last one
+# (2^11: radix 32, 32 pairs a row, 128 a tile; 2^12: radix 64; 2^13:
+# radix 64 under 128), an odd batch whose last q row is left out, one
+# pair of rows, and radix 128 under rowfour's 512 (2^16).
+SPLIT_EDGES = [(1 << 11, 5), (1 << 11, 6), (1 << 12, 1), (1 << 12, 2),
+               (1 << 13, 3), (1 << 16, 3)]
+
+
+@pytest.mark.parametrize("n,b", SPLIT_EDGES)
+@pytest.mark.parametrize("exact", [False, True])
+def test_fused_split_tile_edges(dev, n, b, exact):
+    x = rand_r(b, n, dev, seed=b + 17)
+    # tones at bins 0, S/2, S, L - S/2 and L: transforms 0 and S/2, which
+    # pair with themselves, and their neighbours' mirrors; each |X| of
+    # about the noise's sqrt(n / 12), which bound(n) is drawn for
+    s = n // FF.default_passes(n)[-1].radix
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    for k in (0, s // 2, s, n // 2 - s // 2, n // 2):
+        x += (torch.cos(2 * math.pi * k * t / n) / math.sqrt(n)).float()
+    for layout in ("planar", "numpy"):
+        got, plain, launched = fused_case(x, layout, exact, "pair")
+        want = torch.fft.rfft(x.double())
+        assert launched == (len(FF.default_passes(n)), 1, 0)
+        assert max_err(got, plain) < bound(n)
+        assert max_err(got, want) < bound(n)
+        if exact:
+            assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+# ptxas's report of every plain pass instantiation (CUDA 12.8, sm_90a):
+# the split pass is an overload of its own, and leaves these as they are
+PLAIN_PASS_REGISTERS = {
+    "<16> fp32": (71, 0), "<16> fp64": (112, 0),
+    "<32> fp32": (78, 0), "<32> fp64": (146, 0),
+    "<64> fp32": (74, 0), "<64> fp64": (142, 0),
+    "<128> fp32": (75, 0), "<128> fp64": (128, 0),
+    "<256> fp32": (78, 0), "<256> fp64": (136, 0),
+    "<512> fp32": (88, 0), "<512> fp64": (148, 0),
+    "<1024> fp32": (127, 0), "<1024> fp64": (232, 0),
+    "<2048> fp32": (128, 428), "<2048> fp64": (254, 0)}
+
+
+def test_plain_pass_instantiations_keep_their_registers(dev):
+    """Each plain ``fourstep_pass_kernel`` instantiation has the registers
+    and spill stores it had before the split pass was added; the split
+    instantiations (R = 16..256, both tiers) are reported apart."""
+    from smfft_tpu_torch.ops import _cuda
+    _cuda.library()
+    got = {}
+    for ln in _cuda.register_report():
+        m = re.match(r"fourstep_pass_kernel(<\d+(?:,split)?> fp\d\d): "
+                     r"(\d+) registers, (\d+) bytes", ln)
+        if m:
+            got[m[1]] = (int(m[2]), int(m[3]))
+    assert {k: v for k, v in got.items() if "split" not in k} \
+        == PLAIN_PASS_REGISTERS
+    assert sorted(k for k in got if "split" in k) == sorted(
+        f"<{r},split> {t}" for r in (16, 32, 64, 128, 256)
+        for t in ("fp32", "fp64"))
 
 
 @pytest.mark.parametrize("n,b,rs", TILE_EDGES)

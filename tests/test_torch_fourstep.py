@@ -415,13 +415,30 @@ def test_mode_chosen_by_padded_rows(interpret):
         RF.rfft_large_rows(torch.zeros((2, 1 << 29)), mode="pair")
 
 
+def _spec_layout(spec, n):
+    return ("planar" if isinstance(spec, tuple) else
+            "packed" if spec.shape[-1] == n // 2 else "numpy")
+
+
+def _store_spec(spec, xr, xi, n):
+    """Packed planar spectra into ``spec`` in its layout, its rows."""
+    rows = (spec[0] if isinstance(spec, tuple) else spec).shape[0]
+    out = R.to_layout(xr[:rows], xi[:rows], _spec_layout(spec, n))
+    for d, s in zip(spec if isinstance(spec, tuple) else (spec,),
+                    out if isinstance(out, tuple) else (out,)):
+        d.copy_(s)
+
+
 def _fake_launch_pass(src, dst, n, p, *, inverse=False, scale=1.0,
                       exact=False, at=None):
     dst = dst() if callable(dst) else dst
     x = torch.complex(*src) if isinstance(src, tuple) else src
     y = FF.pass_plain(x.to(torch.complex128 if exact else torch.complex64),
                       n, p, inverse, scale)
-    if isinstance(dst, tuple):
+    if p.split:
+        _store_spec(dst, *y, n)
+        FF.launch_pass.fused += 1
+    elif isinstance(dst, tuple):
         dst[0].copy_(y.real)
         dst[1].copy_(y.imag)
     else:
@@ -434,16 +451,12 @@ def _fake_launch_real_huge(mode, z, spec, n, *, scale=1.0, exact=False):
     z = z() if callable(z) else z
     spec = spec() if callable(spec) else spec
     L = n // 2
-    layout = ("planar" if isinstance(spec, tuple) else
-              "packed" if spec.shape[-1] == L else "numpy")
+    layout = _spec_layout(spec, n)
     sp = spec if isinstance(spec, tuple) else (spec, None)
-    b = sp[0].shape[0]
     if mode.endswith("split"):
-        xr, xi = (RF.pair_split_plain(z, b) if mode == "pair_split"
-                  else RF.halfc_split_plain(z, n))
-        out = R.to_layout(xr, xi, layout)
-        for d, s in zip(sp, out if isinstance(out, tuple) else (out,)):
-            d.copy_(s)
+        _store_spec(spec, *(RF.pair_split_plain(z, 2 * z.shape[0])
+                            if mode == "pair_split"
+                            else RF.halfc_split_plain(z, n)), n)
     else:
         xr, xi = R.from_layout(*sp, layout, L)
         z.copy_(RF.pair_merge_plain(xr, xi, z.shape[0], scale)
@@ -458,11 +471,13 @@ def test_card_path_plumbing_with_stand_in_launchers(monkeypatch, b):
     """The CUDA branch's buffers (intermediates in place, the halfc row
     viewed as complex, the pair planes, odd batches), run on the CPU with
     stand-in launchers that do each launch's plain function: results equal
-    numpy, and the counts are the plan's passes (+1 split or merge)."""
+    numpy, and the counts are the plan's passes, +1 merge, +1 split in
+    halfc mode (the pair split is the last pass's)."""
     monkeypatch.setattr(C, "is_cpu", lambda t: False)
     monkeypatch.setattr(FF, "launch_pass", _fake_launch_pass)
     monkeypatch.setattr(RF, "launch_real_huge", _fake_launch_real_huge)
-    FF.launch_pass.count = RF.launch_real_huge.count = 0
+    FF.launch_pass.count = FF.launch_pass.fused = 0
+    RF.launch_real_huge.count = 0
     n = 1 << 15
     xr, xi = planes(b, n, 13)
     x = torch.from_numpy(xr + 1j * xi)
@@ -484,7 +499,80 @@ def test_card_path_plumbing_with_stand_in_launchers(monkeypatch, b):
                                          else (s, None)), n, layout,
                                        scale=2.0 / n, mode=mode)
             assert err(back.numpy(), xr) < bound(n)
-    assert RF.launch_real_huge.count == 12
+    assert RF.launch_real_huge.count == 9
+    assert FF.launch_pass.fused == 3
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("layout", RF.SPEC_LAYOUTS)
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("n", [1 << 15, 1 << 18, 1 << 20, 1 << 21])
+def test_split_pass_is_the_pair_split_of_the_last_pass(monkeypatch, n, b,
+                                                       layout, exact):
+    """The pair-mode R2C's last pass with the split (rowfour's 256 x 128
+    at 2^15, "two:revisit" at 2^18 and 2^20, three passes at 2^21): the
+    split pass's plain version is ``pair_split_plain`` of the plain last
+    pass at every radix, the plan takes it to radix 256 (2^15, 2^21) and
+    leaves the split a launch of its own above (512 at 2^18, 1024 at
+    2^20), and the card path with stand-in launchers gives the CPU path's
+    spectra bit for bit, in each layout and tier, with the plan's
+    launches."""
+    import dataclasses
+    plan = FF.default_passes(n)
+    last = dataclasses.replace(plan[-1], split="pair")
+    fused = plan[-1].radix <= FF.SPLIT_MAX_RADIX
+    assert FF.pair_split_plan(n) == (plan[:-1] + (last,) if fused else plan)
+    xr, xi = planes(b // 2, n, n % 997 + b)
+    ctype = torch.complex128 if exact else torch.complex64
+    z = FF.passes_plain(torch.from_numpy(xr + 1j * xi).to(ctype), n,
+                        plan[:-1])
+    got = FF.pass_plain(z, n, last)
+    want = RF.pair_split_plain(FF.pass_plain(z, n, plan[-1]), b)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x = torch.from_numpy(np.concatenate([xr, xi]))
+    cpu = RF.rfft_large_rows(x, layout, exact)
+    monkeypatch.setattr(C, "is_cpu", lambda t: False)
+    monkeypatch.setattr(FF, "launch_pass", _fake_launch_pass)
+    monkeypatch.setattr(RF, "launch_real_huge", _fake_launch_real_huge)
+    FF.launch_pass.count = FF.launch_pass.fused = 0
+    RF.launch_real_huge.count = 0
+    card = RF.rfft_large_rows(x, layout, exact)
+    assert (FF.launch_pass.count, FF.launch_pass.fused,
+            RF.launch_real_huge.count) == (len(plan), int(fused),
+                                           int(not fused))
+    for c, k in zip(*(t if isinstance(t, tuple) else (t,)
+                      for t in (cpu, card))):
+        assert torch.equal(c, k)
+    nat = R.to_layout(*R.from_layout(*(card if isinstance(card, tuple)
+                                       else (card, None)), layout, n // 2),
+                      "numpy")
+    assert rel(nat.numpy(), np.fft.rfft(x.double().numpy())) < 2e-6
+
+
+def test_register_report_labels_the_split_pass():
+    """ptxas's report names the pass kernel's split instantiations apart
+    from the plain ones, whose labels stay as they were, and the
+    convolutions' bank form as before."""
+    from smfft_tpu_torch.ops import _cuda
+    entries = [("_ZN12_GLOBAL__N_120fourstep_pass_kernelILi128ELb0ELb0EEEvNS_"
+                "8PassArgsEdPKN8PassTileIXT_EXT0_EE1CES6_S6_i", 40, 0),
+               ("_ZN12_GLOBAL__N_120fourstep_pass_kernelILi128ELb1ELb1EEEvNS_"
+                "8PassArgsEdPKN8PassTileIXT_EXT0_EE1CES6_S6_i", 90, 8),
+               ("_ZN12_GLOBAL__N_111conv_kernelILi1024ELb0ELb1EEEvPK6float2",
+                64, 0)]
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
+        "spill loads\n"
+        f"ptxas info    : Used {regs} registers, 400 bytes cmem[0]\n"
+        for name, regs, spill in entries)
+    assert _cuda.register_report(log) == [
+        "fourstep_pass_kernel<128> fp32: 40 registers, 0 bytes of spill "
+        "stores",
+        "fourstep_pass_kernel<128,split> fp64: 90 registers, 8 bytes of "
+        "spill stores",
+        "conv_kernel<1024,bank> fp32: 64 registers, 0 bytes of spill stores"]
 
 
 def test_cpu_run_never_touches_the_cuda_module():

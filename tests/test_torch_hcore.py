@@ -165,6 +165,84 @@ def test_tile_schedule_covers_every_transform_once(total, t, per_sm):
     assert covered == list(range(total))
 
 
+# the pair split in the last pass: (N, the last radix of its plan, Z rows,
+# spectrum rows).  2^11 / 2^12 / 2^13 at 256: tiles span rows (S/2 < T/2),
+# the last one ragged at 3 rows; 2^15: rowfour's 256 x 128 (a tile within
+# a row); an odd batch leaves its last q row out.
+SPLIT_CASES = [(1 << 11, 32, 3, 5), (1 << 12, 64, 1, 2),
+               (1 << 15, 128, 2, 4), (1 << 15, 128, 2, 3),
+               (1 << 16, 256, 2, 4), (1 << 13, 256, 3, 6), (256, 16, 4, 8)]
+SPLIT_R = [16, 32, 64, 128, 256]
+
+
+@pytest.mark.parametrize("n,r,b,rows", SPLIT_CASES)
+@pytest.mark.parametrize("exact", [False, True])
+def test_pass_split_is_the_pair_split_storing_each_bin_once(rng, n, r, b,
+                                                           rows, exact):
+    """The split epilogue's slots, mirror reads and stores give
+    ``real_fused.pair_split_plain`` of the pass's output, every bin of
+    every spectrum row stored once, transforms 0 and S/2 paired with
+    themselves."""
+    from smfft_tpu_torch.ops import real_fused as RF
+    z = rand_c(rng, b, n)
+    got, stores = H.pass_split(z, r, exact, rows)
+    xr, xi = RF.pair_split_plain(torch.from_numpy(z), rows)
+    assert np.array_equal(got, (xr + 1j * xi).numpy())
+    assert (stores == 1).all()
+
+
+@pytest.mark.parametrize("n,r", [(1 << 11, 32), (1 << 15, 128),
+                                 (1 << 23, 128), (1 << 24, 256)])
+def test_pass_split_slots_hold_every_transform_once(n, r):
+    """A split pass's tiles hold each transform of each row once, slot f
+    and f + T/2 a pair (c, S - c), transforms 0 and S/2 in one pair's
+    slots."""
+    g = H.split_geometry(r, False)
+    s, b = n // r, 3
+    total = b * s
+    h = g["T"] // 2
+    held = []
+    for tile in range(-(-total // g["T"])):
+        for f in range(h):
+            lo = H.pass_split_slot(g, tile, f, s, total)
+            hi = H.pass_split_slot(g, tile, f + h, s, total)
+            assert (lo < 0) == (hi < 0)
+            if lo >= 0:
+                assert lo // s == hi // s
+                c, m = lo % s, hi % s
+                assert (c, m) == (0, s // 2) or c + m == s
+                held += [lo, hi]
+    assert sorted(held) == list(range(total))
+
+
+@pytest.mark.parametrize("r", SPLIT_R)
+@pytest.mark.parametrize("exact", [False, True])
+def test_pass_split_banks(r, exact):
+    """The split tile's row copy and core stages under its lanes, its
+    writes of the upper outputs and its mirror reads at the minimum
+    wavefronts."""
+    g = H.split_geometry(r, exact)
+    assert max(w for _, w in H.pass_split_patterns(r, exact)) \
+        <= g["elem"] // 4
+
+
+@pytest.mark.parametrize("r", SPLIT_R)
+@pytest.mark.parametrize("exact", [False, True])
+def test_split_tile_layout(r, exact):
+    """The split tile's two buffers of twice the plain pass's transforms
+    fit its 140 KB and a block's 1024 threads, unpadded, and its lanes map
+    onto (slot, thread) one to one; a side's run of adjacent bins is 256
+    bytes of complex64 or more to R = 128 (the plain tile's half gave 128
+    there), 128 at R = 256."""
+    g = H.split_geometry(r, exact)
+    assert g["NB"] * g["T"] * g["LD"] * g["elem"] <= 140 * 1024
+    assert not g["pad"] and g["threads"] <= 1024 and g["E"] * g["TPF"] == r
+    lanes = {H.pass_lane(tid, g) for tid in range(g["threads"])}
+    assert lanes == {(a, b) for a in range(g["T"]) for b in range(g["TPF"])}
+    if not exact:
+        assert g["T"] // 2 * 8 >= (256 if r <= 128 else 128)
+
+
 # ---------------------------------------------------------------------------
 # The row kernels on the core: c2c_kernel and the R2C kernel.
 # ---------------------------------------------------------------------------

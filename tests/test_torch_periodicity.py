@@ -90,11 +90,12 @@ def test_the_reference_imports_nothing_of_the_port_and_no_jax():
 
 def test_the_cells_call_runs_pair_mode_on_the_three_pass_plan():
     """128 trials of 2^23 samples a call: pair mode (a tie at an even
-    batch), the "three" plan of 2^23 = 256 x 256 x 128, so three pass
-    launches and one split a step."""
+    batch), the "three" plan of 2^23 = 256 x 256 x 128 with the pair split
+    in its last pass, so three pass launches a step and no split launch."""
     rows, n = 128, 1 << 23
     assert RF.choose_mode(rows, n) == "pair"
     assert hugefft.default_plan(n) == "three"
-    passes = FF.default_passes(n)
+    passes = FF.pair_split_plan(n)
     assert [p.radix for p in passes] == [256, 256, 128]
-    assert len(passes) + 1 == 4
+    assert [p.split for p in passes] == [None, None, "pair"]
+    assert len(passes) == 3

@@ -343,16 +343,19 @@ def test_rfft_large_records_its_passes_its_split_and_their_buffers(
         card_path, monkeypatch):
     """A traced (2, 2^21) ``rfft_large`` on the card path (pair mode, the
     "three" plan): the call, its op, three pass launches named by their
-    place in the plan, and the pair split.  The intermediate, ``z`` and the
-    spectrum are each the ``alloc`` of the launch that first writes it,
-    with its bytes; the middle pass, in place, allocates nothing."""
+    place in the plan, the last naming the pair split it does.  The
+    intermediate and the spectrum are each the ``alloc`` of the launch
+    that first writes it, with its bytes; the middle pass, in place,
+    allocates nothing, and no ``z`` is made."""
     from smfft_tpu_torch.ops import fourstep_fused as FF
     monkeypatch.setattr(C, "is_cpu", lambda t: False)
     monkeypatch.setattr(FF, "_operand", lambda t, n, name: (0, None, 0))
     n = 1 << 21
+    fused = FF.launch_pass.fused
     trace.start()
     out = api.rfft_large(_r(2, n), precision="highest")
     spans = _spans(trace.stop())
+    assert FF.launch_pass.fused == fused + 1
     assert out.shape == (2, n // 2 + 1)
     assert [s["name"] for s in spans if s["parent"] == -1] == [
         "call:rfft_large"]
@@ -364,12 +367,11 @@ def test_rfft_large_records_its_passes_its_split_and_their_buffers(
              spans[i]["parent"]) for i in launches] == [
         ("launch:fourstep_pass", "radix=128 pass=1/3", 1),
         ("launch:fourstep_pass", "radix=128 pass=2/3", 1),
-        ("launch:fourstep_pass", "radix=128 pass=3/3", 1),
-        ("launch:real_huge", "pair_split", 1)]
+        ("launch:fourstep_pass", "radix=128 pass=3/3 split=pair", 1)]
     assert spans[launches[0]]["attrs"]["rows"] == 1   # one pair of trials
     allocs = [[k["attrs"]["bytes"] for k in _children(spans, i)
                if k["name"] == "alloc"] for i in launches]
-    assert allocs == [[n * 8], [], [n * 8], [2 * (n // 2 + 1) * 8]]
+    assert allocs == [[n * 8], [], [2 * (n // 2 + 1) * 8]]
     assert all([k["name"] for k in _children(spans, i)][-2:]
                == ["tables", "call"] for i in launches)
 
