@@ -167,8 +167,8 @@ Phases (each failure exits non-zero at once):
      composition; after the counters are read, ``api.fft_large`` of the
      same 2^27 vector.  Under (b): ``distributed_fft`` at 2^24 with 4 gloo
      ranks, timed on rank 0 (gloo loopback: not NCCL across cards).
-  Before each of the main paths 4, 5, 8, 10, 12, 14, 16, 18 and 20 every
-     launch counter is set to 0; right after, the counters must equal the
+  Before each of the main paths 4, 5, 8, 10, 12, 14, 16, 18 and 20 the
+     launch counts are read; right after, their rise must equal the
      path's calls (the convolution path runs ``conv`` / ``conv_real`` and,
      once a ``fftconvolve`` call, the R2C or C2C kernel for the taps; a
      ``sharded_*`` call is one launch of its kernel a rank, a distributed
@@ -190,6 +190,8 @@ import sys
 import time
 
 import torch
+
+from h100bench import peaks
 
 SEED = 1234
 SWEEP_POINTS = 1 << 22
@@ -213,10 +215,6 @@ BLUESTEIN_SIZES = (3, 100, 129, 1000, 1536, 4097, 6000, 8191)
 BLUESTEIN_MAIN = {1000: 1 << 17, 4097: 1 << 15}
 RESAMPLE_TO = 768
 COMPOSITION = "torch.fft.rfft(x*w).abs().square()"
-# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): device
-# memory bandwidth and fp32 outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -234,11 +232,10 @@ def ulp(v: float) -> float:
 
 
 def least_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the fp32 rate."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least time the card could take, in ms, against the published
+    peaks (``h100bench.peaks``), and which of the two bounds it."""
+    seconds, by = peaks.least_seconds(nbytes, flops)
+    return seconds * 1e3, by
 
 
 def rand_complex(b: int, n: int, gen: torch.Generator) -> torch.Tensor:
@@ -285,19 +282,21 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def launchers() -> dict:
-    """Every kernel's wrapper, whose ``count`` it bumps once a launch."""
-    from smfft_tpu_torch.parallel import dryrun
-    return dryrun.launchers()
+_counts_base: dict = {}
 
 
 def reset_counts() -> None:
-    for fn in launchers().values():
-        fn.count = 0
+    """Take the launch counts (``parallel.dryrun.counts``) as the base of
+    :func:`counts`."""
+    from smfft_tpu_torch.parallel import dryrun
+    _counts_base.update(dryrun.counts())
 
 
 def counts() -> dict:
-    return {name: fn.count for name, fn in launchers().items()}
+    """Every kernel's launches since :func:`reset_counts`."""
+    from smfft_tpu_torch.parallel import dryrun
+    return {name: n - _counts_base.get(name, 0)
+            for name, n in dryrun.counts().items()}
 
 
 def check_counts(path: str, expected: dict) -> dict:
@@ -2337,7 +2336,7 @@ def phase_main_ndim(card: str):
         else:
             ms_comp = None
         torch.cuda.empty_cache()
-        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = least_ms(nbytes, 0.0)[0]
         row = {"what": what, "shape": list(x.shape), "ms": ms,
                "copy_ms": ms_copy, "bound_ms": bound_ms, "bound_by": "bytes",
                "library": library_name, "library_ms": ms_lib,
@@ -2912,7 +2911,7 @@ def phase_main_parallel(card: str):
             ms_plain = cuda_ms(fn, reps=1)
         ms_lib = cuda_ms(library, reps=REPS_CONV)
         torch.cuda.empty_cache()
-        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = least_ms(nbytes, 0.0)[0]
         rows.append({"what": what, "shape": list(x.shape), "ms": ms,
                      "copy_ms": ms_copy, "bound_ms": bound_ms,
                      "bound_by": "bytes", "plain_ms": ms_plain,

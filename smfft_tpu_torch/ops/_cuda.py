@@ -7,9 +7,14 @@ source (headers included), the flags and the compiler, so a stale library
 is never loaded.  The library is bound with ``ctypes``; pointers and the
 stream travel as ``c_void_p``, counts as ``c_int64``, flags as ``c_int``.
 
-Nothing here runs at import.  CPU tensors never reach this module; a CUDA
-tensor that does reaches :func:`library`, which raises with the cause when
-there is no ``nvcc`` or the build fails.
+Each entry point is declared once here (:class:`Entry`), and every kernel
+wrapper of ``ops/*`` checks its rows with :func:`check_rows` and launches
+through :func:`launch`, which reads the stream, takes the device guard
+where it must, raises on an error and counts the launch.
+
+Nothing is built at import.  CPU tensors never reach the library; a CUDA
+tensor's first launch reaches :func:`library`, which raises with the cause
+when there is no ``nvcc`` or the build fails.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from smfft_tpu_torch.config import debug_print
 
@@ -163,57 +170,154 @@ def register_report(log: str | None = None) -> list[str]:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it on first use."""
+    """The loaded kernel library, building it on first use; binds every
+    declared entry point (:data:`ENTRIES`) to its argument and result
+    types."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(_build(find_nvcc())))
-        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        f32 = ctypes.c_float
-        lib.smfft_c2c_plan_bytes.argtypes = []
-        lib.smfft_c2c_prepare.argtypes = [vp, i64, ci, ci, ci, ci, ci, vp]
-        lib.smfft_c2c_run.argtypes = [vp, vp, vp, vp, vp, i64, f32, vp]
-        lib.smfft_r2c.argtypes = [vp, vp, vp, ci, i64, i64, vp, vp, ci, vp]
-        lib.smfft_c2r.argtypes = [vp, vp, ci, vp, i64, i64, f32, vp, vp, ci,
-                                  vp]
-        lib.smfft_c2c_multiple.argtypes = [vp, vp, vp, vp, ci, i64, i64, ci,
-                                           ci, ci, ci, ci, f32,
-                                           ctypes.c_double, vp, ci, vp]
-        lib.smfft_real_multiple.argtypes = [vp, vp, i64, i64, ci, vp, vp, vp,
-                                            vp]
-        lib.smfft_conv.argtypes = [vp, vp, vp, vp, ci, i64, i64, ci, vp, vp,
-                                   vp, ci, vp]
-        lib.smfft_conv_real.argtypes = [vp, vp, i64, i64, ci, vp, vp, vp, vp,
-                                        ci, vp]
-        lib.smfft_power.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp]
-        lib.smfft_bluestein.argtypes = [vp, vp, vp, vp, ci, i64, i64, i64,
-                                        i64, vp, vp, ctypes.c_double, vp, ci,
-                                        vp]
-        lib.smfft_fourstep_pass.argtypes = [vp, vp, ci, ci, i64, vp, vp, ci,
-                                            ci, i64, ci, i64, i64, i64, i64,
-                                            i64, i64, i64, i64,
-                                            ctypes.c_double, vp, vp, vp, ci,
-                                            ci, ci, ci, i64, vp]
-        lib.smfft_real_huge.argtypes = [ci, vp, ci, vp, vp, ci, i64, i64, i64,
-                                        i64, ctypes.c_double, vp, vp, ci, ci,
-                                        vp]
-        for fn in (lib.smfft_c2c_plan_bytes, lib.smfft_c2c_prepare,
-                   lib.smfft_c2c_run, lib.smfft_r2c, lib.smfft_c2r,
-                   lib.smfft_c2c_multiple, lib.smfft_real_multiple,
-                   lib.smfft_conv, lib.smfft_conv_real, lib.smfft_power,
-                   lib.smfft_bluestein, lib.smfft_fourstep_pass,
-                   lib.smfft_real_huge):
-            fn.restype = ci
-        lib.smfft_error_string.argtypes = [ci]
-        lib.smfft_error_string.restype = ctypes.c_char_p
+        for e in ENTRIES:
+            fn = getattr(lib, e.symbol)
+            fn.argtypes, fn.restype = e.argtypes, e.restype
+            e.fn = fn
         _lib = lib
         return _lib
+
+
+class Entry:
+    """One entry point of the library: its C symbol, argument types and
+    result type, and the function :func:`library` binds to them; for a
+    kernel, its name as ``parallel.dryrun.counts()`` keys it and its
+    count, the :func:`launch` calls that returned without error."""
+
+    __slots__ = ("kernel", "symbol", "argtypes", "restype", "fn", "count")
+
+    def __init__(self, kernel: str | None, symbol: str, *argtypes,
+                 restype=ctypes.c_int):
+        self.kernel, self.symbol, self.argtypes = kernel, symbol, argtypes
+        self.restype, self.fn, self.count = restype, None, 0
+        ENTRIES.append(self)
+
+
+#: every declared entry point, in the order declared
+ENTRIES: list[Entry] = []
+_P, _I, _C, _F, _D = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_double)
+# the helpers: the size and the filling of a C2C plan's constants, the text
+# of a CUDA error
+C2C_PLAN_BYTES = Entry(None, "smfft_c2c_plan_bytes")
+C2C_PREPARE = Entry(None, "smfft_c2c_prepare", _P, _I, _C, _C, _C, _C, _C,
+                    _P)
+ERROR_STRING = Entry(None, "smfft_error_string", _C, restype=ctypes.c_char_p)
+# the eleven kernels, in the order parallel.dryrun.counts() reports them;
+# each takes the stream last
+C2C_RUN = Entry("c2c", "smfft_c2c_run", _P, _P, _P, _P, _P, _I, _F, _P)
+R2C = Entry("r2c", "smfft_r2c", _P, _P, _P, _C, _I, _I, _P, _P, _C, _P)
+C2R = Entry("c2r", "smfft_c2r", _P, _P, _C, _P, _I, _I, _F, _P, _P, _C, _P)
+C2C_MULTIPLE = Entry("c2c_multiple", "smfft_c2c_multiple", _P, _P, _P, _P,
+                     _C, _I, _I, _C, _C, _C, _C, _C, _F, _D, _P, _C, _P)
+REAL_MULTIPLE = Entry("real_multiple", "smfft_real_multiple", _P, _P, _I, _I,
+                      _C, _P, _P, _P, _P)
+CONV = Entry("conv", "smfft_conv", _P, _P, _P, _P, _C, _I, _I, _C, _P, _P,
+             _P, _C, _P)
+CONV_REAL = Entry("conv_real", "smfft_conv_real", _P, _P, _I, _I, _C, _P, _P,
+                  _P, _P, _C, _P)
+POWER = Entry("power", "smfft_power", _P, _P, _P, _I, _I, _P, _P, _P)
+BLUESTEIN = Entry("bluestein", "smfft_bluestein", _P, _P, _P, _P, _C, _I, _I,
+                  _I, _I, _P, _P, _D, _P, _C, _P)
+FOURSTEP_PASS = Entry("fourstep_pass", "smfft_fourstep_pass", _P, _P, _C, _C,
+                      _I, _P, _P, _C, _C, _I, _C, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _D, _P, _P, _P, _C, _C, _C, _C, _I, _P)
+REAL_HUGE = Entry("real_huge", "smfft_real_huge", _C, _P, _C, _P, _P, _C, _I,
+                  _I, _I, _I, _D, _P, _P, _C, _C, _P)
+#: the kernels' entry points by name
+KERNELS = {e.kernel: e for e in ENTRIES if e.kernel}
+
+
+def _no_cuda(*_):
+    raise RuntimeError("smfft_tpu_torch: this PyTorch build has no CUDA")
+
+
+# the current device's index, and the raw handle of a device's current
+# stream with no ``torch.cuda.Stream`` object built (the accessor Triton's
+# launchers use)
+_current_device = getattr(torch._C, "_cuda_getDevice", _no_cuda)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _no_cuda)
+
+
+# the device type :func:`check_rows` takes: a test seam, not an option (the
+# tests of the card path on CPU tensors set "cpu", with the entry points
+# stood in); the port sets it nowhere
+_CARD = "cuda"
+
+
+def bound(entry: Entry):
+    """``entry``'s function, the library loaded first where it is not."""
+    if entry.fn is None:
+        library()
+    return entry.fn
+
+
+def launch(entry: Entry, index: int, what: tuple, *args,
+           stream: bool = True) -> None:
+    """Call ``entry`` with ``args`` on device ``index``, then the device's
+    current stream unless ``stream`` is false, under the device's guard only
+    where it is not the current device.  A nonzero return raises through
+    :func:`check` with ``what``, a format string and its values, formatted
+    only then; a call that returned without error adds one to
+    ``entry.count``.  Every kernel wrapper launches through here."""
+    fn = entry.fn
+    if fn is None:
+        fn = bound(entry)
+    if stream:
+        args += (_raw_stream(index),)
+    if _current_device() == index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err:
+        check(err, what[0].format(*what[1:]))
+    entry.count += 1
 
 
 def check(err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error."""
     if err != 0:
-        msg = library().smfft_error_string(err).decode()
+        msg = bound(ERROR_STRING)(err).decode()
         raise RuntimeError(f"smfft_tpu_torch: {what} failed: CUDA error "
                            f"{err} ({msg})")
+
+
+def check_rows(x: torch.Tensor, xi: torch.Tensor | None = None,
+               dtype: torch.dtype = torch.complex64, width: int | None = None,
+               names: tuple = ("x", "xr", "xi")) -> None:
+    """A kernel's rows, before their pointers reach the library: ``x`` alone
+    of ``dtype``, or ``x, xi`` a planar float32 pair of one shape on one
+    device; each a CUDA tensor, (batch, ``width``) (any width where it is
+    None), contiguous and no conjugate view.  ``x`` alone is 8-byte aligned
+    (a kernel loads it in 8-byte words); a pair's planes are read a float
+    at a time, and need only a float's alignment.  ``names``: ``x`` alone,
+    then the pair's planes, as the errors name them."""
+    planes = (((x, names[0], dtype),) if xi is None else
+              ((x, names[1], torch.float32), (xi, names[2], torch.float32)))
+    align = 8 if xi is None else 4
+    for t, name, want in planes:
+        if t.device.type != _CARD:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if t.dim() != 2 or width is not None and t.shape[1] != width:
+            raise ValueError(f"{name} must be (batch, {width or 'n'}), got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+        if t.is_conj():
+            raise ValueError(f"{name} is a conjugate view: resolve_conj() it")
+    if xi is not None and (x.shape != xi.shape or x.device != xi.device):
+        raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
+                         f"{x.device} vs {tuple(xi.shape)} on {xi.device}")

@@ -36,6 +36,8 @@ import torch
 
 from smfft_tpu_torch import params as P
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
+from smfft_tpu_torch.ops._cuda import C2C_RUN as _RUN, launch as _launch
 
 LANES = 128
 
@@ -157,55 +159,6 @@ def device_twiddles(n: int, inverse: bool, exact: bool,
     return torch.from_numpy(tab.copy()).to(device)
 
 
-def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != 2:
-        raise ValueError(f"{name} must be (batch, n), got {tuple(t.shape)}")
-    check_size(t.shape[-1])
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def io_pointers(x: torch.Tensor, xi: torch.Tensor | None = None,
-                lead: tuple[int, ...] = ()):
-    """Check a kernel's C2C input and allocate its output.
-
-    ``x`` complex64 (B, n) (interleaved), or ``x, xi`` a planar float32
-    (B, n) pair; the output has the same layout and shape ``lead + (B,
-    n)``.  Returns (output, (in_re, in_im, out_re, out_im) pointers,
-    interleaved flag)."""
-    if xi is None:
-        _check_rows(x, "x", torch.complex64)
-        out = torch.empty(lead + tuple(x.shape), dtype=x.dtype,
-                          device=x.device)
-        ptrs = (x.data_ptr(), None, out.data_ptr(), None)
-        if ptrs[0] % 8 or ptrs[2] % 8:
-            raise ValueError("complex64 data must be 8-byte aligned")
-        return out, ptrs, 1
-    _check_rows(x, "xr", torch.float32)
-    _check_rows(xi, "xi", torch.float32)
-    if x.shape != xi.shape or x.device != xi.device:
-        raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
-                         f"{x.device} vs {tuple(xi.shape)} on {xi.device}")
-    out = tuple(torch.empty(lead + tuple(x.shape), device=x.device)
-                for _ in range(2))
-    return out, (x.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
-                 out[1].data_ptr()), 0
-
-
-def _no_cuda(*_):
-    raise RuntimeError("smfft_tpu_torch: this PyTorch build has no CUDA")
-
-
-# the current device's index, and the raw handle of a device's current
-# stream with no ``torch.cuda.Stream`` object built (the accessor Triton's
-# launchers use); a plan never holds a stream: each launch reads it
-_current_device = getattr(torch._C, "_cuda_getDevice", _no_cuda)
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _no_cuda)
-
 #: the most plans the cache holds; past it the least recently used goes
 PLAN_SLOTS = 64
 # launch plans by key, least recently used first: a hit pops its plan and
@@ -215,60 +168,41 @@ _plans: dict = {}
 
 
 class _Plan:
-    """What every launch of one key repeats, worked out once: the library's
-    run entry, the address of the constants ``smfft_c2c_prepare`` filled
-    (the instantiation, the layout, the direction and orders, the twiddle
-    table's pointer), the storage of both, and the device's index."""
+    """What every launch of one key repeats, worked out once: the address
+    of the constants ``smfft_c2c_prepare`` filled (the instantiation, the
+    layout, the direction and orders, the twiddle table's pointer), the
+    storage of both, and the device's index."""
 
-    __slots__ = ("run", "addr", "consts", "twiddles", "index")
+    __slots__ = ("addr", "consts", "twiddles", "index")
 
-    def __init__(self, run, consts, twiddles, index):
-        self.run, self.consts, self.twiddles = run, consts, twiddles
-        self.addr, self.index = ctypes.addressof(consts), index
-
-
-def _check_io(x: torch.Tensor, xi: torch.Tensor | None) -> None:
-    """Every check of a launch's input: :func:`io_pointers`' and that a
-    complex input is no conjugate view."""
-    if xi is None:
-        _check_rows(x, "x", torch.complex64)
-        if x.data_ptr() % 8:
-            raise ValueError("complex64 data must be 8-byte aligned")
-        if x.is_conj():
-            raise ValueError("x is a conjugate view: resolve_conj() it")
-        return
-    _check_rows(x, "xr", torch.float32)
-    _check_rows(xi, "xi", torch.float32)
-    if x.shape != xi.shape or x.device != xi.device:
-        raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
-                         f"{x.device} vs {tuple(xi.shape)} on {xi.device}")
+    def __init__(self, consts, twiddles, index):
+        self.consts, self.twiddles, self.index = consts, twiddles, index
+        self.addr = ctypes.addressof(consts)
 
 
 def _build_plan(key: tuple, x: torch.Tensor,
                 xi: torch.Tensor | None) -> _Plan:
     """A key's plan: the input's checks, the device's twiddle table and the
-    library's constants, prepared under the device's guard (which lets the
-    instantiation take its shared memory on that device).  Adds one to
+    library's constants, prepared on the device (which lets the
+    instantiation take its shared memory there).  Adds one to
     ``launch.plans``."""
-    from smfft_tpu_torch.ops import _cuda
-
-    _check_io(x, xi)
+    _cuda.check_rows(x, xi)
     n, _, interleaved, index, inverse, rev_in, rev_out, exact = key
+    check_size(n)
     tw = device_twiddles(n, bool(inverse), bool(exact), x.device)
-    lib = _cuda.library()
-    consts = (ctypes.c_uint64 * -(-lib.smfft_c2c_plan_bytes() // 8))()
-    with torch.cuda.device(x.device):
-        err = lib.smfft_c2c_prepare(ctypes.addressof(consts), n, int(exact),
-                                    int(interleaved), int(inverse),
-                                    int(rev_in), int(rev_out), tw.data_ptr())
-    _cuda.check(err, f"c2c plan (n={n})")
+    size = _cuda.bound(_cuda.C2C_PLAN_BYTES)()
+    consts = (ctypes.c_uint64 * -(-size // 8))()
+    _cuda.launch(_cuda.C2C_PREPARE, index, ("c2c plan (n={})", n),
+                 ctypes.addressof(consts), n, int(exact), int(interleaved),
+                 int(inverse), int(rev_in), int(rev_out), tw.data_ptr(),
+                 stream=False)
     # list() reads the keys in one step, so another thread's hit (a pop
     # and a set) cannot change the dict under an iterator
     keys = list(_plans)
     for old in keys[:max(0, len(keys) + 1 - PLAN_SLOTS)]:
         _plans.pop(old, None)
     launch.plans += 1
-    return _Plan(lib.smfft_c2c_run, consts, tw, index)
+    return _Plan(consts, tw, index)
 
 
 def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
@@ -285,11 +219,10 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     The launch plan of the key (n, dtype, layout, device, ``inverse``,
     ``rev_in``, ``rev_out``, ``exact``) is built at its first launch and
     cached (:data:`PLAN_SLOTS`); a later launch checks only what the key
-    cannot hold (shape, contiguity, conjugation, alignment), allocates,
-    reads the current stream and makes one library call, under the device
-    guard only when the tensor's device is not the current one.  The batch
-    and ``scale`` travel with each launch.  Each launch adds one to
-    ``launch.count``, each plan built one to ``launch.plans``.
+    cannot hold (shape, contiguity, conjugation, alignment), allocates and
+    runs the plan through ``_cuda.launch``.  The batch and ``scale``
+    travel with each launch.  Each plan built adds one to
+    ``launch.plans``.
     """
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
@@ -300,7 +233,7 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
                 xi.dtype != x.dtype or xi.shape != x.shape
                 or xi.get_device() != x.get_device()
                 or not xi.is_contiguous()):
-            _check_io(x, xi)
+            _cuda.check_rows(x, xi)
         b, n = x.shape
         if xi is None:
             out = torch.empty_like(x)
@@ -317,17 +250,8 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
             plan = _build_plan(key, x, xi)
         _plans[key] = plan
         c = sp and _T.now()
-        scale = 1.0 if scale is None else float(scale)
-        stream = _raw_stream(plan.index)
-        if _current_device() == plan.index:
-            err = plan.run(plan.addr, *ptrs, b, scale, stream)
-        else:
-            with torch.cuda.device(plan.index):
-                err = plan.run(plan.addr, *ptrs, b, scale, stream)
-        if err:
-            from smfft_tpu_torch.ops import _cuda
-            _cuda.check(err, f"c2c kernel launch (n={n}, batch={b})")
-        launch.count += 1
+        _launch(_RUN, plan.index, ("c2c kernel launch (n={}, batch={})", n, b),
+                plan.addr, *ptrs, b, 1.0 if scale is None else float(scale))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:c2c",
@@ -335,8 +259,22 @@ def launch(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     return out
 
 
-launch.count = 0
 launch.plans = 0
+
+
+def outputs(x: torch.Tensor, xi: torch.Tensor | None = None,
+            lead: tuple[int, ...] = ()):
+    """A kernel's output in its checked input's layout: complex ``x``
+    alone, or the planar float32 pair ``x, xi``; shape ``lead + (B, n)``.
+    Returns it and the (in_re, in_im, out_re, out_im) pointers."""
+    shape = lead + tuple(x.shape)
+    if xi is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        return out, (x.data_ptr(), None, out.data_ptr(), None)
+    out = (torch.empty(shape, device=x.device),
+           torch.empty(shape, device=x.device))
+    return out, (x.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr())
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,7 @@ import torch
 
 from smfft_tpu_torch import api
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
 
@@ -133,20 +134,6 @@ def bluestein_plain(xr: torch.Tensor, xi: torch.Tensor, n: int, m: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_rows(t: torch.Tensor, name: str, dtype: torch.dtype, n: int):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != 2 or t.shape[1] < n:
-        raise ValueError(f"{name} must be (batch, ld >= {n}), got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 8:
-        raise ValueError(f"{name} must be 8-byte aligned")
-
-
 def launch_bluestein(x: torch.Tensor, xi: torch.Tensor | None = None, *,
                      n: int, m: int, inverse: bool = False,
                      scale: float | None = None, exact: bool = False):
@@ -159,53 +146,34 @@ def launch_bluestein(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     ``inverse``) times ``scale``; lanes n..ld-1 are zeros.  m is the
     circular length (a supported power of two >= 2n - 1).  ``exact`` runs
     the fp64 arithmetic instantiation.  Outputs are allocated with
-    ``torch.empty``.  Each launch adds one to ``launch_bluestein.count``.
+    ``torch.empty``.
     """
-    from smfft_tpu_torch.ops import _cuda
-
     sp = _T.on and _T.now()
     a = t = c = out = b = 0
     try:
         check_length(n, m)
-        if xi is None:
-            _check_rows(x, "x", torch.complex64, n)
-            a = sp and _T.now()
-            out = torch.empty_like(x)
-            ptrs = (x.data_ptr(), None, out.data_ptr(), None)
-        else:
-            _check_rows(x, "xr", torch.float32, n)
-            _check_rows(xi, "xi", torch.float32, n)
-            if x.shape != xi.shape or x.device != xi.device:
-                raise ValueError(f"planar pair differs: {tuple(x.shape)} on "
-                                 f"{x.device} vs {tuple(xi.shape)} on "
-                                 f"{xi.device}")
-            a = sp and _T.now()
-            out = (torch.empty_like(x), torch.empty_like(xi))
-            ptrs = (x.data_ptr(), xi.data_ptr(), out[0].data_ptr(),
-                    out[1].data_ptr())
+        _cuda.check_rows(x, xi)
+        if x.shape[1] < n:
+            raise ValueError(f"{'x' if xi is None else 'xr'} must be (batch, "
+                             f"ld >= {n}), got {tuple(x.shape)}")
+        a = sp and _T.now()
+        out, ptrs = C.outputs(x, xi)
         b, ld = x.shape
         t = sp and _T.now()
         w, h = device_consts(n, m, bool(inverse), bool(exact), x.device)
         tw_f = C.device_twiddles(m, False, bool(exact), x.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_bluestein(*ptrs, int(xi is None), b, n, ld, m,
-                                      w.data_ptr(), h.data_ptr(),
-                                      1.0 if scale is None else float(scale),
-                                      tw_f.data_ptr(), int(exact), stream)
-        _cuda.check(err, f"bluestein kernel launch (n={n}, m={m}, "
-                         f"batch={b})")
-        launch_bluestein.count += 1
+        _cuda.launch(_cuda.BLUESTEIN, x.get_device(),
+                     ("bluestein kernel launch (n={}, m={}, batch={})", n, m,
+                      b),
+                     *ptrs, int(xi is None), b, n, ld, m, w.data_ptr(),
+                     h.data_ptr(), 1.0 if scale is None else float(scale),
+                     tw_f.data_ptr(), int(exact))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:bluestein",
                         "interleaved" if xi is None else "planar", exact, b, n)
     return out
-
-
-launch_bluestein.count = 0
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ import torch
 
 from smfft_tpu_torch import params as P
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
 
@@ -121,11 +122,8 @@ def launch_conv(x: torch.Tensor, xi: torch.Tensor | None = None, *,
 
     ``x`` complex64 (B, n) -> complex64 (m, B, n); or ``x, xi`` planar
     float32 (B, n) -> planar pair (m, B, n).  ``h``: (m, n) responses from
-    :func:`device_response` (1/n folded in).  Each launch adds one to
-    ``launch_conv.count``.
+    :func:`device_response` (1/n folded in).
     """
-    from smfft_tpu_torch.ops import _cuda
-
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
     try:
@@ -134,27 +132,23 @@ def launch_conv(x: torch.Tensor, xi: torch.Tensor | None = None, *,
         b, n = x.shape
         m = _check_response(h, x, n, exact)
         a = sp and _T.now()
-        out, ptrs, interleaved = C.io_pointers(x, xi, lead=(m,))
+        _cuda.check_rows(x, xi)
+        C.check_size(n)
+        out, ptrs = C.outputs(x, xi, (m,))
         t = sp and _T.now()
         # the inverse core reads the forward table conjugated: no inverse
         # table (the entry point's tw_i is not read)
         tw_f = C.device_twiddles(n, False, bool(exact), x.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_conv(*ptrs, interleaved, b, n, m, h.data_ptr(),
-                                 tw_f.data_ptr(), None, int(exact), stream)
-        _cuda.check(err, f"conv kernel launch (n={n}, batch={b}, m={m})")
-        launch_conv.count += 1
+        _cuda.launch(_cuda.CONV, x.get_device(),
+                     ("conv kernel launch (n={}, batch={}, m={})", n, b, m),
+                     *ptrs, int(xi is None), b, n, m, h.data_ptr(),
+                     tw_f.data_ptr(), None, int(exact))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:conv",
                         "interleaved" if xi is None else "planar", exact, b, n)
     return out
-
-
-launch_conv.count = 0
 
 
 def launch_conv_real(x: torch.Tensor, *, h: torch.Tensor,
@@ -163,10 +157,7 @@ def launch_conv_real(x: torch.Tensor, *, h: torch.Tensor,
     stream: real float32 (B, n), n = 256..16384, contiguous and 8-byte
     aligned, against packed half responses ``h`` (m, n/2) from
     :func:`device_response` (slot 0 = (Re H[0], Re H[n/2]), 1/(n/2)
-    folded in) -> float32 (m, B, n).  Each launch adds one to
-    ``launch_conv_real.count``."""
-    from smfft_tpu_torch.ops import _cuda
-
+    folded in) -> float32 (m, B, n)."""
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
     try:
@@ -174,7 +165,7 @@ def launch_conv_real(x: torch.Tensor, *, h: torch.Tensor,
             raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
         b, n = x.shape
         check_real_size(n)
-        R.check_tensor(x, "x", torch.float32, n)
+        _cuda.check_rows(x, dtype=torch.float32)
         m = _check_response(h, x, n // 2, exact)
         a = sp and _T.now()
         out = torch.empty((m, b, n), device=x.device)
@@ -182,23 +173,16 @@ def launch_conv_real(x: torch.Tensor, *, h: torch.Tensor,
         tw_f = C.device_twiddles(n // 2, False, bool(exact), x.device)
         wn = R.split_table(n, bool(exact), x.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_conv_real(x.data_ptr(), out.data_ptr(), b, n, m,
-                                      h.data_ptr(), tw_f.data_ptr(), None,
-                                      wn.data_ptr(), int(exact), stream)
-        _cuda.check(err, f"conv_real kernel launch (n={n}, batch={b}, "
-                         f"m={m})")
-        launch_conv_real.count += 1
+        _cuda.launch(_cuda.CONV_REAL, x.get_device(),
+                     ("conv_real kernel launch (n={}, batch={}, m={})", n, b,
+                      m),
+                     x.data_ptr(), out.data_ptr(), b, n, m, h.data_ptr(),
+                     tw_f.data_ptr(), None, wn.data_ptr(), int(exact))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:conv_real", "real",
                         exact, b, n)
     return out
-
-
-launch_conv_real.count = 0
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ import torch
 
 from smfft_tpu_torch import params as P
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import fourstep as FS
 
@@ -279,10 +280,8 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     (a q row past its last is left out).  ``dst`` may be a function that
     makes it, called here: the launch's ``alloc`` span.  ``exact`` runs the
     fp64 instantiation.  ``at`` = (i, p): pass i of a plan of p, named in
-    the span's variant.  Each launch adds one to ``launch_pass.count``, a
-    split one to ``launch_pass.fused`` as well."""
-    from smfft_tpu_torch.ops import _cuda
-
+    the span's variant.  Each split launch adds one to
+    ``launch_pass.fused``."""
     sp = _T.on and _T.now()
     a = t = c = rows = out = 0
     try:
@@ -316,18 +315,15 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
         tw = C.device_twiddles(p.radix, bool(inverse), bool(exact), dev)
         lo, hi = FS.device_roots(n, bool(inverse), bool(exact), dev)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.smfft_fourstep_pass(
-                ia, ib, ik, *_map_args(p.src), oa, ob, ok, *_map_args(p.dst),
-                nr, *rad, rows, n, p.radix, p.tw_s,
-                float(scale) if p.scaled else 1.0, tw.data_ptr(),
-                lo.data_ptr(), hi.data_ptr(), FS.lo_bits(n), int(inverse),
-                int(exact), layout, rows_out, stream)
-        _cuda.check(err, f"fourstep pass launch (n={n}, radix={p.radix}, "
-                         f"batch={rows})")
-        launch_pass.count += 1
+        _cuda.launch(
+            _cuda.FOURSTEP_PASS, first.get_device(),
+            ("fourstep pass launch (n={}, radix={}, batch={})", n, p.radix,
+             rows),
+            ia, ib, ik, *_map_args(p.src), oa, ob, ok, *_map_args(p.dst), nr,
+            *rad, rows, n, p.radix, p.tw_s,
+            float(scale) if p.scaled else 1.0, tw.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), FS.lo_bits(n), int(inverse), int(exact), layout,
+            rows_out)
         launch_pass.fused += bool(p.split)
     finally:
         if sp:
@@ -339,7 +335,6 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     return dst
 
 
-launch_pass.count = 0
 launch_pass.fused = 0
 
 

@@ -33,6 +33,7 @@ import math
 import torch
 
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
 
@@ -92,33 +93,28 @@ def launch_multiple(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     current CUDA stream.
 
     ``x`` complex64 (B, n) -> complex64 (B, n); or ``x, xi`` planar
-    float32 (B, n) -> planar pair, allocated with ``torch.empty``.  Each
-    launch adds one to ``launch_multiple.count``.
+    float32 (B, n) -> planar pair, allocated with ``torch.empty``.
     """
-    from smfft_tpu_torch.ops import _cuda
-
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
     try:
         if loops < 0:
             raise ValueError(f"loops must be >= 0, got {loops}")
         a = sp and _T.now()
-        out, ptrs, interleaved = C.io_pointers(x, xi)
+        _cuda.check_rows(x, xi)
         b, n = x.shape
+        C.check_size(n)
+        out, ptrs = C.outputs(x, xi)
         t = sp and _T.now()
         tw = C.device_twiddles(n, bool(inverse), bool(exact), x.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_c2c_multiple(
-                *ptrs, interleaved, b, n, int(inverse), int(loops),
-                int(fb_rev), int(last_rev), int(rev_out),
-                1.0 if scale is None else float(scale), 1.0 / math.sqrt(n),
-                tw.data_ptr(), int(exact), stream)
-        _cuda.check(err, f"c2c_multiple kernel launch (n={n}, batch={b}, "
-                         f"loops={loops})")
-        launch_multiple.count += 1
+        _cuda.launch(_cuda.C2C_MULTIPLE, x.get_device(),
+                     ("c2c_multiple kernel launch (n={}, batch={}, "
+                      "loops={})", n, b, loops),
+                     *ptrs, int(xi is None), b, n, int(inverse), int(loops),
+                     int(fb_rev), int(last_rev), int(rev_out),
+                     1.0 if scale is None else float(scale),
+                     1.0 / math.sqrt(n), tw.data_ptr(), int(exact))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:c2c_multiple",
@@ -126,16 +122,10 @@ def launch_multiple(x: torch.Tensor, xi: torch.Tensor | None = None, *,
     return out
 
 
-launch_multiple.count = 0
-
-
 def launch_real_multiple(x: torch.Tensor, pairs: int) -> torch.Tensor:
     """Launch ``real_multiple_kernel`` of ``csrc/multiple.cu`` on the
     current CUDA stream: float32 (B, n), n = 256..4096, contiguous and
-    8-byte aligned -> float32 (B, n) after ``pairs`` >= 1 round trips.
-    Each launch adds one to ``launch_real_multiple.count``."""
-    from smfft_tpu_torch.ops import _cuda
-
+    8-byte aligned -> float32 (B, n) after ``pairs`` >= 1 round trips."""
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
     try:
@@ -143,7 +133,7 @@ def launch_real_multiple(x: torch.Tensor, pairs: int) -> torch.Tensor:
             raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
         b, n = x.shape
         check_pencil(n, 256, 4096)
-        R.check_tensor(x, "x", torch.float32, n)
+        _cuda.check_rows(x, dtype=torch.float32)
         if pairs < 1:
             raise ValueError(f"pairs must be >= 1, got {pairs}")
         L = n // 2
@@ -154,24 +144,16 @@ def launch_real_multiple(x: torch.Tensor, pairs: int) -> torch.Tensor:
         tw_i = C.device_twiddles(L, True, False, x.device)
         wn = R.split_table(n, False, x.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_real_multiple(x.data_ptr(), out.data_ptr(), b, n,
-                                          int(pairs), tw_f.data_ptr(),
-                                          tw_i.data_ptr(), wn.data_ptr(),
-                                          stream)
-        _cuda.check(err, f"real_multiple kernel launch (n={n}, batch={b}, "
-                         f"pairs={pairs})")
-        launch_real_multiple.count += 1
+        _cuda.launch(_cuda.REAL_MULTIPLE, x.get_device(),
+                     ("real_multiple kernel launch (n={}, batch={}, "
+                      "pairs={})", n, b, pairs),
+                     x.data_ptr(), out.data_ptr(), b, n, int(pairs),
+                     tw_f.data_ptr(), tw_i.data_ptr(), wn.data_ptr())
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:real_multiple",
                         f"pairs={pairs}", False, b, n)
     return out
-
-
-launch_real_multiple.count = 0
 
 
 # ---------------------------------------------------------------------------

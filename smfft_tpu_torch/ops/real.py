@@ -31,11 +31,11 @@ from __future__ import annotations
 
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from smfft_tpu_torch import params as P
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 
 LAYOUTS = ("planar", "planar_rev", "packed", "numpy")
@@ -173,23 +173,6 @@ def c2r_plain(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
 # ---------------------------------------------------------------------------
 
 
-def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
-                 width: int):
-    """A kernel's (B, width) operand: CUDA, ``dtype``, contiguous, 8-byte
-    aligned; raises otherwise."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != 2 or t.shape[1] != width:
-        raise ValueError(f"{name} must be (batch, {width}), got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 8:
-        raise ValueError(f"{name} must be 8-byte aligned")
-
-
 def _spectrum_shape(layout: str, L: int) -> tuple[int, torch.dtype]:
     if layout in ("planar", "planar_rev"):
         return L, torch.float32
@@ -202,10 +185,8 @@ def launch_r2c(x: torch.Tensor, layout: str = "planar", exact: bool = False):
     ``x`` float32 (B, n), contiguous, 8-byte aligned -> the packed half
     spectrum in ``layout`` (a planar pair, or one complex64 tensor),
     allocated with ``torch.empty``.  ``exact`` runs the fp64 arithmetic
-    instantiation.  Each launch adds one to ``launch_r2c.count``.
+    instantiation.
     """
-    from smfft_tpu_torch.ops import _cuda
-
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
     try:
@@ -214,7 +195,7 @@ def launch_r2c(x: torch.Tensor, layout: str = "planar", exact: bool = False):
             raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
         b, n = x.shape
         check_size(n)
-        check_tensor(x, "x", torch.float32, n)
+        _cuda.check_rows(x, dtype=torch.float32)
         L = n // 2
         width, dtype = _spectrum_shape(layout, L)
         a = sp and _T.now()
@@ -229,22 +210,15 @@ def launch_r2c(x: torch.Tensor, layout: str = "planar", exact: bool = False):
         tw = C.device_twiddles(L, False, bool(exact), x.device)
         wn = split_table(n, bool(exact), x.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_r2c(x.data_ptr(), o_re, o_im, code, b, n,
-                                tw.data_ptr(), wn.data_ptr(), int(exact),
-                                stream)
-        _cuda.check(err, f"r2c kernel launch (n={n}, batch={b}, {layout})")
-        launch_r2c.count += 1
+        _cuda.launch(_cuda.R2C, x.get_device(),
+                     ("r2c kernel launch (n={}, batch={}, {})", n, b, layout),
+                     x.data_ptr(), o_re, o_im, code, b, n, tw.data_ptr(),
+                     wn.data_ptr(), int(exact))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:r2c", layout,
                         exact, b, n)
     return out
-
-
-launch_r2c.count = 0
 
 
 def launch_c2r(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
@@ -255,11 +229,8 @@ def launch_c2r(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
     The packed half spectrum in ``layout`` (``spec, spec_im`` float32
     planes (B, n/2) for the planar layouts; one complex64 tensor, (B, n/2)
     packed or (B, n/2 + 1) numpy, otherwise) -> float32 (B, n) equal to
-    ``scale * (n/2) * irfft``, allocated with ``torch.empty``.  Each launch
-    adds one to ``launch_c2r.count``.
+    ``scale * (n/2) * irfft``, allocated with ``torch.empty``.
     """
-    from smfft_tpu_torch.ops import _cuda
-
     sp = _T.on and _T.now()
     a = t = c = out = b = 0
     try:
@@ -267,22 +238,12 @@ def launch_c2r(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
         check_size(n)
         L = n // 2
         width, dtype = _spectrum_shape(layout, L)
-        check_tensor(spec, "spec", dtype, width)
-        if dtype == torch.float32:
-            if spec_im is None:
-                raise ValueError(f"layout {layout!r} takes two planes")
-            check_tensor(spec_im, "spec_im", dtype, width)
-            if spec_im.shape != spec.shape or spec_im.device != spec.device:
-                raise ValueError(f"planar pair differs: {tuple(spec.shape)} "
-                                 f"on {spec.device} vs "
-                                 f"{tuple(spec_im.shape)} on "
-                                 f"{spec_im.device}")
-            i_im = spec_im.data_ptr()
-        else:
-            if spec_im is not None:
-                raise ValueError(f"layout {layout!r} takes one complex "
-                                 "tensor")
-            i_im = None
+        planar = dtype == torch.float32
+        if planar != (spec_im is not None):
+            raise ValueError(f"layout {layout!r} takes " + (
+                "two planes" if planar else "one complex tensor"))
+        _cuda.check_rows(spec, spec_im, dtype, width,
+                         ("spec", "spec", "spec_im"))
         b = spec.shape[0]
         a = sp and _T.now()
         out = torch.empty((b, n), device=spec.device)
@@ -290,23 +251,18 @@ def launch_c2r(spec: torch.Tensor, spec_im: torch.Tensor | None = None, *,
         tw = C.device_twiddles(L, True, bool(exact), spec.device)
         wn = split_table(n, bool(exact), spec.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(spec.device):
-            stream = torch.cuda.current_stream(spec.device).cuda_stream
-            err = lib.smfft_c2r(spec.data_ptr(), i_im, code, out.data_ptr(),
-                                b, n, 1.0 if scale is None else float(scale),
-                                tw.data_ptr(), wn.data_ptr(), int(exact),
-                                stream)
-        _cuda.check(err, f"c2r kernel launch (n={n}, batch={b}, {layout})")
-        launch_c2r.count += 1
+        _cuda.launch(_cuda.C2R, spec.get_device(),
+                     ("c2r kernel launch (n={}, batch={}, {})", n, b, layout),
+                     spec.data_ptr(),
+                     None if spec_im is None else spec_im.data_ptr(), code,
+                     out.data_ptr(), b, n,
+                     1.0 if scale is None else float(scale), tw.data_ptr(),
+                     wn.data_ptr(), int(exact))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:c2r", layout,
                         exact, b, n)
     return out
-
-
-launch_c2r.count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +328,5 @@ def check_pack(batch: int, n: int) -> None:
 
 def rows_of(x: torch.Tensor, width: int):
     """(..., width) -> (contiguous (B, width) rows, batch shape, B)."""
-    batch_shape = x.shape[:-1]
-    b = int(np.prod(batch_shape)) if batch_shape else 1
-    return x.reshape(b, width).contiguous(), batch_shape, b
+    b = x.numel() // width
+    return x.reshape(b, width).contiguous(), x.shape[:-1], b

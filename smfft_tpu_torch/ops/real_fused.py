@@ -45,6 +45,7 @@ from functools import partial
 import torch
 
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import fourstep as FS
 from smfft_tpu_torch.ops import fourstep_fused as FF
@@ -154,16 +155,13 @@ def _spec_args(spec, L: int):
     planar float32 pair (B, L), or complex64 (B, L) packed / (B, L + 1)
     numpy."""
     if isinstance(spec, tuple):
-        for t in spec:
-            R.check_tensor(t, "spectrum plane", torch.float32, L)
-        if spec[0].shape != spec[1].shape:
-            raise ValueError("planar spectrum planes differ in shape")
+        _cuda.check_rows(*spec, width=L, names=("spectrum plane",) * 3)
         return spec[0].data_ptr(), spec[1].data_ptr(), 0, spec[0].shape[0]
     width = spec.shape[-1] if spec.dim() == 2 else -1
     if width not in (L, L + 1):
         raise ValueError(f"spectrum must be (batch, {L}) packed or (batch, "
                          f"{L + 1}) numpy, got {tuple(spec.shape)}")
-    R.check_tensor(spec, "spectrum", torch.complex64, width)
+    _cuda.check_rows(spec, width=width, names=("spectrum",))
     return spec.data_ptr(), None, 1 if width == L else 2, spec.shape[0]
 
 
@@ -177,10 +175,7 @@ def launch_real_huge(mode: str, z: torch.Tensor, spec, n: int, *,
     the splits; a pair's q spectra are the rows after the B2 p rows.
     Returns the operand it writes (``spec`` for a split, ``z`` for a
     merge), which may be given as a function that makes it, called here:
-    the launch's ``alloc`` span.  Each launch adds one to
-    ``launch_real_huge.count``."""
-    from smfft_tpu_torch.ops import _cuda
-
+    the launch's ``alloc`` span."""
     sp = _T.on and _T.now()
     a = t = c = rows = out = 0
     try:
@@ -205,25 +200,17 @@ def launch_real_huge(mode: str, z: torch.Tensor, spec, n: int, *,
         t = sp and _T.now()
         lo, hi = FS.device_roots(n, False, bool(exact), z.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(z.device):
-            stream = torch.cuda.current_stream(z.device).cuda_stream
-            err = lib.smfft_real_huge(codes.index(mode), za, zk, xa, xb,
-                                      layout, rows, n, rows if pair else 0,
-                                      x_rows, float(scale), lo.data_ptr(),
-                                      hi.data_ptr(), FS.lo_bits(n),
-                                      int(exact), stream)
-        _cuda.check(err, f"real_huge kernel launch ({mode}, n={n}, "
-                         f"rows={rows})")
-        launch_real_huge.count += 1
+        _cuda.launch(_cuda.REAL_HUGE, z.get_device(),
+                     ("real_huge kernel launch ({}, n={}, rows={})", mode, n,
+                      rows),
+                     codes.index(mode), za, zk, xa, xb, layout, rows, n,
+                     rows if pair else 0, x_rows, float(scale),
+                     lo.data_ptr(), hi.data_ptr(), FS.lo_bits(n), int(exact))
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:real_huge", mode,
                         exact, rows, n)
     return spec if mode.endswith("split") else z
-
-
-launch_real_huge.count = 0
 
 
 def _alloc_spec(layout: str, b: int, L: int, device):

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
 
@@ -58,10 +59,7 @@ def launch_power(x: torch.Tensor,
     """Launch ``power_kernel`` of ``csrc/spectral.cu`` on the current CUDA
     stream: real float32 (B, n), n = 256..4096, contiguous and 8-byte
     aligned, and an optional float32 window (n,) on the same device ->
-    float32 (B, n/2), allocated with ``torch.empty``.  Each launch adds one
-    to ``launch_power.count``."""
-    from smfft_tpu_torch.ops import _cuda
-
+    float32 (B, n/2), allocated with ``torch.empty``."""
     sp = _T.on and _T.now()
     a = t = c = out = b = n = 0
     try:
@@ -69,10 +67,11 @@ def launch_power(x: torch.Tensor,
             raise ValueError(f"x must be (batch, n), got {tuple(x.shape)}")
         b, n = x.shape
         check_size(n)
-        R.check_tensor(x, "x", torch.float32, n)
+        _cuda.check_rows(x, dtype=torch.float32)
         w_ptr = None
         if window is not None:
-            R.check_tensor(window.view(1, -1), "window", torch.float32, n)
+            _cuda.check_rows(window.view(1, -1), dtype=torch.float32,
+                             width=n, names=("window",))
             if window.device != x.device:
                 raise ValueError(f"window is on {window.device}, x on "
                                  f"{x.device}")
@@ -83,21 +82,15 @@ def launch_power(x: torch.Tensor,
         tw = C.device_twiddles(n // 2, False, False, x.device)
         wn = R.split_table(n, False, x.device)
         c = sp and _T.now()
-        lib = _cuda.library()
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.smfft_power(x.data_ptr(), w_ptr, out.data_ptr(), b, n,
-                                  tw.data_ptr(), wn.data_ptr(), stream)
-        _cuda.check(err, f"power kernel launch (n={n}, batch={b})")
-        launch_power.count += 1
+        _cuda.launch(_cuda.POWER, x.get_device(),
+                     ("power kernel launch (n={}, batch={})", n, b),
+                     x.data_ptr(), w_ptr, out.data_ptr(), b, n,
+                     tw.data_ptr(), wn.data_ptr())
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:power",
                         "plain" if window is None else "window", False, b, n)
     return out
-
-
-launch_power.count = 0
 
 
 def power_rows(x: torch.Tensor,

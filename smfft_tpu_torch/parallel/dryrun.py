@@ -43,30 +43,15 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-#: the launch counters a rank reports (each kernel wrapper's ``count``)
-KERNELS = ("c2c", "r2c", "c2r", "c2c_multiple", "real_multiple", "conv",
-           "conv_real", "power", "bluestein", "fourstep_pass", "real_huge")
+from smfft_tpu_torch.ops import _cuda
 
-
-def launchers() -> dict:
-    """Every kernel's wrapper, whose ``count`` it bumps once a launch."""
-    from smfft_tpu_torch.ops import c2c as C
-    from smfft_tpu_torch.ops import chirp as CH
-    from smfft_tpu_torch.ops import convolve as CV
-    from smfft_tpu_torch.ops import fourstep_fused as FF
-    from smfft_tpu_torch.ops import multiple as M
-    from smfft_tpu_torch.ops import real as R
-    from smfft_tpu_torch.ops import real_fused as RF
-    from smfft_tpu_torch.ops import spectral as SP
-    fns = (C.launch, R.launch_r2c, R.launch_c2r, M.launch_multiple,
-           M.launch_real_multiple, CV.launch_conv, CV.launch_conv_real,
-           SP.launch_power, CH.launch_bluestein, FF.launch_pass,
-           RF.launch_real_huge)
-    return dict(zip(KERNELS, fns))
+#: the kernels whose launches a rank counts (``ops._cuda``'s declarations)
+KERNELS = tuple(_cuda.KERNELS)
 
 
 def counts() -> dict:
-    return {name: fn.count for name, fn in launchers().items()}
+    """Every kernel's launches in this process, by name."""
+    return {name: e.count for name, e in _cuda.KERNELS.items()}
 
 
 def _rank_entry(rank: int, world: int, workdir: str, device: str,

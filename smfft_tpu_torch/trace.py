@@ -17,14 +17,14 @@ Three layers record:
     children ``tables`` (the cached device tables; for ``launch:c2c``
     the lookup of its launch plan, or the plan's build on a miss),
     ``alloc`` (the checks and the output's ``torch.empty``, with
-    ``bytes``) and ``call`` (the device guard, the stream, the library
-    call and its error check), each from its start to the next one's (the
-    last to the launch's end).  The wrapper's entry reads the span's
-    start, reads the clock where each child starts, adds one to its
-    ``count`` once the library call has returned without error, and
-    records all four spans in one call of :func:`launched`.  The C2C
-    wrapper also counts the plans it builds, ``launch.plans``: a window's
-    plan hit share is ``1 - plans / count`` over it::
+    ``bytes``) and ``call`` (``ops._cuda.launch``: the stream, the device
+    guard where the device is not the current one, the library call, its
+    error check and the kernel's count), each from its start to the next
+    one's (the last to the launch's end).  The wrapper's entry reads the
+    span's start, reads the clock where each child starts, and records all
+    four spans in one call of :func:`launched`.  The C2C wrapper also
+    counts the plans it builds, ``launch.plans``: a window's plan hit share
+    is ``1 - plans / counts()["c2c"]`` over it (``parallel.dryrun``)::
 
         sp = trace.on and trace.now()
         a = t = c = out = b = n = 0
@@ -35,8 +35,9 @@ Three layers record:
             t = sp and trace.now()
             ...   # the device tables
             c = sp and trace.now()
-            ...   # the library call and its check
-            launch_r2c.count += 1
+            _cuda.launch(_cuda.R2C, x.get_device(),
+                         ("r2c kernel launch (n={}, batch={}, {})", n, b,
+                          layout), x.data_ptr(), ...)
         finally:
             if sp:
                 trace.launched(sp, a, t, c, out, "launch:r2c", layout,

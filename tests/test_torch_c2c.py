@@ -22,10 +22,14 @@ import torch
 import smfft_tpu
 import smfft_tpu.ops.pallas_c2c as PC
 
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import fourstep_fused as FF
+from smfft_tpu_torch.ops import real as R
 from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
 
 from conftest import max_abs_err
+from torch_launch_path import launch_path
 
 INTERPRET_MAX = 4096
 
@@ -188,25 +192,25 @@ def test_plain_version_never_calls_torch_fft(rng, monkeypatch):
 
 def test_cpu_tensor_never_reaches_kernel(rng, monkeypatch):
     """CPU tensors run the plain version: no build, no launch."""
-    from smfft_tpu_torch.ops import _cuda
-
     def boom():
         raise AssertionError("kernel library requested for a CPU tensor")
     monkeypatch.setattr(_cuda, "library", boom)
-    before = C.launch.count
+    before = _cuda.C2C_RUN.count
     vr, vi = rand_planar(rng, 256)
     port_planar(vr, vi, 256, ordered=True)
-    assert C.launch.count == before
+    assert _cuda.C2C_RUN.count == before
 
 
 # ---------------------------------------------------------------------------
-# The launch plan cache, on CPU tensors with the CUDA branch stood in: the
-# library, the checks of the device, the stream accessor and the guard.
+# The launch plan cache and the launch path, on CPU tensors with the one
+# launch path stood in: the library, the row check, the stream accessor and
+# the current device; the guard recorded.
 # ---------------------------------------------------------------------------
 
 
 class _PlanLib:
-    """The kernel library's C2C entry points, recording their calls."""
+    """The kernel library's C2C entry points, recording their calls, and
+    the R2C and pass kernels', recorded as runs."""
 
     def __init__(self):
         self.prepared, self.runs, self.err = [], [], 0
@@ -222,23 +226,19 @@ class _PlanLib:
         self.runs.append(args)
         return 0
 
+    smfft_r2c = smfft_fourstep_pass = smfft_c2c_run
+
     def smfft_error_string(self, err):
         return b"stand-in error"
 
 
 @pytest.fixture
 def plan_path(monkeypatch):
-    """C.launch's card path on CPU tensors, with an empty plan cache; the
-    current device is 0, so a tensor's device is another one (-1) unless a
-    test says otherwise."""
-    from smfft_tpu_torch.ops import _cuda
-
+    """The card path on CPU tensors (``launch_path``), with an empty plan
+    cache; the current device is 0, so a tensor's device is another one
+    (-1) unless a test says otherwise."""
     lib = _PlanLib()
     lib.streams, lib.guards = [], []
-    monkeypatch.setattr(_cuda, "library", lambda: lib)
-    monkeypatch.setattr(C, "_check_rows", lambda *a: None)
-    monkeypatch.setattr(C, "_plans", {})
-    monkeypatch.setattr(C, "_current_device", lambda: 0)
 
     def raw_stream(index):
         lib.streams.append(index)
@@ -247,9 +247,9 @@ def plan_path(monkeypatch):
     def guard(d):
         lib.guards.append(d)
         return contextlib.nullcontext()
-    monkeypatch.setattr(C, "_raw_stream", raw_stream)
     monkeypatch.setattr(torch.cuda, "device", guard)
-    return lib
+    return launch_path(monkeypatch, lib, current=lambda: 0,
+                       stream=raw_stream)
 
 
 def _rows_c(b, n, device=None):
@@ -260,11 +260,11 @@ def _rows_c(b, n, device=None):
 
 
 def test_one_key_builds_one_plan(plan_path):
-    plans, count = C.launch.plans, C.launch.count
+    plans, count = C.launch.plans, _cuda.C2C_RUN.count
     x = _rows_c(8, 256)
     C.launch(x)
     C.launch(x)
-    assert (C.launch.plans, C.launch.count) == (plans + 1, count + 2)
+    assert (C.launch.plans, _cuda.C2C_RUN.count) == (plans + 1, count + 2)
     assert len(plan_path.prepared) == 1 and len(plan_path.runs) == 2
     # both runs take the one prepared plan's constants
     assert plan_path.runs[0][0] == plan_path.runs[1][0]
@@ -351,32 +351,50 @@ def test_plan_cache_keeps_its_size(plan_path, monkeypatch):
         assert len(C._plans) == min(i + 1, 64)
 
 
-def test_stream_is_read_and_guard_taken_per_launch(plan_path, monkeypatch):
-    """Every launch reads its device's current stream; the guard is taken
-    only where the tensor's device is not the current one."""
-    x = _rows_c(8, 256)
-    C.launch(x)
-    C.launch(x)
+def _one_launch(kernel: str, monkeypatch):
+    """A launch of ``kernel`` on CPU rows, as a function of no argument."""
+    if kernel == "c2c":
+        x = _rows_c(8, 256)
+        return lambda: C.launch(x)
+    if kernel == "r2c":
+        x = torch.zeros(8, 256)
+        return lambda: R.launch_r2c(x)
+    monkeypatch.setattr(FF, "_operand", lambda t, n, name: (0, None, 0))
+    n = 1 << 15
+    x = torch.zeros((2, n), dtype=torch.complex64)
+    return lambda: FF.launch_pass(x, x, n, FF.default_passes(n)[0])
+
+
+@pytest.mark.parametrize("kernel", ["c2c", "r2c", "fourstep_pass"])
+def test_stream_is_read_and_guard_taken_per_launch(plan_path, monkeypatch,
+                                                   kernel):
+    """Every launch reads its device's current stream and passes it last;
+    the guard is taken only where the tensor's device is not the current
+    one, for the C2C plan's prepare too."""
+    launch = _one_launch(kernel, monkeypatch)
+    launch()
+    launch()
     assert plan_path.streams == [-1, -1]
-    assert [r[7] for r in plan_path.runs] == [1001, 1002]
-    # the build's guard, and one for each launch on another device
-    assert plan_path.guards == [x.device, -1, -1]
-    monkeypatch.setattr(C, "_current_device", lambda: -1)
-    C.launch(x)
-    assert len(plan_path.guards) == 3
-    assert plan_path.runs[-1][7] == 1003
+    assert [r[-1] for r in plan_path.runs] == [1001, 1002]
+    # one guard a launch on another device, and the C2C plan's prepare
+    guards = [-1] * (3 if kernel == "c2c" else 2)
+    assert plan_path.guards == guards
+    monkeypatch.setattr(_cuda, "_current_device", lambda: -1)
+    launch()
+    assert plan_path.guards == guards
+    assert plan_path.runs[-1][-1] == 1003
 
 
 def test_a_failed_build_caches_nothing(plan_path):
     plan_path.err = 700
-    plans, count = C.launch.plans, C.launch.count
+    plans, count = C.launch.plans, _cuda.C2C_RUN.count
     with pytest.raises(RuntimeError, match="stand-in error"):
         C.launch(_rows_c(8, 256))
-    assert (C.launch.plans, C.launch.count) == (plans, count)
+    assert (C.launch.plans, _cuda.C2C_RUN.count) == (plans, count)
     assert not C._plans and not plan_path.runs
     plan_path.err = 0
     C.launch(_rows_c(8, 256))
-    assert (C.launch.plans, C.launch.count) == (plans + 1, count + 1)
+    assert (C.launch.plans, _cuda.C2C_RUN.count) == (plans + 1, count + 1)
 
 
 def test_launch_refuses_what_the_plan_cannot_carry(plan_path):
@@ -396,18 +414,16 @@ def test_launch_refuses_what_the_plan_cannot_carry(plan_path):
 def test_cpu_tensor_never_builds_a_plan(rng, monkeypatch):
     """CPU tensors run the plain version through fft_complex and
     fft_planar: no plan, no library."""
-    from smfft_tpu_torch.ops import _cuda
-
     def boom():
         raise AssertionError("kernel library requested for a CPU tensor")
     monkeypatch.setattr(_cuda, "library", boom)
-    plans, count = C.launch.plans, C.launch.count
+    plans, count = C.launch.plans, _cuda.C2C_RUN.count
     x = torch.from_numpy(as_transforms(*rand_planar(rng, 256), 256)
                          .astype(np.complex64))
     C.fft_complex(x)
     C.fft_complex(x.conj(), inverse=True, scale=0.5)
     port_planar(*rand_planar(rng, 256), 256, ordered=True)
-    assert (C.launch.plans, C.launch.count) == (plans, count)
+    assert (C.launch.plans, _cuda.C2C_RUN.count) == (plans, count)
 
 
 def test_fft_complex_hands_the_plan_resolved_rows(plan_path, monkeypatch):

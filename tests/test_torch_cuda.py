@@ -22,8 +22,10 @@ import pytest
 import torch
 
 from smfft_tpu_torch import api, planar
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
+from smfft_tpu_torch.parallel import dryrun as DR
 from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES, SUPPORTED_REAL_SIZES
 
 pytestmark = pytest.mark.cuda
@@ -88,16 +90,16 @@ def test_api_goes_through_kernel(dev, monkeypatch):
     second round of the same calls."""
     monkeypatch.setattr(C, "_plans", {})
     x = rand_c(64, 1024, dev)
-    before, plans = C.launch.count, C.launch.plans
+    before, plans = _cuda.C2C_RUN.count, C.launch.plans
     y = api.fft(x)
     o_r, o_i = planar.ifft(x.real.contiguous(), x.imag.contiguous())
     back = api.ifft_unordered(api.fft(x, ordered=False))
-    assert C.launch.count == before + 4
+    assert _cuda.C2C_RUN.count == before + 4
     assert C.launch.plans == plans + 4
     api.fft(x)
     planar.ifft(x.real.contiguous(), x.imag.contiguous())
     api.ifft_unordered(api.fft(x, ordered=False))
-    assert C.launch.count == before + 8
+    assert _cuda.C2C_RUN.count == before + 8
     assert C.launch.plans == plans + 4
     assert (y.to(torch.complex128) - oracle(x, False)).abs().max() < bound(1024)
     want = oracle(x, True) / 1024
@@ -205,14 +207,43 @@ def test_plan_takes_conjugate_and_strided_inputs(dev):
         < bound(1024)
 
 
+@pytest.mark.parametrize("kernel", ["c2c", "c2c_multiple", "conv",
+                                    "bluestein", "c2r"])
+def test_planar_pairs_at_an_odd_float_offset(dev, kernel):
+    """A pair's planes need only a float's alignment: views of one flat
+    buffer at odd float offsets give the bits of their aligned copies, at
+    a plan's build and at its hit."""
+    from smfft_tpu_torch.ops import chirp as CH
+    from smfft_tpu_torch.ops import convolve as CV
+    from smfft_tpu_torch.ops import multiple as M
+    fn, w, kw = {
+        "c2c": (C.launch, 256, {}),
+        "c2c_multiple": (M.launch_multiple, 256, {"loops": 1}),
+        "conv": (CV.launch_conv, 256, {"h": rand_c(1, 256, dev, seed=3)}),
+        "bluestein": (CH.launch_bluestein, 256, {"n": 100, "m": 256}),
+        "c2r": (R.launch_c2r, 128, {"n": 256}),
+    }[kernel]
+    b = 37
+    flat = torch.view_as_real(rand_c(1, b * w + 2, dev, seed=4)).flatten()
+    xr, xi = flat[1:1 + b * w].view(b, w), flat[3 + b * w:][:b * w].view(b, w)
+    assert xr.data_ptr() % 8 == xi.data_ptr() % 8 == 4
+    def planes(out):
+        return out if isinstance(out, tuple) else (out,)
+    want = planes(fn(xr.clone(), xi.clone(), **kw))
+    for _ in range(2):
+        got = planes(fn(xr, xi, **kw))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
+
+
 def test_plan_reads_the_stream_per_call(dev, monkeypatch):
     """A plan holds no stream: a launch under torch.cuda.stream(s) lands on
     s (it waits for a copy queued on s behind a long sleep, and an event
     on s orders it), and the next launch on the default stream takes the
     default stream's handle."""
     seen = []
-    raw = C._raw_stream
-    monkeypatch.setattr(C, "_raw_stream",
+    raw = _cuda._raw_stream
+    monkeypatch.setattr(_cuda, "_raw_stream",
                         lambda i: seen.append(raw(i)) or seen[-1])
     src = rand_c(64, 512, dev, seed=9)
     want = oracle(src, False)
@@ -327,7 +358,7 @@ def test_real_kernels_match_plain_and_oracle(dev, n, layout, exact):
 
 def test_real_api_goes_through_kernels(dev):
     x = rand_r(64, 1024, dev)
-    c0, r0, i0 = C.launch.count, R.launch_r2c.count, R.launch_c2r.count
+    c0, r0, i0 = _cuda.C2C_RUN.count, _cuda.R2C.count, _cuda.C2R.count
     y = api.rfft(x)
     pk = api.fft_packed_real(x)
     hr, hi = planar.rfft(x)
@@ -336,9 +367,9 @@ def test_real_api_goes_through_kernels(dev):
     back2 = planar.irfft(ur, ui, in_natural=False)
     x2 = api.irfft(y)
     x3 = api.irfft(pk, packed=True)
-    assert R.launch_r2c.count == r0 + 4
-    assert R.launch_c2r.count == i0 + 4
-    assert C.launch.count == c0
+    assert _cuda.R2C.count == r0 + 4
+    assert _cuda.C2R.count == i0 + 4
+    assert _cuda.C2C_RUN.count == c0
     want = torch.fft.rfft(x.double())
     assert max_err(y, want) < bound(1024)
     for z in (back, back2, x2, x3):
@@ -449,7 +480,6 @@ def test_c2r_kernel_one_row_past_a_block(dev, n, layout, exact):
 def test_c2r_fp32_instantiations_do_not_spill(dev):
     """ptxas's report of the library: every fp32 instantiation of the C2R
     kernel at L <= 4096 spills nothing."""
-    from smfft_tpu_torch.ops import _cuda
     _cuda.library()
     lines = [ln for ln in _cuda.register_report()
              if re.match(r"c2r_kernel<(\d+)> fp32", ln)
@@ -592,15 +622,15 @@ def test_multiple_entry_points_count_launches(dev):
     nothing else."""
     x = rand_c(64, 512, dev)
     xr, xi = x.real.contiguous(), x.imag.contiguous()
-    before = (C.launch.count, M.launch_multiple.count,
-              M.launch_real_multiple.count)
+    before = (_cuda.C2C_RUN.count, _cuda.C2C_MULTIPLE.count,
+              _cuda.REAL_MULTIPLE.count)
     o = C.fft_planar(xr, xi, 512, ordered=True, multiple_iters=3)
     p = M.multiple_pencil_planar(xr, xi, 512, 4)
     r = M.multiple_real_pencil_planar(xr, 512, 4)
     torch.cuda.synchronize()
-    assert (C.launch.count, M.launch_multiple.count,
-            M.launch_real_multiple.count) == (before[0], before[1] + 2,
-                                              before[2] + 1)
+    assert (_cuda.C2C_RUN.count, _cuda.C2C_MULTIPLE.count,
+            _cuda.REAL_MULTIPLE.count) == (before[0], before[1] + 2,
+                                           before[2] + 1)
     plain = M.multiple_plain(xr, xi, loops=3, fb_rev=True, last_rev=True)
     assert max_err(o, plain) < bound(512) * 4
     assert max_err(torch.complex(*p), x) < bound(512) * 4
@@ -749,7 +779,6 @@ def test_conv_fp32_instantiations_do_not_spill(dev):
     """ptxas's report of the library: every fp32 instantiation of both
     convolutions at M <= 4096 points (N, or L = n/2), single-filter and
     bank, spills nothing."""
-    from smfft_tpu_torch.ops import _cuda
     _cuda.library()
 
     def points(ln):
@@ -777,8 +806,8 @@ def test_convolve_api_forward_and_backward_on_card(dev, real, bank):
             torch.complex64)
         h = (h if bank else h[0]).requires_grad_(True)
         fn = api.convolve_real
-        counter = CV.launch_conv_real
-        tr = R.launch_r2c
+        counter = _cuda.CONV_REAL
+        tr = _cuda.R2C
         ref = lambda a, f: torch.fft.irfft(  # noqa: E731
             torch.fft.rfft(a)[None] * f[:, None] if bank
             else torch.fft.rfft(a) * f, n)
@@ -787,8 +816,8 @@ def test_convolve_api_forward_and_backward_on_card(dev, real, bank):
         h = rand_c(3, n, dev, seed=1)
         h = (h if bank else h[0]).requires_grad_(True)
         fn = api.convolve
-        counter = CV.launch_conv
-        tr = C.launch
+        counter = _cuda.CONV
+        tr = _cuda.C2C_RUN
         ref = lambda a, f: torch.fft.ifft(  # noqa: E731
             torch.fft.fft(a)[None] * f[:, None] if bank
             else torch.fft.fft(a) * f)
@@ -813,11 +842,10 @@ def test_fftconvolve_on_card_counts(dev):
     the taps (R2C for real data, C2C for complex)."""
     x = rand_r(4, 20000, dev)
     taps = rand_r(1, 129, dev, seed=5)[0]
-    c0, r0 = CV.launch_conv_real.count, R.launch_r2c.count
+    c0, r0 = _cuda.CONV_REAL.count, _cuda.R2C.count
     y = signal.fftconvolve(x, taps)
     torch.cuda.synchronize()
-    assert (CV.launch_conv_real.count, R.launch_r2c.count) == (c0 + 1,
-                                                               r0 + 1)
+    assert (_cuda.CONV_REAL.count, _cuda.R2C.count) == (c0 + 1, r0 + 1)
     want = torch.stack([torch.from_numpy(np.convolve(
         row.double().cpu().numpy(), taps.double().cpu().numpy()))
         for row in x]).to(dev)
@@ -825,10 +853,10 @@ def test_fftconvolve_on_card_counts(dev):
     assert (y.double() - want).abs().max().item() < bound(512) * 12
     xc = rand_c(2, 20000, dev)
     tc = rand_c(1, 129, dev, seed=6)[0]
-    c0, k0 = CV.launch_conv.count, C.launch.count
+    c0, k0 = _cuda.CONV.count, _cuda.C2C_RUN.count
     yc = signal.fftconvolve(xc, tc, mode="same")
     torch.cuda.synchronize()
-    assert (CV.launch_conv.count, C.launch.count) == (c0 + 1, k0 + 1)
+    assert (_cuda.CONV.count, _cuda.C2C_RUN.count) == (c0 + 1, k0 + 1)
     assert yc.shape == xc.shape
 
 
@@ -931,15 +959,12 @@ def test_spectral_and_bluestein_apis_go_through_kernels(dev):
     ifft_any, planar.fft_any once each and resample twice the Bluestein
     kernel; nothing else runs."""
     x = rand_r(64, 1024, dev)
-    before = {k: f.count for k, f in (("power", SP.launch_power),
-                                      ("bluestein", CH.launch_bluestein),
-                                      ("r2c", R.launch_r2c),
-                                      ("c2c", C.launch))}
+    before = DR.counts()
 
     def delta():
-        return {k: f.count - before[k] for k, f in (
-            ("power", SP.launch_power), ("bluestein", CH.launch_bluestein),
-            ("r2c", R.launch_r2c), ("c2c", C.launch))}
+        now = DR.counts()
+        return {k: now[k] - before[k]
+                for k in ("power", "bluestein", "r2c", "c2c")}
     p = T.power_spectrum(x, window=T.get_window("hann", 1024))
     T.periodogram(x)
     T.welch(x.reshape(-1), nperseg=512)
@@ -1082,8 +1107,8 @@ def test_large_apis_go_through_kernels_and_backward(dev):
     n = 1 << 18
     x = rand_c(2, n, dev, seed=3)
     xr = rand_r(4, 1 << 16, dev, seed=4)
-    fs = {"pass": FF.launch_pass, "real": RFU.launch_real_huge,
-          "c2c": C.launch, "r2c": R.launch_r2c}
+    fs = {"pass": _cuda.FOURSTEP_PASS, "real": _cuda.REAL_HUGE,
+          "c2c": _cuda.C2C_RUN, "r2c": _cuda.R2C}
     before = {k: f.count for k, f in fs.items()}
     fused = FF.launch_pass.fused
 
@@ -1176,13 +1201,13 @@ def fused_case(x, layout, exact, mode=None):
     """rfft_large_rows on the card and its plain version on the card, the
     spectra as numpy rows, and the launches it made (passes, split passes,
     real_huge)."""
-    before = (FF.launch_pass.count, FF.launch_pass.fused,
-              RFU.launch_real_huge.count)
+    before = (_cuda.FOURSTEP_PASS.count, FF.launch_pass.fused,
+              _cuda.REAL_HUGE.count)
     got = RFU.rfft_large_rows(x, layout, exact, mode)
     torch.cuda.synchronize()
     launched = tuple(a - b for a, b in zip(
-        (FF.launch_pass.count, FF.launch_pass.fused,
-         RFU.launch_real_huge.count), before))
+        (_cuda.FOURSTEP_PASS.count, FF.launch_pass.fused,
+         _cuda.REAL_HUGE.count), before))
     plain = RFU.rfft_large_plain(x, layout, exact, mode)
     n = x.shape[1]
 
@@ -1259,7 +1284,6 @@ def test_plain_pass_instantiations_keep_their_registers(dev):
     """Each plain ``fourstep_pass_kernel`` instantiation has the registers
     and spill stores it had before the split pass was added; the split
     instantiations (R = 16..256, both tiers) are reported apart."""
-    from smfft_tpu_torch.ops import _cuda
     _cuda.library()
     got = {}
     for ln in _cuda.register_report():
@@ -1404,26 +1428,12 @@ def test_r2c_layouts_agree_bit_for_bit(dev, n):
 # ---------------------------------------------------------------------------
 
 
-def all_counts():
-    """Every kernel wrapper's launch count."""
-    return {"c2c": C.launch.count, "r2c": R.launch_r2c.count,
-            "c2r": R.launch_c2r.count,
-            "c2c_multiple": M.launch_multiple.count,
-            "real_multiple": M.launch_real_multiple.count,
-            "conv": CV.launch_conv.count,
-            "conv_real": CV.launch_conv_real.count,
-            "power": SP.launch_power.count,
-            "bluestein": CH.launch_bluestein.count,
-            "fourstep_pass": FF.launch_pass.count,
-            "real_huge": RFU.launch_real_huge.count}
-
-
 def launches_of(fn):
     """fn()'s output and the kernels it launched, {name: launches}."""
-    before = all_counts()
+    before = DR.counts()
     out = fn()
     torch.cuda.synchronize()
-    after = all_counts()
+    after = DR.counts()
     return out, {k: after[k] - before[k] for k in after
                  if after[k] != before[k]}
 
@@ -1543,7 +1553,6 @@ def test_real_kernel_operand_check_still_raises(dev):
 # ---------------------------------------------------------------------------
 
 from smfft_tpu_torch import parallel as TP  # noqa: E402
-from smfft_tpu_torch.parallel import dryrun as DR  # noqa: E402
 from smfft_tpu_torch.parallel import sharding as TPS  # noqa: E402
 
 
@@ -1670,9 +1679,9 @@ def test_parallel_matched_filter_example_on_card():
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
     import matched_filter_torch
-    before = all_counts()
+    before = DR.counts()
     assert matched_filter_torch.main(
         ["--streams", "64", "--length", "4096", "--selfcheck"]) == 0
-    after = all_counts()
+    after = DR.counts()
     assert {k: after[k] - before[k] for k in after
             if after[k] != before[k]} == {"r2c": 1, "conv_real": 1}

@@ -23,6 +23,7 @@ import torch
 import smfft_tpu as S
 import smfft_tpu_torch as T
 from smfft_tpu.ops import fourstep as JFS
+from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import fourstep as FS
 from smfft_tpu_torch.ops import fourstep_fused as FF
@@ -443,7 +444,7 @@ def _fake_launch_pass(src, dst, n, p, *, inverse=False, scale=1.0,
         dst[1].copy_(y.imag)
     else:
         dst.copy_(y)
-    FF.launch_pass.count += 1
+    _cuda.FOURSTEP_PASS.count += 1
     return dst
 
 
@@ -462,7 +463,7 @@ def _fake_launch_real_huge(mode, z, spec, n, *, scale=1.0, exact=False):
         z.copy_(RF.pair_merge_plain(xr, xi, z.shape[0], scale)
                 if mode == "pair_merge" else
                 RF.halfc_merge_plain(xr, xi, n, scale))
-    RF.launch_real_huge.count += 1
+    _cuda.REAL_HUGE.count += 1
     return spec if mode.endswith("split") else z
 
 
@@ -476,8 +477,9 @@ def test_card_path_plumbing_with_stand_in_launchers(monkeypatch, b):
     monkeypatch.setattr(C, "is_cpu", lambda t: False)
     monkeypatch.setattr(FF, "launch_pass", _fake_launch_pass)
     monkeypatch.setattr(RF, "launch_real_huge", _fake_launch_real_huge)
-    FF.launch_pass.count = FF.launch_pass.fused = 0
-    RF.launch_real_huge.count = 0
+    monkeypatch.setattr(_cuda.FOURSTEP_PASS, "count", 0)
+    monkeypatch.setattr(_cuda.REAL_HUGE, "count", 0)
+    FF.launch_pass.fused = 0
     n = 1 << 15
     xr, xi = planes(b, n, 13)
     x = torch.from_numpy(xr + 1j * xi)
@@ -485,7 +487,7 @@ def test_card_path_plumbing_with_stand_in_launchers(monkeypatch, b):
     assert rel(T.fft_large(x).numpy(), want) < 2e-6
     o = T.planar.ifft_large(torch.from_numpy(xr), torch.from_numpy(xi))
     assert rel(cplx(o), np.fft.ifft(xr.astype(np.float64) + 1j * xi)) < 2e-6
-    assert FF.launch_pass.count == 4
+    assert _cuda.FOURSTEP_PASS.count == 4
     r = torch.from_numpy(xr)
     spec = np.fft.rfft(xr.astype(np.float64))
     for layout in RF.SPEC_LAYOUTS:
@@ -499,7 +501,7 @@ def test_card_path_plumbing_with_stand_in_launchers(monkeypatch, b):
                                          else (s, None)), n, layout,
                                        scale=2.0 / n, mode=mode)
             assert err(back.numpy(), xr) < bound(n)
-    assert RF.launch_real_huge.count == 9
+    assert _cuda.REAL_HUGE.count == 9
     assert FF.launch_pass.fused == 3
 
 
@@ -534,12 +536,13 @@ def test_split_pass_is_the_pair_split_of_the_last_pass(monkeypatch, n, b,
     monkeypatch.setattr(C, "is_cpu", lambda t: False)
     monkeypatch.setattr(FF, "launch_pass", _fake_launch_pass)
     monkeypatch.setattr(RF, "launch_real_huge", _fake_launch_real_huge)
-    FF.launch_pass.count = FF.launch_pass.fused = 0
-    RF.launch_real_huge.count = 0
+    monkeypatch.setattr(_cuda.FOURSTEP_PASS, "count", 0)
+    monkeypatch.setattr(_cuda.REAL_HUGE, "count", 0)
+    FF.launch_pass.fused = 0
     card = RF.rfft_large_rows(x, layout, exact)
-    assert (FF.launch_pass.count, FF.launch_pass.fused,
-            RF.launch_real_huge.count) == (len(plan), int(fused),
-                                           int(not fused))
+    assert (_cuda.FOURSTEP_PASS.count, FF.launch_pass.fused,
+            _cuda.REAL_HUGE.count) == (len(plan), int(fused),
+                                       int(not fused))
     for c, k in zip(*(t if isinstance(t, tuple) else (t,)
                       for t in (cpu, card))):
         assert torch.equal(c, k)
@@ -553,7 +556,6 @@ def test_register_report_labels_the_split_pass():
     """ptxas's report names the pass kernel's split instantiations apart
     from the plain ones, whose labels stay as they were, and the
     convolutions' bank form as before."""
-    from smfft_tpu_torch.ops import _cuda
     entries = [("_ZN12_GLOBAL__N_120fourstep_pass_kernelILi128ELb0ELb0EEEvNS_"
                 "8PassArgsEdPKN8PassTileIXT_EXT0_EE1CES6_S6_i", 40, 0),
                ("_ZN12_GLOBAL__N_120fourstep_pass_kernelILi128ELb1ELb1EEEvNS_"
@@ -576,10 +578,18 @@ def test_register_report_labels_the_split_pass():
 
 
 def test_cpu_run_never_touches_the_cuda_module():
+    """The huge-N CPU path asks for no kernel library, calls no entry
+    point and counts no launch (the module itself is imported by every
+    op module, and builds nothing at import)."""
     code = ("import sys, torch, smfft_tpu_torch as T\n"
+            "from smfft_tpu_torch.ops import _cuda\n"
+            "def boom():\n"
+            "    raise AssertionError('kernel library requested')\n"
+            "_cuda.library = boom\n"
             "x = torch.rand((2, 1 << 15))\n"
             "T.irfft_large(T.rfft_large(x))\n"
             "T.planar.ifft_large(*T.planar.fft_large(x, x))\n"
-            "assert 'smfft_tpu_torch.ops._cuda' not in sys.modules\n"
+            "assert _cuda._lib is None\n"
+            "assert not any(e.fn or e.count for e in _cuda.ENTRIES)\n"
             "assert 'jax' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -4,7 +4,6 @@ switch, the clock against ``torch.profiler``'s, and the collector."""
 
 from __future__ import annotations
 
-import contextlib
 import gc
 import subprocess
 import sys
@@ -19,6 +18,8 @@ from smfft_tpu_torch import trace
 from smfft_tpu_torch.ops import _cuda
 from smfft_tpu_torch.ops import c2c as C
 from smfft_tpu_torch.ops import real as R
+
+from torch_launch_path import launch_path
 
 
 @pytest.fixture(autouse=True)
@@ -265,23 +266,10 @@ class _Lib:
 
 @pytest.fixture
 def card_path(monkeypatch):
-    """The CUDA branch of the launch wrappers on CPU tensors: the checks
-    of the device, the library, the device guard, the stream and the C2C
-    plan cache stood in."""
-    lib = _Lib()
-    monkeypatch.setattr(_cuda, "library", lambda: lib)
-    monkeypatch.setattr(C, "_check_rows", lambda *a: None)
-    monkeypatch.setattr(R, "check_tensor", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-
-    class _Stream:
-        cuda_stream = 0
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream())
-    monkeypatch.setattr(C, "_raw_stream", lambda index: 0)
-    monkeypatch.setattr(C, "_current_device", lambda: -1)
-    monkeypatch.setattr(C, "_plans", {})
-    return lib
+    """The CUDA branch of the launch wrappers on CPU tensors: the one
+    launch path stood in (``launch_path``), every entry point returning
+    0."""
+    return launch_path(monkeypatch, _Lib())
 
 
 @pytest.mark.parametrize("kernel", ["c2c", "r2c", "c2r"])
@@ -294,11 +282,11 @@ def test_a_launch_wrapper_records_launch_tables_alloc_and_call(card_path,
         "c2r": (R.launch_c2r, (_c(8, 129),), {"n": 256, "layout": "numpy"},
                 "numpy", 8 * 256 * 4),
     }[kernel]
-    before = fn.count
+    before = _cuda.KERNELS[kernel].count
     trace.start()
     fn(*args, **kw)
     spans = _spans(trace.stop())
-    assert fn.count == before + 1
+    assert _cuda.KERNELS[kernel].count == before + 1
     assert spans[0]["name"] == f"launch:{kernel}"
     assert spans[0]["attrs"] == {"rows": 8, "n": 256, "variant": variant,
                                  "exact": False}
@@ -315,12 +303,12 @@ def test_a_launch_that_fails_is_recorded_and_not_counted(card_path):
     the second's error is the run's."""
     C.launch(_c(8, 256))
     card_path.err = 700
-    before = C.launch.count
+    before = _cuda.C2C_RUN.count
     trace.start()
     with pytest.raises(RuntimeError, match="stand-in error"):
         C.launch(_c(8, 256))
     spans = _spans(trace.stop())
-    assert C.launch.count == before
+    assert _cuda.C2C_RUN.count == before
     assert [(s["name"], s["parent"]) for s in spans] == [
         ("launch:c2c", -1), ("alloc", 0), ("tables", 0), ("call", 0)]
     assert spans[3]["end"] == spans[0]["end"]
@@ -329,14 +317,48 @@ def test_a_launch_that_fails_is_recorded_and_not_counted(card_path):
 def test_a_launch_that_fails_in_its_checks_records_what_began(card_path):
     """A check that raises before the output is allocated: the launch
     alone, not counted."""
-    before = R.launch_r2c.count
+    before = _cuda.R2C.count
     trace.start()
     with pytest.raises(ValueError, match="layout"):
         R.launch_r2c(_r(8, 256), layout="no such layout")
     spans = _spans(trace.stop())
-    assert R.launch_r2c.count == before
+    assert _cuda.R2C.count == before
     assert [s["name"] for s in spans] == ["launch:r2c"]
     assert spans[0]["attrs"]["variant"] == "no such layout"
+
+
+def _odd_pair(b, w):
+    """A planar pair of (b, w) views of one flat float32 buffer, each at an
+    odd float offset: 4-byte, not 8-byte, aligned."""
+    flat = torch.zeros(2 * b * w + 3)
+    xr, xi = flat[1:1 + b * w].view(b, w), flat[3 + b * w:].view(b, w)
+    assert xr.data_ptr() % 8 == xi.data_ptr() % 8 == 4
+    return xr, xi
+
+
+@pytest.mark.parametrize("kernel", ["c2c", "c2c_multiple", "conv",
+                                    "bluestein", "c2r"])
+def test_a_planar_pair_at_an_odd_float_offset_is_launched(card_path, kernel):
+    """The kernels read a pair's planes a float at a time, so the row check
+    asks them for a float's alignment only, on a plan's hit as at its
+    build; lone rows, loaded in 8-byte words, still need 8 bytes."""
+    from smfft_tpu_torch.ops import chirp as CH
+    from smfft_tpu_torch.ops import convolve as CV
+    from smfft_tpu_torch.ops import multiple as M
+    fn, w, kw = {
+        "c2c": (C.launch, 256, {}),
+        "c2c_multiple": (M.launch_multiple, 256, {"loops": 1}),
+        "conv": (CV.launch_conv, 256,
+                 {"h": torch.ones(1, 256, dtype=torch.complex64)}),
+        "bluestein": (CH.launch_bluestein, 256, {"n": 100, "m": 256}),
+        "c2r": (R.launch_c2r, 128, {"n": 256}),
+    }[kernel]
+    before = _cuda.KERNELS[kernel].count
+    fn(*_odd_pair(4, w), **kw)
+    fn(*_odd_pair(4, w), **kw)
+    assert _cuda.KERNELS[kernel].count == before + 2
+    with pytest.raises(ValueError, match="x must be 8-byte aligned"):
+        R.launch_r2c(_odd_pair(4, 256)[0])
 
 
 def test_rfft_large_records_its_passes_its_split_and_their_buffers(
