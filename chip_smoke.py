@@ -113,7 +113,12 @@ Phases (each failure exits non-zero at once):
      ``fft_large_planar(factors=(1024, 1024))`` at 2^20 (B22 + B23);
      beside the same-run ``copy_``, the
      plain version and ``torch.fft.fft`` / ``rfft`` / ``irfft``.  After the
-     counters are read, the pair split alone at 2^27 samples.
+     counters are read, the pair split alone at 2^27 samples, then the
+     fused tail (``phase_fused_tail``): the pair-mode R2C of 2^30 samples a
+     call at N = 2^21 .. 2^26, the main path (pass 1 and the fused tail
+     where it fits, 2^21 .. 2^24) against ``pair_split_plan``'s three
+     launches: ms, launches, the split items that waited, ``rfft_large_err``
+     and ulp(max|X|) against float64 beside ROADMAP C.5's CPU figures.
  17. N-D / DCT sweep: ``fftn`` / ``ifftn`` over one (a middle), two and
      three axes, ``fft2`` / ``ifft2``, ``rfftn`` -> ``irfftn`` and ``rfft2``
      -> ``irfft2`` on (4, 64, 256) and (2, 32, 64, 128), ``hfft`` /
@@ -2079,6 +2084,92 @@ def real_huge_alone(card: str) -> dict:
     return row
 
 
+# the fused tail's sizes (2^30 samples a call) and ROADMAP C.5's CPU
+# figures: ulp(max|X|) of fft_large, (b, N) with b N = 2^20, in the JAX
+# package (backend="xla") and in the port's plain version
+TAIL_SIZES = tuple(1 << k for k in range(21, 27))
+C5_CPU_ULP = {"reference": {15: 3.13, 18: 2.74, 20: 3.42, 22: 3.54},
+              "port plain": {15: 6.49, 18: 4.61, 20: 4.36, 22: 5.17}}
+
+
+def three_launches(x: torch.Tensor, layout: str = "numpy"):
+    """The pair-mode R2C of real rows x (even batch) as the three launches
+    of ``pair_split_plan``, the last with the split."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    from smfft_tpu_torch.ops import real_fused as RF
+    b, n = x.shape
+    b2 = b // 2
+    plan = FF.pair_split_plan(n)
+    tmp = FF.launch_pass((x[:b2], x[b2:]), lambda: torch.empty(
+        (b2, n), dtype=torch.complex64, device=x.device), n, plan[0])
+    for p in plan[1:-1]:
+        FF.launch_pass(tmp, tmp, n, p)
+    return FF.launch_pass(tmp, RF._alloc_spec(layout, b, n // 2, x.device),
+                          n, plan[-1])
+
+
+def phase_fused_tail(card: str) -> list:
+    """The pair-mode R2C (numpy layout, 2^30 samples a call) at N = 2^21
+    .. 2^26 on its main path, pass 1 and the fused tail where it fits,
+    against the three launches of ``pair_split_plan``: each call's
+    launches and the split items that waited, ms of both, and both against
+    float64 on the first rows (``rfft_large_err`` = max|X - X64| /
+    rms(X64), the benchmark's; ulp(max|X|)).  Returns the rows."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    from smfft_tpu_torch.ops import real_fused as RF
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    rows = []
+    for n in TAIL_SIZES:
+        b = (1 << 30) // n
+        x = torch.rand((b, n), generator=gen, device="cuda") - 0.5
+        tail = any(p.then for p in FF.tail_plan(n, FF.pair_split_plan(n)))
+        c0, w0 = counts()["fourstep_pass"], FF.tail_waits()
+        got = RF.rfft_large_rows(x, "numpy", mode="pair")
+        torch.cuda.synchronize()
+        launched = counts()["fourstep_pass"] - c0
+        waits = FF.tail_waits() - w0
+        ref = three_launches(x)
+        head = min(b, 4)
+        want = torch.fft.rfft(x[:head].double())
+        rms = want.abs().square().mean().sqrt().item()
+        u = ulp(want.abs().max().item())
+        e_got, e_ref = max_err(got[:head], want), max_err(ref[:head], want)
+        apart = max_err(got, ref) / ulp(ref.abs().max().item())
+        del got, ref, want
+        ms_main = cuda_ms(lambda: RF.rfft_large_rows(x, "numpy", mode="pair"),
+                          reps=REPS_CONV)
+        ms_three = cuda_ms(lambda: three_launches(x), reps=REPS_CONV)
+        k = n.bit_length() - 1
+        row = {"n": n, "batch": b, "tail": tail, "launches": launched,
+               "waits": waits, "ms": ms_main, "three_ms": ms_three,
+               "rfft_large_err": e_got / rms, "three_err": e_ref / rms,
+               "ulp": e_got / u, "three_ulp": e_ref / u,
+               "ulp_apart": apart}
+        rows.append(row)
+        cpu = ", ".join(f"{w} {f[k]:.2f}" for w, f in C5_CPU_ULP.items()
+                        if k in f)
+        print(f"  pair R2C n=2^{k} batch={b} ({card}): "
+              f"{'pass 1 + fused tail' if tail else 'three launches'} "
+              f"{ms_main:.4f} ms ({launched} launches, {waits} split items "
+              f"waited), three launches {ms_three:.4f} ms; rfft_large_err "
+              f"{row['rfft_large_err']:.3e} / {row['three_err']:.3e}, "
+              f"{row['ulp']:.2f} / {row['three_ulp']:.2f} ulp(max|X|), "
+              f"{apart:.2f} ulp apart"
+              + (f" (C.5, CPU fft_large at 2^{k}: {cpu})" if cpu else ""))
+        if launched != (2 if tail else 3):
+            fail(f"pair R2C n={n}: {launched} launches")
+        if max(row["rfft_large_err"], row["three_err"]) > 2e-4:
+            fail(f"pair R2C n={n}: over the benchmark's limit")
+        # the two plans round differently (tests/test_torch_cuda.py
+        # test_fused_tail_matches_the_three_launches)
+        if apart > 8:
+            fail(f"pair R2C n={n}: {apart:.2f} ulp from the three launches")
+        del x
+        torch.cuda.empty_cache()
+    print("fused tail rows: " + json.dumps({"card": card, "rows": rows}))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 17-18: the N-D transforms and the DCT / DST (ndim.py, dct.py),
 # compositions over the C2C, R2C and C2R kernels
@@ -3095,6 +3186,7 @@ def main() -> int:
     huge_rows, huge_calls, worst_huge_main = phase_main_huge(card)
     huge_counts = check_counts("huge-N", huge_calls)
     split_row = real_huge_alone(card)
+    phase_fused_tail(card)
     worst_nd = phase_ndim_sweep()
     reset_counts()
     nd_rows, nd_calls, worst_nd_main = phase_main_ndim(card)

@@ -110,6 +110,9 @@
 // that the plain passes' code, names and registers stay as they are; it
 // has their loads, core and slots, twice their transforms a tile, and no
 // twiddle, for last passes of radix 16..256.
+//
+// The fused tail (below) runs pass 2 and the split pass of a pair-mode
+// plan in one launch, through L2: a third overload of the kernel.
 
 #include "hcore.cuh"
 #include "huge.cuh"
@@ -572,6 +575,484 @@ fourstep_pass_kernel(PassArgs a, SplitOut o, double scale,
     cp_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// The fused tail (fourstep_pass_kernel<R2, R3, false, true, true>): pass 2
+// and the split pass of a three-pass pair-mode plan (R1, R2, R3) in one
+// persistent launch, which hands the intermediate from the one to the
+// other through L2.  Pass 1's output digit d1 cuts each Z row into R1
+// blocks of N/R1 points: pass 2 (columns of stride R3) stays inside a
+// block, and split tile (d2, g) reads row d2 of blocks g*H .. g*H + H - 1
+// and row R2-1-d2 of their mirrors (R1 - d1) mod R1 (H pairs a tile).  So
+// once pass 1 is done, pass 2 and the split of a group pair (groups j and
+// G-1-j of a row, G = R1/H: 2H blocks) need no other group pair but one
+// block of each neighbour.  The plan (ops/fourstep_fused.py tail_plan) is
+// (N / 2^14, 128, 128): blocks of 128 KiB and group pairs of 8 MiB at
+// every N, where (256, 128) and its 16 MiB pairs only broke even on an
+// H100 (PERF.md).
+//   * one ordered list of work (models/hcore.py tail_items): the pass-2
+//     items of the first LAG = 2 group pairs, then for each pair q those
+//     of q + 2 and the split items of q in turn, handed out by an atomic
+//     ticket.  A split item waits only for items of a lower ticket, which
+//     running blocks hold, and a block waits only with no item of its own
+//     unfinished: no deadlock.  Three pairs (24 MiB) are in L2 at once,
+//     and reads and writes of device memory stay in flight together;
+//   * a counter a block of pass-2 items done: the items' stores,
+//     __syncthreads, __threadfence, then the count; a split item's
+//     counters are read by warp 0 with ld.acquire, then __syncthreads.  The
+//     ticket, the counters, the epoch and a count of split items that were
+//     not ready when polled live on the device across calls
+//     (ops/fourstep_fused.py).  A launch's epoch is the word's value plus
+//     one, and a counter of an older epoch reads as not done; the last
+//     block to leave stores that epoch and sets the ticket back to 0, so a
+//     launch needs nothing from the host (a CUDA graph replays it);
+//   * a split item reads the intermediate from L2 (ld.global.cg), never
+//     L1: a pass-2 item on the same SM may have cached old lines of its
+//     blocks.  A pass-2 item's lines are each read once, by it, so its
+//     loads are cp.async into the tile buffer;
+//   * two tile buffers: while an item is transformed and stored, the next
+//     one's loads are in flight (a pass-2 item's from the start, a split
+//     item's into the registers from the middle of the current item), and
+//     the ticket after it is taken (its value read and its counters
+//     polled in the middle, before the stores).  The split rows'
+//     positions follow from the item's digits (SlotRows), not a loop over
+//     the radices a point;
+//   * after a split item has its rows, it discards their L2 lines
+//     (discard.global.L2): the intermediate is dead, each row has one
+//     reader, so its dirty lines are dropped, not written back.  The pass
+//     2 loads of pass 1's output go with an evict_first hint and its
+//     stores with evict_last; the spectra stream out (st.global.cs);
+//   * a pass-2 item is T2 = 512 * 16 / R2 adjacent transforms, lanes
+//     across 32 of them (runs of 256 bytes), the plain pass's core, twiddle
+//     and maps; a split item is the split pass's SplitTile, core and
+//     epilogue.
+// ---------------------------------------------------------------------------
+
+// The tail's device words: the ticket, the waits, the epoch of the last
+// launch, the blocks of this launch that have left, one counter a block.
+struct TailSync {
+    unsigned long long* words;
+};
+
+// The tail's items (models/hcore.py tail_geometry): the split pass's
+// threads and E; a pass-2 item of T2 = 512 * 16 / R2 adjacent transforms
+// (lanes across 32 of them: runs of 256 bytes); a split item the split
+// pass's tile (H pairs).  Two tile buffers, each holding either item.
+template <int R2, int R3>
+struct TailTile {
+    using S = SplitTile<R3, false>;
+    static constexpr int THREADS = S::THREADS;
+    static constexpr int E = S::E;
+    static constexpr int T2 = THREADS * E / R2;
+    static constexpr int TPF2 = R2 / E;
+    static constexpr int FW2 = 32;
+    static constexpr int LD2 = R2 + 1;
+    using Core2 = hc::Core<R2, TPF2, false, false>;
+    static constexpr int H = S::T / 2;             // pairs a split item
+    static constexpr int PER_BLOCK = R3 / T2;      // pass-2 items a block
+    static constexpr int NP = 2 * H * PER_BLOCK;   // a group pair's items
+    static constexpr int NC = R2;
+    // group pairs between a pair's pass-2 items and its split items: with
+    // 8 MiB pairs, three in L2 at once (being read, written, waiting), and
+    // a split item's blocks all written a turn before it
+    static constexpr int LAG = 2;
+    static constexpr int SLOTS =
+        T2 * LD2 > S::T * S::LD ? T2 * LD2 : S::T * S::LD;
+    // two tile buffers, the stage tables, two pass-2 twiddle tables
+    static constexpr size_t SMEM =
+        ((size_t)2 * SLOTS + Core2::TAB + S::Core::TAB + 2 * T2 * E) *
+        sizeof(float2);
+    static_assert(E == 16 && THREADS == T2 * TPF2 && T2 % FW2 == 0 &&
+                      PER_BLOCK >= 1 && !S::P::PAD,
+                  "the tail's items share threads, E and unpadded buffers");
+};
+
+__device__ __forceinline__ unsigned long long l2_policy_first() {
+    unsigned long long p;
+    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+    return p;
+}
+__device__ __forceinline__ unsigned long long l2_policy_last() {
+    unsigned long long p;
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+    return p;
+}
+// A load of the intermediate from L2 (not L1), with an L2 policy.
+__device__ __forceinline__ float2 load_cg(const float2* p,
+                                          unsigned long long pol) {
+    float2 v;
+    asm volatile("ld.global.cg.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+                 : "=f"(v.x), "=f"(v.y)
+                 : "l"(p), "l"(pol)
+                 : "memory");
+    return v;
+}
+__device__ __forceinline__ void store_hint(float2* p, float2 v,
+                                           unsigned long long pol) {
+    asm volatile("st.global.L2::cache_hint.v2.f32 [%0], {%1, %2}, %3;"
+                 :: "l"(p), "f"(v.x), "f"(v.y), "l"(pol)
+                 : "memory");
+}
+__device__ __forceinline__ void discard_l2(const void* p) {
+    asm volatile("discard.global.L2 [%0], 128;" :: "l"(p) : "memory");
+}
+__device__ __forceinline__ void cp_async8_hint(void* dst, const void* src,
+                                               unsigned long long pol) {
+    asm volatile(
+        "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 8, %2;\n"
+        :: "r"(smem_addr(dst)), "l"(src), "l"(pol));
+}
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                 : "=l"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
+}
+
+// One item of the work list: a pass-2 item (block row * R1 + d1, its
+// first transform) or a split item (its tile, its first own block).
+struct TailItem {
+    bool split;
+    int64_t block, first;
+};
+
+// Ticket i's item (models/hcore.py tail_item): the pass-2 items of the
+// first LAG group pairs, then for each pair q those of q + LAG and the
+// split items of q in turn (so that reads and writes of device memory
+// stay in flight together), then the split items of the last LAG pairs.
+template <int R2, int R3>
+__device__ __forceinline__ TailItem tail_item(int64_t i, int log_r1,
+                                              int64_t pairs) {
+    using G = TailTile<R2, R3>;
+    constexpr int H = G::H, NP = G::NP;
+    static_assert(G::NC == NP && (NP & (NP - 1)) == 0,
+                  "a turn is a pass-2 item and a split item, NP times");
+    const int64_t lag = pairs < G::LAG ? pairs : G::LAG;
+    const int log_half = log_r1 - ilog2(2 * H);
+    const int64_t r1 = int64_t(1) << log_r1, half = r1 >> ilog2(2 * H);
+    int64_t q, u;
+    bool split;
+    if (i < lag * NP) {
+        split = false, q = i / NP, u = i % NP;
+    } else if (i < lag * NP + (pairs - lag) * 2 * NP) {
+        const int64_t k = (i - lag * NP) / (2 * NP);
+        const int64_t r = (i - lag * NP) % (2 * NP);
+        split = r & 1;
+        q = split ? k : k + lag;
+        u = r >> 1;
+    } else {
+        const int64_t r = i - lag * NP - (pairs - lag) * 2 * NP;
+        split = true, q = pairs - lag + r / NP, u = r % NP;
+    }
+    const int64_t b = q >> log_half, j = q & (half - 1);
+    if (!split) {
+        const int64_t m = u / G::PER_BLOCK, sub = u % G::PER_BLOCK;
+        const int64_t d1 = m < H ? j * H + m : (2 * half - 1 - j) * H + m - H;
+        const int64_t blk = b * r1 + d1;
+        return {false, blk, (blk * G::PER_BLOCK + sub) * G::T2};
+    }
+    const int64_t grp = u < R2 / 2 ? j : 2 * half - 1 - j;
+    const int64_t d2 = u < R2 / 2 ? u : u - R2 / 2;
+    return {true, b * r1 + grp * H,
+            b * (r1 * R2 / (2 * H)) + d2 * (r1 / H) + grp};
+}
+
+// Where the Z rows of a split item's slots start (split_transform and the
+// digit-reversed row map of its last pass, with the arithmetic of one
+// item's pairs: no loop over the radices a point).  Pair p = d1 + R1 d2 of
+// a row, d2 < R2/2: slot f < H holds transform p + f, at row ((d1 + f) R2
+// + d2) R3; slot H + m its mirror S - p - m, whose digits are (R1 - d1 -
+// m, R2 - 1 - d2), or (0, R2 - d2) for d1 + m = 0 (S/2 for p = 0).
+template <int R2, int R3, int H>
+struct SlotRows {
+    int64_t z;    // the item's Z row, b N
+    int d1, d2;   // slot 0's digits
+    int r1;
+
+    __device__ __forceinline__ int64_t at(int f) const {
+        int e1 = d1 + f, e2 = d2;
+        if (f >= H) {
+            const int m = d1 + f - H;
+            e1 = (r1 - m) & (r1 - 1);
+            e2 = m ? R2 - 1 - d2 : (d2 ? R2 - d2 : R2 / 2);
+        }
+        return z + ((int64_t)(e1 * R2 + e2) * R3);
+    }
+};
+
+// Whether the 2H blocks split item `it` reads are written (warp 0, every
+// lane): its own H blocks and their mirrors (R1 - d1) mod R1.
+template <int H>
+__device__ __forceinline__ bool tail_ready(const TailItem& it,
+                                           const unsigned long long* done,
+                                           unsigned long long want,
+                                           int log_r1, int lane) {
+    const int64_t r1 = int64_t(1) << log_r1;
+    const int64_t row0 = it.block & ~(r1 - 1), d1 = it.block & (r1 - 1);
+    bool ok = true;
+    for (int i = lane; i < 2 * H; i += 32) {
+        const int64_t blk =
+            row0 + (i < H ? d1 + i : (r1 - d1 - (i - H)) & (r1 - 1));
+        ok = ok && load_acquire(done + blk) >= want;
+    }
+    return __all_sync(0xffffffffu, ok);
+}
+
+template <int R2, int R3, bool EXACT, bool SPLIT, bool TAIL>
+__global__ void __launch_bounds__(TailTile<R2, R3>::THREADS, 1)
+fourstep_pass_kernel(PassArgs a2, PassArgs a3, SplitOut o, TailSync sy,
+                     const float2* __restrict__ tw2,
+                     const float2* __restrict__ tw3,
+                     const float2* __restrict__ lo,
+                     const float2* __restrict__ hi) {
+    static_assert(!EXACT && SPLIT && TAIL,
+                  "the fused tail is fp32 with the pair split");
+    using G = TailTile<R2, R3>;
+    using S = typename G::S;
+    using C = float2;
+    using Tr = float;
+    constexpr int E = G::E, H = G::H, T2 = G::T2, TPF2 = G::TPF2;
+    constexpr int LOG_R2 = ilog2(R2), LOG_R3 = ilog2(R3);
+    C* const bufs = shared_buffer<C>();      // two tile buffers
+    C* const tab2 = bufs + 2 * G::SLOTS;
+    C* const tab3 = tab2 + G::Core2::TAB;
+    C* const stepss = tab3 + S::Core::TAB;   // two [s][f]: W_N^(m_f TPF2 s)
+    __shared__ long long s_next;
+    __shared__ int s_ready;
+    const int tid = threadIdx.x;
+    const Tr sgn = Tr(-1);
+    // the lanes of a warp across 32 adjacent transforms, in either item
+    const int f2 = tid % G::FW2 + G::FW2 * (tid / (G::FW2 * TPF2));
+    const int t2 = (tid / G::FW2) % TPF2;
+    const int f3 = tid % S::FW + S::FW * (tid / (S::FW * S::TPF));
+    const int t3 = (tid / S::FW) % S::TPF;
+    const int log_r1 = a3.lr[0];
+    const int64_t rows = a3.total >> a3.log_pr;
+    const int64_t pairs = (rows << log_r1) / (2 * H);
+    const int64_t items = pairs * (G::NP + G::NC);
+    float2* const z = static_cast<float2*>(a2.in.a);
+    unsigned long long* const ticket = sy.words;
+    unsigned long long* const waits = sy.words + 1;
+    unsigned long long* const last = sy.words + 2;
+    unsigned long long* const left = sy.words + 3;
+    unsigned long long* const done = sy.words + 4;
+    // this launch's epoch (warp 0): the word changes only once every block
+    // has left, so every block reads the same
+    unsigned long long epoch = 0;
+    if (tid < 32)
+        epoch = __shfl_sync(0xffffffffu,
+                            tid == 0 ? *(volatile unsigned long long*)last
+                                     : 0ull,
+                            0) + 1;
+    const unsigned long long mark = epoch << 16;
+    const unsigned long long want = mark + G::PER_BLOCK;
+    const unsigned long long evict_first = l2_policy_first();
+    const unsigned long long evict_last = l2_policy_last();
+    const int64_t tw_cols = (int64_t(1) << a2.log_pr) - 1;
+    auto tw_mul = [&](int64_t g) -> int64_t {
+        return ((g & tw_cols) & a2.tw_mask) << a2.log_tw_step;
+    };
+
+    G::Core2::fill(tab2, tw2, tid, G::THREADS);
+    S::Core::fill(tab3, tw3, tid, G::THREADS);
+
+    // lane 0: a ticket (its value is first read in poll)
+    auto take = [&]() -> unsigned long long {
+        return tid == 0 ? atomicAdd(ticket, 1ull) : 0ull;
+    };
+    // warp 0: ticket t broadcast and decoded, and for a split item whether
+    // its blocks are written (tail_ready's ld.acquire: in the middle of an
+    // item, before its stores, it waits for no store of warp 0's), into
+    // s_next / s_ready, with the count of split items that were not
+    auto poll = [&](unsigned long long t) {
+        const long long i = __shfl_sync(0xffffffffu, (long long)t, 0);
+        const TailItem pit =
+            i < items ? tail_item<R2, R3>(i, log_r1, pairs) : TailItem{};
+        const bool ok =
+            !pit.split || tail_ready<H>(pit, done, want, log_r1, tid);
+        if (tid == 0) {
+            s_next = i;
+            s_ready = ok;
+            if (!ok) atomicAdd(waits, 1ull);
+        }
+    };
+    // warp 0 waits until split item it's blocks are written
+    auto wait = [&](const TailItem& it) {
+        if (tid < 32)
+            while (!tail_ready<H>(it, done, want, log_r1, tid))
+                __nanosleep(256);
+    };
+    auto rows_of = [&](const TailItem& it) {
+        const int64_t pg = it.first * H;
+        const int64_t p = pg & ((int64_t(1) << (a3.log_pr - 1)) - 1);
+        return SlotRows<R2, R3, H>{(pg >> (a3.log_pr - 1)) << a3.log_n,
+                                   (int)(p & ((1 << log_r1) - 1)),
+                                   (int)(p >> log_r1), 1 << log_r1};
+    };
+    // a pass-2 item's loads, asynchronous into buf (transform-fastest:
+    // thread tid takes transform tid % T2, points tid / T2 + k TPF2); each
+    // of its lines is read once, here, so L1 may keep it; and its twiddle
+    // table
+    auto issue = [&](const TailItem& it, C* buf, C* steps) {
+        const int64_t at =
+            transform_at(a2, 0, a2.in_ls, LOG_R2, it.first + tid % T2);
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+            const int j = tid / T2 + k * TPF2;
+            cp_async8_hint(buf + (tid % T2) * G::LD2 + j,
+                           z + at + ((int64_t)j << a2.in_ls), evict_first);
+        }
+        for (int e = tid; e < T2 * E; e += G::THREADS)
+            steps[e] = root(lo, hi,
+                            tw_mul(it.first + e % T2) * TPF2 * (e / T2),
+                            a2.lo_bits);
+    };
+    // a split item's rows from L2 (ld.global.cg: L1 may hold old lines of
+    // its blocks) into the registers, point-fastest over its slots' rows,
+    // and from there into buf
+    C nx[E];
+    auto fetch = [&](const TailItem& it) {
+        const SlotRows<R2, R3, H> sr = rows_of(it);
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+            const int e = tid + k * G::THREADS;
+            nx[k] = load_cg(z + sr.at(e >> LOG_R3) + (e & (R3 - 1)),
+                            evict_first);
+        }
+    };
+    auto put = [&](C* buf) {
+#pragma unroll
+        for (int k = 0; k < E; ++k) {
+            const int e = tid + k * G::THREADS;
+            buf[(e >> LOG_R3) * S::LD + (e & (R3 - 1))] = nx[k];
+        }
+    };
+
+    // the block leaves (its tickets all taken, its counts all made): the
+    // last to leave stores the epoch and sets the ticket back for the next
+    // launch
+    auto leave = [&]() {
+        if (tid == 0) {
+            __threadfence();
+            if (atomicAdd(left, 1ull) == gridDim.x - 1) {
+                *(volatile unsigned long long*)ticket = 0;
+                *(volatile unsigned long long*)left = 0;
+                *(volatile unsigned long long*)last = epoch;
+                __threadfence();
+            }
+        }
+    };
+
+    // the first item, loaded before the loop; then each turn: the next
+    // item's loads in flight while the current one is transformed and
+    // stored, and the ticket after it taken and polled
+    if (tid < 32) poll(take());
+    __syncthreads();
+    long long cur = s_next;
+    if (cur >= items) {
+        leave();
+        return;
+    }
+    TailItem it = tail_item<R2, R3>(cur, log_r1, pairs);
+    if (!s_ready) wait(it);
+    __syncthreads();
+    int b = 0;
+    if (it.split) {
+        fetch(it);
+        put(bufs);
+    } else {
+        issue(it, bufs, stepss);
+        cp_commit();
+        cp_wait<0>();
+    }
+    if (tid < 32) poll(take());
+    __syncthreads();
+    long long nxt = s_next;
+    bool ready = s_ready;
+    for (;;) {
+        C* const buf = bufs + b * G::SLOTS;
+        C* const other = bufs + (b ^ 1) * G::SLOTS;
+        C* const steps = stepss + b * (T2 * E);
+        const TailItem nit =
+            nxt < items ? tail_item<R2, R3>(nxt, log_r1, pairs) : TailItem{};
+        if (nxt < items && !nit.split)
+            issue(nit, other, stepss + (b ^ 1) * (T2 * E));
+        cp_commit();
+        const unsigned long long after = take();
+        C u[E];
+        if (!it.split) {
+            const int64_t g = it.first + f2;
+            const C base2 = root(lo, hi, tw_mul(g) * t2, a2.lo_bits);
+            G::Core2::run_smem(buf + f2 * G::LD2, u, t2, tab2, false, sgn,
+                               Tr(1), [&](int s, C v) {
+                                   return cmul(v, cmul(base2,
+                                                       steps[s * T2 + f2]));
+                               });
+            if (tid < 32) poll(after);
+            if (nit.split && ready) fetch(nit);
+            const int64_t at = transform_at(a2, 0, a2.out_ls, LOG_R2, g);
+#pragma unroll
+            for (int s = 0; s < E; ++s)
+                store_hint(z + at + ((int64_t)(t2 + s * TPF2) << a2.out_ls),
+                           u[s], evict_last);
+            __syncthreads();  // every store of the item is issued
+            if (tid == 0) {
+                __threadfence();
+                atomicMax(done + it.block, mark);
+                atomicAdd(done + it.block, 1ull);
+            }
+        } else {
+            // the rows are in the buffer: drop their lines from L2
+            constexpr int LINES = R3 * (int)sizeof(C) / 128;
+            const SlotRows<R2, R3, H> sr = rows_of(it);
+            for (int l = tid; l < S::T * LINES; l += G::THREADS)
+                discard_l2(z + sr.at(l / LINES) +
+                           (l % LINES) * (128 / (int)sizeof(C)));
+            S::Core::run_smem(buf + f3 * S::LD, u, t3, tab3, false, sgn,
+                              Tr(1), [](int, C v) { return v; });
+            if (tid < 32) poll(after);
+            if (nit.split && ready) fetch(nit);
+            const int64_t g = split_transform<S>(a3, it.first, f3);
+            split_pairs<R3, false>(a3, buf, u, f3, t3, g);
+            if (g >= 0) {
+                const int64_t row = g >> a3.log_pr;
+                const int64_t c = g & ((int64_t(1) << a3.log_pr) - 1);
+#pragma unroll
+                for (int s = 0; s < E / 2; ++s) {
+                    const int64_t bin =
+                        c + ((int64_t)(t3 + s * S::TPF) << a3.log_pr);
+                    o.spec.store<true>(row, bin, u[s]);
+                    if (row + rows < o.rows)
+                        o.spec.store<true>(row + rows, bin, u[s + E / 2]);
+                }
+            }
+        }
+        if (nxt >= items) break;
+        if (nit.split) {
+            if (!ready) {
+                wait(nit);
+                __syncthreads();
+                fetch(nit);
+            }
+            put(other);
+        } else {
+            cp_wait<0>();
+        }
+        // the other buffer holds nxt, cur's reads of its own are done, and
+        // s_next / s_ready are set
+        __syncthreads();
+        cur = nxt;
+        it = nit;
+        nxt = s_next;
+        ready = s_ready;
+        b ^= 1;
+    }
+    cp_wait<0>();
+    leave();
+}
+
 __host__ int ilog2_64(int64_t v) {
     int k = 0;
     while ((int64_t(1) << (k + 1)) <= v) ++k;
@@ -638,6 +1119,31 @@ cudaError_t launch_split(const PassArgs& args, const SplitOut& out,
     }
 }
 
+// The fused tail over the items of a2 / a3's rows.
+template <int R2, int R3>
+cudaError_t launch_tail(const PassArgs& a2, const PassArgs& a3,
+                        const SplitOut& out, const TailSync& sy,
+                        const void* tw2, const void* tw3, const void* lo,
+                        const void* hi, cudaStream_t stream) {
+    using G = TailTile<R2, R3>;
+    void (*kernel)(PassArgs, PassArgs, SplitOut, TailSync, const float2*,
+                   const float2*, const float2*, const float2*) =
+        fourstep_pass_kernel<R2, R3, false, true, true>;
+    const int64_t rows = a3.total >> a3.log_pr;
+    if ((int64_t(1) << a3.lr[0]) % (2 * G::H)) return cudaErrorInvalidValue;
+    const int64_t items =
+        (rows << a3.lr[0]) / (2 * G::H) * (G::NP + G::NC);
+    unsigned grid = 0;
+    cudaError_t err =
+        persistent_grid(kernel, G::THREADS, G::SMEM, items, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
+        a2, a3, out, sy, static_cast<const float2*>(tw2),
+        static_cast<const float2*>(tw3), static_cast<const float2*>(lo),
+        static_cast<const float2*>(hi));
+    return cudaGetLastError();
+}
+
 template <int R>
 cudaError_t dispatch(const PassArgs& args, const SplitOut* split,
                      double scale, const void* tw, const void* lo,
@@ -668,8 +1174,17 @@ extern "C" {
 // the pair split of its output into spec_rows rows of packed spectra of
 // n/2 bins at out_a / out_b in layout spec_layout (0 planar pair, 1 packed
 // complex64, 2 numpy complex64 of n/2 + 1 bins), the q rows batch after
-// the p rows (out_kind unused); -1: out is the pass's output.  Returns a
-// cudaError_t (0 on success).
+// the p rows (out_kind unused); -1: out is the pass's output.
+// tail_radix > 0: the fused tail, radix = tail_radix = 128.  The pass
+// given (columns of stride tail_radix in and out, tw_s = tail_radix,
+// fp32) runs in place on the complex64 intermediate at in_a (128-byte
+// aligned), then the plan's last pass of radix tail_radix over the
+// digit-reversed rows (n / (radix * tail_radix), radix) writes its pair
+// split as above; tw_tail is the W_tail_radix table, sync the device words
+// (the ticket, the waits, the epoch, the blocks left, then a counter for
+// each of the batch * n / (radix * tail_radix) blocks), zeros before the
+// first launch on them and left as the last launch leaves them, one launch
+// on them at a time.  Returns a cudaError_t (0 on success).
 int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                         int64_t in_s, void* out_a, void* out_b, int out_kind,
                         int out_map, int64_t out_s, int nr, int64_t r0,
@@ -677,13 +1192,24 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                         int64_t n, int64_t radix, int64_t tw_s, double scale,
                         const void* tw, const void* lo, const void* hi,
                         int lo_bits, int inverse, int exact, int spec_layout,
-                        int64_t spec_rows, void* stream) {
+                        int64_t spec_rows, int64_t tail_radix,
+                        const void* tw_tail, void* sync, void* stream) {
     if (batch <= 0) return (int)cudaSuccess;
     if (nr < 0 || nr > 4 || n % radix) return (int)cudaErrorInvalidValue;
     const bool split = spec_layout >= 0;
-    if (split && (spec_layout > 2 || in_map != 1 || out_map != 0 ||
-                  out_s != n / radix || tw_s != 0 || n / radix < 2 ||
-                  spec_rows < batch || spec_rows > 2 * batch))
+    const bool tail = tail_radix > 0;
+    if (tail && (!split || exact || inverse || in_kind != 0 ||
+                 in_map != 0 || out_map != 0 || in_s != tail_radix ||
+                 out_s != tail_radix || tw_s != tail_radix || nr != 0 ||
+                 !sync || !tw_tail ||
+                 n % (radix * tail_radix) || (uintptr_t)in_a % 128))
+        return (int)cudaErrorInvalidValue;
+    if (split && !tail &&
+        (spec_layout > 2 || in_map != 1 || out_map != 0 ||
+         out_s != n / radix || tw_s != 0 || n / radix < 2))
+        return (int)cudaErrorInvalidValue;
+    if (split && (spec_layout > 2 || spec_rows < batch ||
+                  spec_rows > 2 * batch))
         return (int)cudaErrorInvalidValue;
     const int64_t rs[4] = {r0, r1, r2, r3};
     const int64_t pow2[5] = {n, radix, in_map == 0 ? in_s : 1,
@@ -714,6 +1240,29 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                                 n / 2},
                        spec_rows};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (tail) {
+        // pass 2 in place; the split pass over rows (R1, R2) of radix R3
+        const int64_t q = n / (radix * tail_radix);
+        if (q < 1 || (q & (q - 1)) || (tail_radix & (tail_radix - 1)))
+            return (int)cudaErrorInvalidValue;
+        args.out = args.in;
+        PassArgs last{};
+        last.in = args.in;
+        last.in_map = 1;
+        last.nr = 2;
+        last.lr[0] = ilog2_64(q);
+        last.lr[1] = ilog2_64(radix);
+        last.log_n = args.log_n;
+        last.log_pr = ilog2_64(n / tail_radix);
+        last.total = batch * (n / tail_radix);
+        last.tw_mask = -1;
+        last.lo_bits = lo_bits;
+        const TailSync sy{static_cast<unsigned long long*>(sync)};
+        if (radix == 128 && tail_radix == 128)
+            return (int)launch_tail<128, 128>(args, last, out, sy, tw,
+                                              tw_tail, lo, hi, st);
+        return (int)cudaErrorInvalidValue;
+    }
 #define SMFFT_CASE(RR)                                                     \
     case RR:                                                               \
         return (int)dispatch<RR>(args, split ? &out : nullptr, scale, tw,  \

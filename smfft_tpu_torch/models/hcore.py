@@ -24,7 +24,10 @@ kernels' own index arithmetic written out in numpy:
     slots hold (:func:`pass_split_slot`), the mirror
     points read through the slots and the bins stored
     (:func:`pass_split`), and the wavefronts of what it adds
-    (:func:`pass_split_patterns`);
+    (:func:`pass_split_patterns`); the fused tail's work order
+    (:func:`tail_items`), the blocks each split item waits for
+    (:func:`tail_reads`), the rows its slots read (:func:`tail_slot_row`)
+    and a group pair's bytes (:func:`tail_group_bytes`);
   * the row kernels' block layout (:func:`row_geometry`), their revblock
     staging (:func:`stage_pos`), the C2C kernel's layouts
     (:func:`c2c_rows`), the R2C kernel's pair split and its stores in
@@ -428,6 +431,125 @@ def pass_split_patterns(r: int, exact: bool):
                 [((f ^ h) * ld + pad(r - 1 - t - j * tpf)) * elem
                  for f, t in warp], elem)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The fused tail (``csrc/fourstep.cu`` fourstep_pass_kernel<R2, R3, false,
+# true, true>): pass 2 and the split pass of a three-pass pair-mode plan
+# (R1, R2, R3) in one persistent launch.  Pass 1's output digit d1 cuts
+# each Z row into R1 blocks of N/R1 points; pass 2 stays inside a block;
+# split tile (d2, g) reads row d2 of the H blocks g*H .. g*H + H - 1 and
+# row R2-1-d2 of their mirrors (R1 - d1) mod R1.  Group pair j of a row
+# holds groups j and G-1-j (G = R1/H): its producers write its 2H blocks,
+# its split tiles read them (and one block of each neighbouring pair).
+# Tickets run the producers of pair 0, then for each pair q the producers
+# of q + 1 and the split tiles of q.
+# ---------------------------------------------------------------------------
+
+
+def tail_geometry(r2: int, r3: int) -> dict:
+    """The fused tail's items at radices (R2, R3) (TailTile): the split
+    pass's tile and threads (:func:`split_geometry`) for a split item, H
+    pairs; a pass-2 item of T2 = threads * E / R2 adjacent transforms, E
+    points a thread, per_block of them a block of R3 transforms; NP pass-2
+    items and NC split items a group pair."""
+    s = split_geometry(r3, False)
+    t2 = s["threads"] * s["E"] // r2
+    h = s["T"] // 2
+    per_block = r3 // t2
+    return {"threads": s["threads"], "E": s["E"], "T2": t2,
+            "TPF2": r2 // s["E"], "H": h, "per_block": per_block,
+            "NP": 2 * h * per_block, "NC": r2}
+
+
+#: group pairs between a pair's pass-2 items and its split items
+#: (``csrc/fourstep.cu`` TailTile::LAG)
+TAIL_LAG = 2
+
+
+def tail_count(rows: int, rs: tuple) -> int:
+    """The tickets of a tail launch over ``rows`` Z rows of radices rs =
+    (R1, R2, R3)."""
+    r1, r2, r3 = rs
+    g = tail_geometry(r2, r3)
+    return rows * r1 // (2 * g["H"]) * (g["NP"] + g["NC"])
+
+
+def tail_item(i: int, rows: int, rs: tuple) -> tuple:
+    """Ticket i's work, as the kernel decodes it: ("pass", block, sub),
+    pass-2 item sub of block row * R1 + d1, or ("split", tile), the split
+    tile that :func:`pass_split_slot` numbers.  The pass-2 items of the
+    first :data:`TAIL_LAG` group pairs, then for each pair q those of q +
+    TAIL_LAG and the split items of q in turn, then the last pairs' split
+    items."""
+    r1, r2, r3 = rs
+    g = tail_geometry(r2, r3)
+    h, n_p = g["H"], g["NP"]
+    assert g["NC"] == n_p
+    half = r1 // (2 * h)                 # group pairs a row
+    pairs = rows * half
+    lag = min(pairs, TAIL_LAG)
+    if i < lag * n_p:
+        kind, (q, u) = "pass", divmod(i, n_p)
+    elif i < lag * n_p + (pairs - lag) * 2 * n_p:
+        k, r = divmod(i - lag * n_p, 2 * n_p)
+        kind, q, u = ("split", k, r // 2) if r % 2 else ("pass", k + lag,
+                                                         r // 2)
+    else:
+        q, u = divmod(i - lag * n_p - (pairs - lag) * 2 * n_p, n_p)
+        kind, q = "split", pairs - lag + q
+    b, j = divmod(q, half)
+    if kind == "pass":
+        m, sub = divmod(u, g["per_block"])
+        d1 = j * h + m if m < h else (2 * half - 1 - j) * h + m - h
+        return "pass", b * r1 + d1, sub
+    grp, d2 = (j, u) if u < r2 // 2 else (2 * half - 1 - j, u - r2 // 2)
+    return "split", b * (r1 * r2 // (2 * h)) + d2 * (r1 // h) + grp
+
+
+def tail_items(rows: int, rs: tuple) -> list[tuple]:
+    """Every item of a tail launch in ticket order."""
+    return [tail_item(i, rows, rs) for i in range(tail_count(rows, rs))]
+
+
+def tail_reads(tile: int, rs: tuple) -> list[int]:
+    """The blocks (row * R1 + d1) split tile ``tile`` waits for: its H
+    transforms' blocks, then their mirrors'."""
+    r1, r2, r3 = rs
+    h = tail_geometry(r2, r3)["H"]
+    row, p = divmod(tile * h, r1 * r2 // 2)
+    d1 = p % r1
+    return ([row * r1 + d1 + i for i in range(h)]
+            + [row * r1 + (r1 - d1 - i) % r1 for i in range(h)])
+
+
+def tail_slot_row(tile: int, f: int, rs: tuple) -> int:
+    """Where in Z (rows of N points) the row that split tile ``tile``'s
+    slot f reads starts, as the kernel forms it from the tile's digits
+    (SlotRows): pair p = d1 + R1 d2 of its row; slot f < H holds transform
+    p + f at row ((d1 + f) R2 + d2) R3, slot H + m the mirror of p + m at
+    ((R1 - d1 - m) R2 + R2 - 1 - d2) R3, or (R2 - d2) R3 for d1 + m = 0
+    (R2/2 for p = 0)."""
+    r1, r2, r3 = rs
+    h = tail_geometry(r2, r3)["H"]
+    row, p = divmod(tile * h, r1 * r2 // 2)
+    d1, d2 = p % r1, p // r1
+    e1, e2 = d1 + f, d2
+    if f >= h:
+        m = d1 + f - h
+        e1 = (r1 - m) % r1
+        e2 = r2 - 1 - d2 if m else (r2 - d2 if d2 else r2 // 2)
+    return row * r1 * r2 * r3 + (e1 * r2 + e2) * r3
+
+
+def tail_group_bytes(rs: tuple) -> int:
+    """The bytes the pass-2 items of one group pair write (complex64):
+    the distinct blocks of the first group pair's items, N/R1 points
+    each."""
+    r1, r2, r3 = rs
+    g = tail_geometry(r2, r3)
+    blocks = {it[1] for it in tail_items(1, rs)[:g["NP"]]}
+    return len(blocks) * r2 * r3 * 8
 
 
 # ---------------------------------------------------------------------------

@@ -133,8 +133,8 @@ def _build(nvcc: str) -> Path:
 def register_report(log: str | None = None) -> list[str]:
     """One line per kernel instantiation from ptxas's report in a build
     log: the kernel, its integer template arguments (and ``bank`` or
-    ``split`` for a second flag set), fp32 or fp64, registers and spill
-    stores."""
+    ``split`` for a second flag set, ``tail`` for a third), fp32 or fp64,
+    registers and spill stores."""
     lines, name, spill = [], None, 0
     for line in (build_log if log is None else log).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -150,12 +150,13 @@ def register_report(log: str | None = None) -> list[str]:
                           r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel|"
                           r"power_kernel|bluestein_kernel|"
                           r"fourstep_pass_kernel|real_huge_kernel)"
-                          r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?", name)
+                          r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?(Lb1E)?", name)
             # the integer template arguments, and a second flag after
             # EXACT (the convolutions' bank form, the pass kernel's pair
-            # split)
+            # split) and a third (the pass kernel's fused tail)
             flag = ("" if not k or not k.group(4) else ",split"
                     if k.group(1) == "fourstep_pass_kernel" else ",bank")
+            flag += ",tail" if k and k.group(5) else ""
             label = (f"{k.group(1)}<"
                      f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}"
                      f"{flag}>" if k else name)
@@ -229,7 +230,7 @@ BLUESTEIN = Entry("bluestein", "smfft_bluestein", _P, _P, _P, _P, _C, _I, _I,
                   _I, _I, _P, _P, _D, _P, _C, _P)
 FOURSTEP_PASS = Entry("fourstep_pass", "smfft_fourstep_pass", _P, _P, _C, _C,
                       _I, _P, _P, _C, _C, _I, _C, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _D, _P, _P, _P, _C, _C, _C, _C, _I, _P)
+                      _I, _D, _P, _P, _P, _C, _C, _C, _C, _I, _I, _P, _P, _P)
 REAL_HUGE = Entry("real_huge", "smfft_real_huge", _C, _P, _C, _P, _P, _C, _I,
                   _I, _I, _I, _D, _P, _P, _C, _C, _P)
 #: the kernels' entry points by name

@@ -23,8 +23,12 @@ twiddle's column count (0: none), whether the scale applies there, and its
 epilogue: ``split="pair"`` on a plan's last pass (:func:`pair_split_plan`)
 writes the pair split of the real transforms (``ops/real_fused.py``)
 straight from the pass's outputs, the packed half-spectra in place of the
-pass's output.  The passes exchange complex64 intermediates, complex128
-for the "exact" tier, so that tier's only fp32 rounding is the output's.
+pass's output.  A pass may carry the plan's next one (``then``): the fused
+tail (:func:`tail_plan`), pass 2 and the split pass of a three-pass
+pair-mode plan in one launch, which hands each block group from the one to
+the other through the card's L2.  The passes exchange complex64
+intermediates, complex128 for the "exact" tier, so that tier's only fp32
+rounding is the output's.
 
 Dispatch is by the tensor's device: a CUDA tensor launches the kernel once
 per pass (:func:`launch_pass`, counted) or raises; a CPU tensor runs
@@ -36,7 +40,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from functools import partial
+from functools import lru_cache, partial
 
 import torch
 
@@ -56,6 +60,19 @@ MIN_RADIX, MAX_RADIX = 16, 2048
 #: 4.0 against 3.2 ms at n = 2^20, 4.6 against 4.2 at 2^27).
 SPLIT_MAX_RADIX = 256
 
+#: The fused tail's radix, pass 2's and pass 3's
+#: (``fourstep_pass_kernel<128, 128, false, true, true>``): a block of
+#: N/R1 = 2^14 points (128 KiB) and a group pair of 8 MiB at every N, pass
+#: 1 taking radix N / 2^14.  The tail keeps three pairs in L2 at once
+#: (read, written, waiting: ``csrc/fourstep.cu`` LAG = 2), 24 MiB of the
+#: H100's 50 MB.  There the tail of the default (256, 256, 128) plan, 16
+#: MiB pairs, broke even at 2^23 where (512, 128, 128) gained (PERF.md).
+TAIL_RADIX = 128
+
+#: The largest pass-1 radix of a fused plan: N = 2^21 .. 2^24.  At 2^25
+#: pass 1 of radix 2048 (one tile buffer) lost more than the tail saved.
+TAIL_FIRST_MAX = 1024
+
 
 @dataclass(frozen=True)
 class Pass:
@@ -66,13 +83,15 @@ class Pass:
     point k times W_(R*tw_s)^((c mod tw_s)*k) when tw_s, the input times the
     scale when ``scaled``.  ``split="pair"``: the output Z (B, N) of two
     real rows a complex row goes on as their packed half-spectra, rows b
-    and b + B (``real_fused.pair_split_plain``), in place of Z."""
+    and b + B (``real_fused.pair_split_plain``), in place of Z.  ``then``:
+    the plan's next pass, run by the same launch (:func:`tail_plan`)."""
     radix: int
     src: tuple
     dst: tuple
     tw_s: int
     scaled: bool
     split: str | None = None
+    then: Pass | None = None
 
 
 def radices(n: int, passes: int) -> tuple[int, ...]:
@@ -109,6 +128,37 @@ def pair_split_plan(n: int) -> tuple[Pass, ...]:
     if passes[-1].radix > SPLIT_MAX_RADIX:
         return passes
     return passes[:-1] + (replace(passes[-1], split="pair"),)
+
+
+@lru_cache(maxsize=None)
+def tail_plan(n: int, passes: tuple[Pass, ...],
+              exact: bool = False) -> tuple[Pass, ...]:
+    """The launches that compute ``passes`` where the shape says the fused
+    tail fits, else ``passes`` as they are.  It fits the fp32 three-pass
+    plan of :func:`pair_split_plan` where N / 128^2 is a pass-1 radix to
+    :data:`TAIL_FIRST_MAX`: pass 1 of radix N / 128^2, then one launch of
+    pass 2 carrying the split pass (radix 128 both)."""
+    rs = (n // TAIL_RADIX ** 2, TAIL_RADIX, TAIL_RADIX)
+    if (exact or len(passes) != 3 or passes != pair_split_plan(n)
+            or not MIN_RADIX <= rs[0] <= TAIL_FIRST_MAX):
+        return passes
+    three = plan(rs)
+    return (three[0],
+            replace(three[1], then=replace(three[2], split="pair")))
+
+
+def _check_tail(n: int, p: Pass) -> None:
+    """The fused tail: a column pass of stride R3 with its twiddle, in
+    place, then the split pass of radix R3 over the rows (N / (R2 R3),
+    R2)."""
+    t = p.then
+    r2, r3 = p.radix, t.radix
+    if (p.split or t.then or t.split != "pair" or p.src != ("col", r3)
+            or p.dst != p.src or p.tw_s != r3 or p.scaled
+            or t.src != ("rows", (n // (r2 * r3), r2))):
+        raise ValueError("the fused tail is a column pass of stride R3 and "
+                         f"then the plan's split pass of radix R3; got {p}")
+    _check_split(n, t)
 
 
 def _check_split(n: int, p: Pass) -> None:
@@ -191,7 +241,12 @@ def pass_plain(x: torch.Tensor, n: int, p: Pass, inverse: bool = False,
                scale: float = 1.0):
     """One pass of :func:`launch_pass` in plain PyTorch: complex (B, N) ->
     complex (B, N), in x's precision; a ``split="pair"`` pass -> the
-    packed planar half-spectra (2B, N/2) of its output."""
+    packed planar half-spectra (2B, N/2) of its output; a pass with
+    ``then`` is the two in turn."""
+    if p.then:
+        _check_tail(n, p)
+        y = pass_plain(x, n, replace(p, then=None), inverse, scale)
+        return pass_plain(y, n, p.then, inverse, scale)
     _check_split(n, p)
     b, r = x.shape[0], p.radix
     a = _gather(x, r, p.src)
@@ -277,22 +332,29 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     A ``split="pair"`` pass writes the packed half-spectra instead: ``dst``
     is a spectrum of B..2B rows of N/2 bins as ``real_fused`` takes it (a
     planar pair, packed or numpy complex64), its q rows B after the p rows
-    (a q row past its last is left out).  ``dst`` may be a function that
-    makes it, called here: the launch's ``alloc`` span.  ``exact`` runs the
-    fp64 instantiation.  ``at`` = (i, p): pass i of a plan of p, named in
-    the span's variant.  Each split launch adds one to
-    ``launch_pass.fused``."""
+    (a q row past its last is left out).  A fused tail (``p.then``, from
+    :func:`tail_plan`) runs ``p`` in place on ``src``, a complex64
+    intermediate, and its split pass into ``dst``.  ``dst`` may be a
+    function that makes it, called here: the launch's ``alloc`` span.
+    ``exact`` runs the fp64 instantiation.  ``at`` = (i, p): pass i of a
+    plan of p, named in the span's variant.  Each launch that splits adds
+    one to ``launch_pass.fused``, each fused tail one to
+    ``launch_pass.tails``."""
     sp = _T.on and _T.now()
     a = t = c = rows = out = 0
+    last = p.then or p
     try:
-        _check_split(n, p)
+        if p.then:
+            _check_tail(n, p)
+        else:
+            _check_split(n, p)
         ia, ib, ik = _operand(src, n, "src")
         if callable(dst):
             a = sp and _T.now()
             dst = out = dst()
         first = src[0] if isinstance(src, tuple) else src
         rows = first.shape[0]
-        if p.split:
+        if last.split:
             from smfft_tpu_torch.ops import real_fused as RF
             oa, ob, layout, rows_out = RF._spec_args(dst, n // 2)
             ok = 0
@@ -314,6 +376,15 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
         t = sp and _T.now()
         tw = C.device_twiddles(p.radix, bool(inverse), bool(exact), dev)
         lo, hi = FS.device_roots(n, bool(inverse), bool(exact), dev)
+        tail = (0, None, None)
+        if p.then:
+            if ik != 0 or exact or (p.radix, last.radix) != (TAIL_RADIX,) * 2:
+                raise ValueError("the fused tail runs radix 128 twice in "
+                                 "place on a complex64 intermediate")
+            words = _tail_words(first, rows * n // p.radix // last.radix)
+            tail = (last.radix, C.device_twiddles(
+                last.radix, bool(inverse), False, dev).data_ptr(),
+                words.data_ptr())
         c = sp and _T.now()
         _cuda.launch(
             _cuda.FOURSTEP_PASS, first.get_device(),
@@ -323,19 +394,63 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
             *rad, rows, n, p.radix, p.tw_s,
             float(scale) if p.scaled else 1.0, tw.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), FS.lo_bits(n), int(inverse), int(exact), layout,
-            rows_out)
-        launch_pass.fused += bool(p.split)
+            rows_out, *tail)
+        launch_pass.fused += bool(last.split)
+        launch_pass.tails += bool(p.then)
     finally:
         if sp:
             variant = (f"radix={p.radix}"
-                       + (f" pass={at[0]}/{at[1]}" if at else "")
-                       + (f" split={p.split}" if p.split else ""))
+                       + (f"+{last.radix}" if p.then else "")
+                       + (f" pass={at[0]}" + (f"-{at[0] + 1}" if p.then
+                                                else "") + f"/{at[1]}"
+                          if at else "")
+                       + (f" split={last.split}" if last.split else "")
+                       + (" tail=l2" if p.then else ""))
             _T.launched(sp, a, t, c, out, "launch:fourstep_pass", variant,
                         exact, rows, n)
     return dst
 
 
 launch_pass.fused = 0
+launch_pass.tails = 0
+
+#: The fused tail's device words by (device, raw stream): the ticket, the
+#: count of split items that found a block not yet written, the epoch of
+#: the last launch, the blocks of a launch that have left, then one
+#: counter a block (Z row, pass-1 digit).  The kernel keeps them: a launch
+#: takes the next epoch, so a counter of an older launch reads as unset,
+#: and its last block sets the ticket back.  A launch needs nothing from
+#: the host, so a CUDA graph replays it, and no launch clears the words.
+_tail_sync: dict = {}
+
+#: Words outgrown by a larger batch, kept because a captured CUDA graph
+#: may still launch on them.
+_tail_retired: list = []
+
+
+def _tail_words(like: torch.Tensor, blocks: int) -> torch.Tensor:
+    """The words for a tail launch over ``blocks`` blocks on ``like``'s
+    device and current stream."""
+    dev = like.get_device()
+    key = (dev, _cuda._raw_stream(dev))
+    words = _tail_sync.get(key)
+    if words is None or words.numel() < 4 + blocks:
+        grown = torch.zeros(4 + blocks, dtype=torch.int64, device=like.device)
+        if words is not None:
+            grown[1] = words[1]
+            _tail_retired.append(words)
+        words = _tail_sync[key] = grown
+    return words
+
+
+def tail_waits() -> int:
+    """The fused tail's split items, over every launch in this process,
+    whose blocks were not all written when the item was handed out (it
+    then waited for them): read after a synchronize."""
+    for words in _tail_sync.values():
+        if words.is_cuda:
+            torch.cuda.synchronize(words.device)
+    return sum(int(words[1]) for words in _tail_sync.values())
 
 
 def _alloc(like: torch.Tensor, rows: int, n: int, planar: bool):
@@ -358,7 +473,8 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
     pass; ``dst`` may be a function that makes it, called by the last
     pass, which makes the new result too (each launch's ``alloc`` span).
     A plan whose last pass splits (:func:`pair_split_plan`) writes its
-    spectra into ``dst`` (:func:`launch_pass`); its plain version is
+    spectra into ``dst`` (:func:`launch_pass`), its last two passes one
+    launch where :func:`tail_plan` fuses them; its plain version is
     ``real_fused.rfft_large_plain``.
     CPU: the plain version at the tier's precision (``c2c.at_tier``)."""
     planar_in = isinstance(src, tuple)
@@ -384,11 +500,13 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
                   dtype=torch.complex128 if exact else torch.complex64)
     # the first pass makes tmp, the middle ones run in place on it, the
     # last writes dst
-    cur, k = src, len(passes)
-    for i, p in enumerate(passes, 1):
-        cur = tmp = launch_pass(cur, dst if i == k else tmp, n, p,
+    cur, k, i = src, len(passes), 1
+    passes = tail_plan(n, passes, exact)
+    for p in passes:
+        cur = tmp = launch_pass(cur, dst if p is passes[-1] else tmp, n, p,
                                 inverse=inverse, scale=scale, exact=exact,
                                 at=(i, k))
+        i += 2 if p.then else 1
     return cur
 
 

@@ -1231,7 +1231,9 @@ def test_fused_split_matches_plain_and_oracle(dev, n, b, layout, exact):
     got, plain, launched = fused_case(x, layout, exact)
     want = torch.fft.rfft(x.double())
     fused = int(FF.default_passes(n)[-1].radix <= FF.SPLIT_MAX_RADIX)
-    assert launched == (len(FF.default_passes(n)), fused, 1 - fused)
+    # the fp32 three-pass plans (2^21 .. 2^24) as pass 1 and the fused tail
+    plan = FF.tail_plan(n, FF.pair_split_plan(n), exact)
+    assert launched == (len(plan), fused, 1 - fused)
     assert max_err(got, plain) < bound(n)
     assert max_err(got, want) < bound(n)
     if exact:
@@ -1265,6 +1267,123 @@ def test_fused_split_tile_edges(dev, n, b, exact):
         assert max_err(got, want) < bound(n)
         if exact:
             assert max_err(got, want) <= 2 * ulp(want.abs().max().item())
+
+
+# the fused tail: 2^21 .. 2^24 (pass 1 of radix 128 .. 1024, then pass 2
+# and the split pass in one launch), three trials (pair mode pads a zero
+# row; the last q row is left out), each spectrum layout
+TAIL_N = [1 << 21, 1 << 22, 1 << 23, 1 << 24]
+
+
+def pair_three_launches(x, layout):
+    """The pair-mode R2C as the three launches of ``pair_split_plan``: the
+    plan the fused tail replaces."""
+    b, n = x.shape
+    b2 = -(-b // 2)
+    if 2 * b2 > b:
+        x = torch.cat([x, torch.zeros_like(x[:1])])
+    plan = FF.pair_split_plan(n)
+    tmp = FF.launch_pass((x[:b2], x[b2:]), lambda: torch.empty(
+        (b2, n), dtype=torch.complex64, device=x.device), n, plan[0])
+    FF.launch_pass(tmp, tmp, n, plan[1])
+    return FF.launch_pass(tmp, RFU._alloc_spec(layout, b, n // 2, x.device),
+                          n, plan[2])
+
+
+def tail_counts():
+    return (_cuda.FOURSTEP_PASS.count, FF.launch_pass.tails,
+            FF.launch_pass.fused, _cuda.REAL_HUGE.count)
+
+
+@pytest.mark.parametrize("n", TAIL_N)
+@pytest.mark.parametrize("layout", ["numpy", "planar", "packed"])
+def test_fused_tail_matches_the_three_launches(dev, n, layout):
+    """The pair-mode R2C makes two launches, the second a fused tail, where
+    ``pair_split_plan`` makes three; its spectra agree with the three
+    launches' to 8 ulp(max|X|) (the plans round differently: pass 1 of
+    another radix from 2^23 on, the tail another kernel below) and with
+    float64 within bound(n); a second call (the next epoch of the tail's
+    device words) and a call on another stream (words of its own) give the
+    same spectra bit for bit."""
+    x = rand_r(3, n, dev, seed=n % 997)
+
+    def nat(t):
+        return R.to_layout(*R.from_layout(
+            *(t if isinstance(t, tuple) else (t, None)), layout, n // 2),
+            "numpy")
+    before = tail_counts()
+    got = nat(RFU.rfft_large_rows(x, layout, mode="pair"))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(tail_counts(), before)) \
+        == (2, 1, 1, 0)
+    again = nat(RFU.rfft_large_rows(x, layout, mode="pair"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = nat(RFU.rfft_large_rows(x, layout, mode="pair"))
+    torch.cuda.current_stream().wait_stream(side)
+    three = nat(pair_three_launches(x, layout))
+    torch.cuda.synchronize()
+    want = torch.fft.rfft(x.double())
+    assert torch.equal(got, again) and torch.equal(got, other)
+    assert max_err(got, three) <= 8 * ulp(want.abs().max().item())
+    assert max_err(got, want) < bound(n)
+    assert FF.tail_waits() >= 0
+
+
+def test_fused_tail_replays_in_a_cuda_graph(dev):
+    """The pair R2C at 2^21, captured in a CUDA graph on a stream, replayed
+    twice on new inputs with an eager call on the same stream (the same
+    device words) between: each replay's spectra equal the eager call's on
+    its input bit for bit, since the kernel keeps its epoch and its ticket
+    on the device."""
+    n = 1 << 21
+    x = rand_r(3, n, dev, seed=21)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        RFU.rfft_large_rows(x, "numpy", mode="pair")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = RFU.rfft_large_rows(x, "numpy", mode="pair")
+    for seed in (22, 23):
+        with torch.cuda.stream(s):
+            x.copy_(rand_r(3, n, dev, seed=seed))
+            graph.replay()
+            got = out.clone()
+            eager = RFU.rfft_large_rows(x, "numpy", mode="pair")
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager)
+        assert max_err(got, torch.fft.rfft(x.double())) < bound(n)
+
+
+def test_main_path_rfft_large_makes_two_launches(dev):
+    """``api.rfft_large`` of the periodicity search's trials (pair mode,
+    numpy layout) at 2^23: pass 1 and the fused tail, two launches of the
+    pass kernel a call."""
+    n = 1 << 23
+    x = rand_r(4, n, dev, seed=23)
+    c0 = DR.counts()
+    y = api.rfft_large(x, precision="highest")
+    torch.cuda.synchronize()
+    done = {k: v - c0[k] for k, v in DR.counts().items() if v != c0[k]}
+    assert done == {"fourstep_pass": 2}
+    assert max_err(y, torch.fft.rfft(x.double())) < bound(n)
+
+
+@pytest.mark.parametrize("n,exact", [(1 << 23, True), (1 << 25, False),
+                                     (1 << 26, False)])
+def test_fused_tail_stays_out_of_its_bounds(dev, n, exact):
+    """The "exact" tier (complex128 intermediates) and sizes whose fused
+    plan would take a pass-1 radix over 1024 (2^25, 2^26) keep the three
+    launches, the last with the split."""
+    x = rand_r(2, n, dev, seed=n % 991)
+    before = tail_counts()
+    got = RFU.rfft_large_rows(x, "numpy", exact, "pair")
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(tail_counts(), before)) \
+        == (3, 0, 1, 0)
+    assert max_err(got, torch.fft.rfft(x.double())) < bound(n)
 
 
 # ptxas's report of every plain pass instantiation (CUDA 12.8, sm_90a):

@@ -436,7 +436,9 @@ def _fake_launch_pass(src, dst, n, p, *, inverse=False, scale=1.0,
     x = torch.complex(*src) if isinstance(src, tuple) else src
     y = FF.pass_plain(x.to(torch.complex128 if exact else torch.complex64),
                       n, p, inverse, scale)
-    if p.split:
+    if p.then:
+        FF.launch_pass.tails += 1
+    if (p.then or p).split:
         _store_spec(dst, *y, n)
         FF.launch_pass.fused += 1
     elif isinstance(dst, tuple):
@@ -518,7 +520,7 @@ def test_split_pass_is_the_pair_split_of_the_last_pass(monkeypatch, n, b,
     leaves the split a launch of its own above (512 at 2^18, 1024 at
     2^20), and the card path with stand-in launchers gives the CPU path's
     spectra bit for bit, in each layout and tier, with the plan's
-    launches."""
+    launches (at 2^21 in fp32 its last two in one, the fused tail)."""
     import dataclasses
     plan = FF.default_passes(n)
     last = dataclasses.replace(plan[-1], split="pair")
@@ -538,11 +540,14 @@ def test_split_pass_is_the_pair_split_of_the_last_pass(monkeypatch, n, b,
     monkeypatch.setattr(RF, "launch_real_huge", _fake_launch_real_huge)
     monkeypatch.setattr(_cuda.FOURSTEP_PASS, "count", 0)
     monkeypatch.setattr(_cuda.REAL_HUGE, "count", 0)
-    FF.launch_pass.fused = 0
+    FF.launch_pass.fused = FF.launch_pass.tails = 0
     card = RF.rfft_large_rows(x, layout, exact)
+    tail = int(any(p.then for p in FF.tail_plan(
+        n, FF.pair_split_plan(n), exact)))
+    assert tail == (n == 1 << 21 and not exact)
     assert (_cuda.FOURSTEP_PASS.count, FF.launch_pass.fused,
-            _cuda.REAL_HUGE.count) == (len(plan), int(fused),
-                                       int(not fused))
+            FF.launch_pass.tails, _cuda.REAL_HUGE.count) == (
+        len(plan) - tail, int(fused), tail, int(not fused))
     for c, k in zip(*(t if isinstance(t, tuple) else (t,)
                       for t in (cpu, card))):
         assert torch.equal(c, k)
@@ -552,14 +557,44 @@ def test_split_pass_is_the_pair_split_of_the_last_pass(monkeypatch, n, b,
     assert rel(nat.numpy(), np.fft.rfft(x.double().numpy())) < 2e-6
 
 
+@pytest.mark.parametrize("n", [1 << 12, 1 << 21])
+@pytest.mark.parametrize("layout", RF.SPEC_LAYOUTS)
+def test_fused_tail_plain_equals_the_three_pass_plan(n, layout):
+    """The fused tail's plan (pass 2 carrying the split pass, one launch)
+    has the plain version of the three-pass plan, bit for bit: at a small
+    N, whose three-pass plan the tail never takes on the card, and at
+    2^21, where it does; an odd batch (its last q row left out), in each
+    spectrum layout."""
+    import dataclasses
+    plan = FF.plan(FF.radices(n, 3))
+    plan = plan[:-1] + (dataclasses.replace(plan[-1], split="pair"),)
+    fused = plan[:1] + (dataclasses.replace(plan[1], then=plan[2]),)
+    if n == 1 << 21:
+        assert FF.tail_plan(n, plan) == fused
+    b = 3
+    xr, xi = planes(2, n, n % 991)
+    z = torch.from_numpy(xr + 1j * xi).to(torch.complex64)
+    want = FF.passes_plain(z, n, plan)
+    got = FF.passes_plain(z, n, fused)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(
+        R.to_layout(got[0][:b], got[1][:b], layout),
+        R.to_layout(want[0][:b], want[1][:b], layout)))
+    with pytest.raises(ValueError, match="fused tail"):
+        FF.pass_plain(z, n, dataclasses.replace(fused[1], tw_s=0))
+
+
 def test_register_report_labels_the_split_pass():
-    """ptxas's report names the pass kernel's split instantiations apart
-    from the plain ones, whose labels stay as they were, and the
-    convolutions' bank form as before."""
+    """ptxas's report names the pass kernel's split instantiations and its
+    fused tails apart from the plain ones, whose labels stay as they were,
+    and the convolutions' bank form as before."""
     entries = [("_ZN12_GLOBAL__N_120fourstep_pass_kernelILi128ELb0ELb0EEEvNS_"
                 "8PassArgsEdPKN8PassTileIXT_EXT0_EE1CES6_S6_i", 40, 0),
                ("_ZN12_GLOBAL__N_120fourstep_pass_kernelILi128ELb1ELb1EEEvNS_"
                 "8PassArgsEdPKN8PassTileIXT_EXT0_EE1CES6_S6_i", 90, 8),
+               ("_ZN12_GLOBAL__N_120fourstep_pass_kernelILi256ELi128ELb0ELb1E"
+                "Lb1EEEvNS_8PassArgsES1_NS_8SplitOutENS_8TailSyncEPK6float2S6_"
+                "S6_S6_", 120, 0),
                ("_ZN12_GLOBAL__N_111conv_kernelILi1024ELb0ELb1EEEvPK6float2",
                 64, 0)]
     log = "".join(
@@ -574,6 +609,8 @@ def test_register_report_labels_the_split_pass():
         "stores",
         "fourstep_pass_kernel<128,split> fp64: 90 registers, 8 bytes of "
         "spill stores",
+        "fourstep_pass_kernel<256,128,split,tail> fp32: 120 registers, 0 "
+        "bytes of spill stores",
         "conv_kernel<1024,bank> fp32: 64 registers, 0 bytes of spill stores"]
 
 

@@ -243,6 +243,116 @@ def test_split_tile_layout(r, exact):
         assert g["T"] // 2 * 8 >= (256 if r <= 128 else 128)
 
 
+# the fused tail's plans: N and its radices (R1, R2, R3); rows of Z
+TAIL_PLANS = [(1 << 21, (128, 128, 128)), (1 << 22, (256, 128, 128)),
+              (1 << 23, (512, 128, 128)), (1 << 24, (1024, 128, 128))]
+
+
+def _slot_blocks(tile, rs, rows):
+    """The blocks (row * R1 + d1) of the transforms a split tile's slots
+    hold (:func:`pass_split_slot`)."""
+    r1, r2, r3 = rs
+    g, s = H.split_geometry(r3, False), r1 * r2
+    slots = (H.pass_split_slot(g, tile, f, s, rows * s)
+             for f in range(g["T"]))
+    return {c // s * r1 + c % s % r1 for c in slots}
+
+
+@pytest.mark.parametrize("n,rs", TAIL_PLANS)
+def test_tail_items_share_threads_and_a_buffer(n, rs):
+    """The fused plan at N is (N / 2^14, 128, 128); its pass-2 item and
+    split item run on the same 512 threads with E = 16 points each; a
+    block's transforms are whole pass-2 items; a split item is the split
+    pass's tile (runs of 256 bytes of bins); two tile buffers, each holding
+    either item unpadded, and two twiddle tables fit an SM."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    r1, r2, r3 = rs
+    fused = FF.tail_plan(n, FF.pair_split_plan(n))
+    assert [p.radix for p in fused] == [r1, r2] and fused[1].then.radix == r3
+    g, s = H.tail_geometry(r2, r3), H.split_geometry(r3, False)
+    assert g["threads"] == s["threads"] == g["T2"] * g["TPF2"] == 512
+    assert g["E"] == s["E"] == 16 and g["T2"] % 32 == 0
+    assert g["T2"] * g["per_block"] == r3 and r1 % (2 * g["H"]) == 0
+    assert g["H"] * 8 == 256 and g["NP"] == g["NC"]
+    slots = max(g["T2"] * (r2 + 1), s["T"] * s["LD"])
+    assert (2 * slots + 2 * g["T2"] * g["E"] + 32) * 8 + 1024 <= 227 * 1024
+
+
+@pytest.mark.parametrize("n,rs", TAIL_PLANS)
+@pytest.mark.parametrize("rows", [1, 3])
+def test_tail_items_hold_every_pass_tile_and_split_pair_once(n, rs, rows):
+    """The tickets of a tail launch hand out every pass-2 item of every
+    block once and every split tile once, and those tiles' slots hold
+    every transform of the split pass once: every pair once."""
+    r1, r2, r3 = rs
+    g = H.tail_geometry(r2, r3)
+    items = H.tail_items(rows, rs)
+    assert sorted(it[1:] for it in items if it[0] == "pass") == [
+        (b, sub) for b in range(rows * r1) for sub in range(g["per_block"])]
+    tiles = sorted(it[1] for it in items if it[0] == "split")
+    assert tiles == list(range(rows * r1 * r2 // (2 * g["H"])))
+    sg, s = H.split_geometry(r3, False), r1 * r2
+    held = sorted(H.pass_split_slot(sg, t, f, s, rows * s)
+                  for t in tiles for f in range(sg["T"]))
+    assert held == list(range(rows * s))
+
+
+@pytest.mark.parametrize("n,rs", TAIL_PLANS)
+@pytest.mark.parametrize("rows", [1, 3])
+def test_tail_split_items_wait_only_on_earlier_pass_items(n, rs, rows):
+    """Each split item waits for the blocks its slots read, and every
+    pass-2 item of those blocks has a lower ticket (so a waiting item
+    waits only on items that running blocks hold: no deadlock), handed out
+    at least half a group pair's pass-2 items before it (so it rarely
+    waits)."""
+    r1, r2, r3 = rs
+    g = H.tail_geometry(r2, r3)
+    last = {}
+    for i, it in enumerate(H.tail_items(rows, rs)):
+        if it[0] == "pass":
+            last[it[1]] = i
+            continue
+        reads = H.tail_reads(it[1], rs)
+        assert set(reads) == _slot_blocks(it[1], rs, rows)
+        assert all(b in last for b in reads)
+        assert i - max(last[b] for b in reads) > g["NP"] // 2
+
+
+@pytest.mark.parametrize("n,rs", TAIL_PLANS)
+def test_tail_slot_rows_are_the_row_maps_of_the_split_slots(n, rs):
+    """The rows a split item loads and discards, from its digits, are the
+    digit-reversed rows (R1, R2) of the transforms ``pass_split_slot``
+    puts in its slots, over every tile of three Z rows."""
+    r1, r2, r3 = rs
+    sg, s, rows = H.split_geometry(r3, False), r1 * r2, 3
+    for tile in range(rows * s // sg["T"]):
+        for f in range(sg["T"]):
+            g = H.pass_split_slot(sg, tile, f, s, rows * s)
+            d1, d2 = g % s % r1, g % s // r1
+            assert H.tail_slot_row(tile, f, rs) == (
+                g // s * n + (d1 * r2 + d2) * r3)
+
+
+@pytest.mark.parametrize("k", range(21, 27))
+def test_tail_engages_at_2e21_to_2e24_with_8_mib_group_pairs(k):
+    """The fused tail engages at 2^21 .. 2^24, whose plan (N / 2^14, 128,
+    128) has a group pair of 8 MiB (the model's count of its pass-2 items'
+    blocks) at every N.  2^25 (pass 1 of radix 2048) and 2^26 keep the
+    three launches, and so do "exact" and plans without the split."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    n = 1 << k
+    plan = FF.pair_split_plan(n)
+    fused = FF.tail_plan(n, plan)
+    assert (len(fused) == 2) == (k <= 24)
+    if k <= 24:
+        rs = (fused[0].radix, fused[1].radix, fused[1].then.radix)
+        assert rs == (n >> 14, 128, 128)
+        assert H.tail_group_bytes(rs) == 8 << 20
+        assert fused[1].then.split == "pair"
+    assert FF.tail_plan(n, plan, exact=True) == plan
+    assert FF.tail_plan(n, FF.default_passes(n)) == FF.default_passes(n)
+
+
 # ---------------------------------------------------------------------------
 # The row kernels on the core: c2c_kernel and the R2C kernel.
 # ---------------------------------------------------------------------------

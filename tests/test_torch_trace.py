@@ -364,20 +364,21 @@ def test_a_planar_pair_at_an_odd_float_offset_is_launched(card_path, kernel):
 def test_rfft_large_records_its_passes_its_split_and_their_buffers(
         card_path, monkeypatch):
     """A traced (2, 2^21) ``rfft_large`` on the card path (pair mode, the
-    "three" plan): the call, its op, three pass launches named by their
-    place in the plan, the last naming the pair split it does.  The
+    "three" plan): the call, its op, and its launches named by their place
+    in the plan: pass 1, then the fused tail (passes 2 and 3 in one
+    launch), naming the pair split it does and the L2 hand-off.  The
     intermediate and the spectrum are each the ``alloc`` of the launch
-    that first writes it, with its bytes; the middle pass, in place,
-    allocates nothing, and no ``z`` is made."""
+    that first writes it, with its bytes, and no ``z`` is made."""
     from smfft_tpu_torch.ops import fourstep_fused as FF
     monkeypatch.setattr(C, "is_cpu", lambda t: False)
     monkeypatch.setattr(FF, "_operand", lambda t, n, name: (0, None, 0))
     n = 1 << 21
-    fused = FF.launch_pass.fused
+    fused, tails = FF.launch_pass.fused, FF.launch_pass.tails
     trace.start()
     out = api.rfft_large(_r(2, n), precision="highest")
     spans = _spans(trace.stop())
     assert FF.launch_pass.fused == fused + 1
+    assert FF.launch_pass.tails == tails + 1
     assert out.shape == (2, n // 2 + 1)
     assert [s["name"] for s in spans if s["parent"] == -1] == [
         "call:rfft_large"]
@@ -388,12 +389,12 @@ def test_rfft_large_records_its_passes_its_split_and_their_buffers(
     assert [(spans[i]["name"], spans[i]["attrs"]["variant"],
              spans[i]["parent"]) for i in launches] == [
         ("launch:fourstep_pass", "radix=128 pass=1/3", 1),
-        ("launch:fourstep_pass", "radix=128 pass=2/3", 1),
-        ("launch:fourstep_pass", "radix=128 pass=3/3 split=pair", 1)]
+        ("launch:fourstep_pass",
+         "radix=128+128 pass=2-3/3 split=pair tail=l2", 1)]
     assert spans[launches[0]]["attrs"]["rows"] == 1   # one pair of trials
     allocs = [[k["attrs"]["bytes"] for k in _children(spans, i)
                if k["name"] == "alloc"] for i in launches]
-    assert allocs == [[n * 8], [], [2 * (n // 2 + 1) * 8]]
+    assert allocs == [[n * 8], [2 * (n // 2 + 1) * 8]]
     assert all([k["name"] for k in _children(spans, i)][-2:]
                == ["tables", "call"] for i in launches)
 
