@@ -131,8 +131,9 @@ Phases (each failure exits non-zero at once):
      kernel length); ``fft2(precision="exact")`` within 2 ulp(max|X|) an
      axis.
  18. The N-D / DCT main path at 2^27 points or samples a call: ``fft2`` /
-     ``ifft2`` of (128, 1024, 1024) complex64 (2 c2c launches each),
-     ``fftn`` of one (8192, 16384) image (2 c2c), ``rfft2`` / ``irfft2``
+     ``ifft2`` of (128, 1024, 1024) complex64 (a c2c launch and the column
+     route's one pass each), ``fftn`` of one (8192, 16384) image (a c2c
+     and two column passes), ``rfft2`` / ``irfft2``
      of (128, 1024, 1024) (r2c + c2c; c2c + c2r), ``dctn`` over the last
      two axes of it (2 r2c), ``rfftn`` of (512, 512, 512) (r2c + 2 c2c),
      ``hfft`` / ``ihfft`` at n = 1024, 131072 rows (1 c2r / 1 r2c),
@@ -143,7 +144,10 @@ Phases (each failure exits non-zero at once):
      time beside a same-run ``copy_`` of the input, the bound (bytes in +
      out over the memory rate), ``torch.fft``'s one call where there is one
      (else the same recipe over ``torch.fft``), and, after the counters are
-     read, the sum of the path's kernels timed alone on its shapes.
+     read, the sum of the path's kernels timed alone on its shapes.  Then
+     the column route at the imaging cell's 16384^2 grid
+     (``phase_column_route``): each column pass and the row kernel alone
+     beside one sweep's floor, ``fft2`` beside ``torch.fft.fft2``.
  19. Parallel sweep (``smfft_tpu_torch.parallel``), (a) in a world of one
      rank under NCCL in this process: ``sharded_fft`` forward and inverse,
      ``sharded_rfft`` / ``sharded_irfft``, ``sharded_convolve`` with an
@@ -2385,7 +2389,7 @@ def phase_main_ndim(card: str):
     import scipy.fft
     import smfft_tpu_torch as T
     gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
-    expected = {"c2c": 0, "r2c": 0, "c2r": 0}
+    expected = {"c2c": 0, "r2c": 0, "c2r": 0, "fourstep_pass": 0}
     rows, worst = [], 0.0
     TD = importlib.import_module("smfft_tpu_torch.dct")
 
@@ -2458,17 +2462,19 @@ def phase_main_ndim(card: str):
     x = rand_complex(b3 * n2, n2, gen).reshape(b3, n2, n2)
     for name, inverse in (("fft2", False), ("ifft2", True)):
         path(f"{name} {tuple(x.shape)} complex64",
-             lambda: getattr(T, name)(x), {"c2c": 2}, x, 16.0 * pts,
-             [("c2c", b3 * n2, n2, inverse)] * 2,
+             lambda: getattr(T, name)(x), {"c2c": 1, "fourstep_pass": 1}, x,
+             16.0 * pts,
+             [("c2c", b3 * n2, n2, inverse),
+              ("fourstep_pass", b3, (n2, n2), inverse)],
              lambda a: getattr(torch.fft, name)(c64(a)), first, lim,
              lambda: getattr(torch.fft, name)(x), f"torch.fft.{name}")
     del x
     torch.cuda.empty_cache()
     x = rand_complex(*ND_WIDE, gen)
     path(f"fftn {ND_WIDE} complex64, one image", lambda: T.fftn(x),
-         {"c2c": 2}, x, 16.0 * x.numel(),
+         {"c2c": 1, "fourstep_pass": 2}, x, 16.0 * x.numel(),
          [("c2c", ND_WIDE[0], ND_WIDE[1], False),
-          ("c2c", ND_WIDE[1], ND_WIDE[0], False)],
+          ("fourstep_pass", 1, ND_WIDE, False)],
          lambda a: torch.fft.fftn(c64(a)), lambda a: a,
          bound(ND_WIDE[0]) + bound(ND_WIDE[1]), lambda: torch.fft.fftn(x),
          "torch.fft.fftn")
@@ -2563,6 +2569,7 @@ def kernels_alone(rows: list) -> None:
     (transposes, flips, twiddle products) cost.  Runs after the path's
     counters are read."""
     from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import fourstep_fused as FF
     from smfft_tpu_torch.ops import real as R
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     alone = {}
@@ -2571,7 +2578,14 @@ def kernels_alone(rows: list) -> None:
         for kernel, b, n, inverse in row["kernels"]:
             key = (kernel, b, n, inverse)
             if key not in alone:
-                if kernel == "c2c":
+                if kernel == "fourstep_pass":
+                    # the column route over an axis (m, k): its passes
+                    m, k = n
+                    z = rand_complex(b, m * k, gen)
+                    alone[key] = cuda_ms(lambda: FF.run_columns(
+                        z, m, k, inverse=inverse, scale=1.0 / m if inverse
+                        else 1.0), reps=REPS_CONV)
+                elif kernel == "c2c":
                     z = rand_complex(b, n, gen)
                     alone[key] = cuda_ms(lambda: C.launch(
                         z, inverse=inverse, scale=1.0 / n if inverse
@@ -2593,6 +2607,71 @@ def kernels_alone(rows: list) -> None:
         print(f"  {row['what']}: kernels alone {total:.4f} ms of "
               f"{row['ms']:.4f}; the torch copies around them "
               f"{row['ms'] - total:.4f} ms")
+
+
+def phase_column_route(card: str) -> dict:
+    """The 2-D path's column route at the imaging cell's size: a 16384^2
+    complex64 grid (2^28 points), each of its two column passes (radix
+    128: pass A in place over columns of stride 2^21 with the twiddle,
+    pass B from stride 2^14 to 2^21) and the row kernel timed alone
+    (median of REPS_CONV CUDA-event runs) beside one sweep's floor (the
+    grid read and written once over the card's memory rate, 1.282 ms at
+    3.35 TB/s); the whole ``fft2`` beside ``torch.fft.fft2`` (the
+    yardstick; the port never calls it) and against it in float64 on the
+    whole grid.  Alone:
+        python3 -c "import chip_smoke as c; n, card = c.phase_card();
+                    c.phase_column_route(card)"
+    """
+    import smfft_tpu_torch as T
+    from smfft_tpu_torch.ops import c2c as C
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    from smfft_tpu_torch.parallel import dryrun
+    m = 16384
+    n = m * m
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    x = rand_complex(m, m, gen)
+    floor_ms = least_ms(16.0 * n, 0.0)[0]
+    pa, pb = FF.column_plan(m, m)
+    buf = x.reshape(1, n).clone()
+    out = torch.empty_like(buf)
+    ms_a = cuda_ms(lambda: FF.launch_pass(buf, buf, n, pa, at=(1, 2, "col")),
+                   reps=REPS_CONV)
+    ms_b = cuda_ms(lambda: FF.launch_pass(buf, out, n, pb, at=(2, 2, "col")),
+                   reps=REPS_CONV)
+    ms_row = cuda_ms(lambda: C.launch(x), reps=REPS_CONV)
+    del buf, out
+    torch.cuda.empty_cache()
+    c0, b0 = counts(), dryrun.copied_bytes()
+    y = T.fft2(x)
+    torch.cuda.synchronize()
+    launched = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+    copied = dryrun.copied_bytes() - b0
+    want = torch.fft.fft2(x.to(torch.complex128))
+    err = max_err(y, want) / want.abs().max().item()
+    del y, want
+    torch.cuda.empty_cache()
+    ms_fft2 = cuda_ms(lambda: T.fft2(x), reps=REPS_CONV)
+    ms_lib = cuda_ms(lambda: torch.fft.fft2(x), reps=REPS_CONV)
+    row = {"card": card, "grid": [m, m], "floor_ms": floor_ms,
+           "pass_a_ms": ms_a, "pass_b_ms": ms_b, "c2c_ms": ms_row,
+           "fft2_ms": ms_fft2, "torch_fft2_ms": ms_lib,
+           "launches": launched, "copied_bytes": copied, "rel_err": err}
+    print(f"column route {m}^2 ({card}): pass A (radix {pa.radix}, stride "
+          f"2^{(m // pa.radix * m).bit_length() - 1}, twiddle, in place) "
+          f"{ms_a:.4f} ms, pass B (radix {pb.radix}) {ms_b:.4f} ms, one "
+          f"sweep's floor {floor_ms:.4f} ms (at {floor_ms / ms_a:.3f} / "
+          f"{floor_ms / ms_b:.3f}); c2c_kernel<{m}> alone {ms_row:.4f} ms; "
+          f"fft2 {ms_fft2:.4f} ms ({launched}, {copied} bytes copied), "
+          f"torch.fft.fft2 {ms_lib:.4f} ms; relative error {err:.3e}")
+    print("column route row: " + json.dumps(row))
+    if launched != {"c2c": 1, "fourstep_pass": 2} or copied:
+        fail("fft2 of the grid did not run one row launch and two column "
+             "passes without a copy")
+    if not err <= 2 * bound(m):
+        fail(f"fft2 of the grid: error {err:.3e} over the bound")
+    del x
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3194,6 +3273,7 @@ def main() -> int:
     kernels_alone(nd_rows)
     print(f"ndim / DCT: worst relative error against the plain versions "
           f"{max(worst_nd, worst_nd_main):.3e}")
+    phase_column_route(card)
     with nccl_world():
         worst_par = phase_parallel_sweep()
         reset_counts()

@@ -22,8 +22,12 @@
 //   * column (stride S): c = o*S + s, the R points at o*R*S + s + j*S;
 //   * digit-reversed row: c = d1 + R1*(d2 + R2*(...)) over the radices
 //     R1..Rq, the R contiguous points of row ((d1*R2 + d2)*R3 + ...) * R;
-// and the twiddle W_L^(s*k), s = c mod tw_s, L = R * tw_s, is omitted when
-// tw_s = 0.  The default plan is p - 1 in-place column passes, pass i with
+// and the twiddle W_L^(s*k), s = c mod tw_s with its low log2 tw_lo bits
+// cleared, L = R * tw_s, is omitted when tw_s = 0.  tw_lo = K > 1 serves
+// an axis of M = R * R2 points at stride K (ops/fourstep_fused.py
+// column_plan): its first pass reads columns of stride R2 * K, and
+// transform s = b * K + col takes W_M^(b * k) = W_(R R2 K)^(b K k) whatever
+// its column.  The default plan is p - 1 in-place column passes, pass i with
 // S = R_{i+1}...R_p and tw_s = S (DIF), and a last pass that reads
 // digit-reversed rows and writes columns of stride N/R_p, which lands the
 // output in natural order X[k1 + R1*k2 + R1*R2*k3 + ...].  The JAX
@@ -131,7 +135,7 @@ struct PassArgs {
     int lr[4];
     int log_n, log_pr;   // log2 N, log2 (N / R)
     int64_t total;       // transforms: batch * N / R
-    int64_t tw_mask;     // tw_s - 1, or -1 without the twiddle
+    int64_t tw_mask;     // (tw_s - 1) & ~(tw_lo - 1), or -1 without it
     int log_tw_step;     // log2 (N / (R tw_s))
     int lo_bits;
 };
@@ -1167,7 +1171,8 @@ extern "C" {
 // out_map: 0 column of stride in_s / out_s, 1 digit-reversed row over the
 // nr radices r0..r3.  n, the radix, the strides, tw_s and the row map's
 // radices are powers of two; the radix divides n; tw_s = 0 omits the
-// twiddle.  tw: W_radix^m, m < radix; lo, hi: W_n^j, j < 2^lo_bits, and
+// twiddle; tw_lo, a power of two to tw_s (1 but in a column route's first
+// pass), clears the low bits of the twiddle's column.  tw: W_radix^m, m < radix; lo, hi: W_n^j, j < 2^lo_bits, and
 // W_n^(i * 2^lo_bits); all three (re, im) float32 pairs, or float64 when
 // exact != 0.  spec_layout >= 0: the pass is a plan's last (row map in,
 // columns of stride n / radix out, no twiddle, radix <= 256) and writes
@@ -1189,13 +1194,16 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                         int64_t in_s, void* out_a, void* out_b, int out_kind,
                         int out_map, int64_t out_s, int nr, int64_t r0,
                         int64_t r1, int64_t r2, int64_t r3, int64_t batch,
-                        int64_t n, int64_t radix, int64_t tw_s, double scale,
+                        int64_t n, int64_t radix, int64_t tw_s,
+                        int64_t tw_lo, double scale,
                         const void* tw, const void* lo, const void* hi,
                         int lo_bits, int inverse, int exact, int spec_layout,
                         int64_t spec_rows, int64_t tail_radix,
                         const void* tw_tail, void* sync, void* stream) {
     if (batch <= 0) return (int)cudaSuccess;
-    if (nr < 0 || nr > 4 || n % radix) return (int)cudaErrorInvalidValue;
+    if (nr < 0 || nr > 4 || n % radix || tw_lo < 1 || (tw_lo & (tw_lo - 1)) ||
+        (tw_lo > 1 && (tw_lo > tw_s || spec_layout >= 0)))
+        return (int)cudaErrorInvalidValue;
     const bool split = spec_layout >= 0;
     const bool tail = tail_radix > 0;
     if (tail && (!split || exact || inverse || in_kind != 0 ||
@@ -1232,7 +1240,7 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
     args.log_n = ilog2_64(n);
     args.log_pr = ilog2_64(n / radix);
     args.total = batch * (n / radix);
-    args.tw_mask = tw_s ? tw_s - 1 : -1;
+    args.tw_mask = tw_s ? (tw_s - 1) & ~(tw_lo - 1) : -1;
     args.log_tw_step = tw_s ? ilog2_64(n / (radix * tw_s)) : 0;
     args.lo_bits = lo_bits;
     const SplitOut out{Spectrum{static_cast<float*>(out_a),

@@ -1,19 +1,33 @@
 """N-dimensional transforms and numpy-compatible spectral helpers.
 
 The counterpart of ``smfft_tpu/ndim.py``, with the same names, signatures
-and errors.  An N-D transform is a sequence of batched 1-D passes over the
-last axis: each pass is one launch of a row kernel (``csrc/c2c.cu`` for
-the C2C axes, ``csrc/real.cu`` / ``csrc/c2r.cu`` for the real axis), and a
-pass over any other axis first moves that axis last with
-``torch.transpose``.  The row kernels take contiguous rows, so the op
-layer copies the transposed view once before the launch (``ops/c2c.py``
-``fft_complex``, ``ops/real.py`` ``rows_of``): a 2-D C2C FFT costs two
-kernel passes and two copies, the transposed view before the first pass
-and the transposed-back result before the second.
+and errors.  An N-D transform is a sequence of batched 1-D transforms, one
+an axis.  The last axis is one launch of a row kernel (``csrc/c2c.cu`` for
+C2C, ``csrc/real.cu`` / ``csrc/c2r.cu`` for the real axis).
+
+A C2C over another axis takes the column route where it can
+(:func:`_columns_fit`: ``fft2``, ``ifft2``, ``fftn``, ``ifftn`` in natural
+order, complex64 on the card, every leading axis at a power-of-two stride
+K, the product of the axes after it): :class:`_ColumnC2C` runs one or two
+launches of ``csrc/fourstep.cu``'s pass kernel that read and write the
+axis at its stride (``ops/fourstep_fused.run_columns``), the last axis
+first, so the leading axes' first passes run in place on the row kernel's
+result.  A 2-D C2C FFT of a 16384^2 grid is then one row launch and two
+column passes: three sweeps of the grid, no copy.
+
+Elsewhere (``ordered=False``, a stride that is not a power of two, the
+C2C axes of ``rfft2`` / ``irfft2`` / ``rfftn`` / ``irfftn``, whose
+half-spectrum stride is n/2 + 1, and ``dct.py``) a pass over a leading
+axis first moves that axis last with ``torch.transpose``, and the op layer
+copies the transposed view before the launch (``ops/_cuda.contiguous``,
+counted in ``copied_bytes``): a 2-D C2C FFT there costs two row launches
+and two copies.
 
 Each N-D transform records a root span ``call:<name>`` (``trace.py``) that
 holds the row calls of its passes (``call:fft``, ``call:ifft``,
-``call:rfft``, ``call:irfft``), so the time between them is the N-D glue.
+``call:rfft``, ``call:irfft``; a column route's is ``call:fft`` /
+``call:ifft`` with ``n`` the axis's length, around its ``op:column_c2c``),
+so the time between them is the N-D glue.
 
 Every axis length must be a supported 1-D size (the same "Error wrong FFT
 length!" contract as the 1-D API).  Layouts and normalization follow
@@ -29,6 +43,7 @@ are computed in float64 on the host and returned as float32 CPU tensors.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -36,6 +51,10 @@ import torch.nn.functional as F
 
 from smfft_tpu_torch import api
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
+from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import fourstep_fused as FF
+from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
 
 
 def _call(name: str, real_out: bool = False):
@@ -80,22 +99,108 @@ def _apply_last(x: torch.Tensor, ax: int, fn) -> torch.Tensor:
     return torch.transpose(fn(torch.transpose(x, ax, -1)), ax, -1)
 
 
+class _ColumnC2C(torch.autograd.Function):
+    """Ordered C2C over the leading axis ``ax`` of a complex tensor by the
+    column passes (``ops/fourstep_fused.run_columns``); the output is
+    contiguous.  As for ``api._OrderedC2C``, the backward of a transform
+    of scale s is the raw transform of the opposite direction at the same
+    scale.  ``own``: nothing else holds ``x`` and no gradient flows to it,
+    so the first pass may overwrite it."""
+
+    @staticmethod
+    def forward(ctx, x, ax: int, inverse: bool, scale, exact: bool,
+                own: bool):
+        ctx.args = (ax, inverse, scale, exact)
+        t = _T.on and _T.now()
+        try:
+            m = x.shape[ax]
+            k = math.prod(x.shape[ax + 1:])
+            x = _cuda.contiguous(x)
+            y = FF.run_columns(x.view(-1, m * k), m, k, inverse=inverse,
+                               scale=1.0 if scale is None else scale,
+                               exact=exact, own=own)
+            return y.view(x.shape)
+        finally:
+            if t:
+                _T.record(t, "op:column_c2c")
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, inverse, scale, exact = ctx.args
+        return (_ColumnC2C.apply(g, ax, not inverse, scale, exact, False),
+                None, None, None, None, None)
+
+
+def _columns_fit(x: torch.Tensor, lead, ordered: bool, backend) -> bool:
+    """Whether the column route takes the leading axes ``lead`` of ``x``:
+    the "auto" backend in natural order, an input that is complex64 once
+    promoted (complex128 too on the CPU) and not empty, and at every
+    leading axis a supported C2C length m whose packing rule holds
+    (``c2c.check_pack``) and a power-of-two stride.  Else the row calls
+    over transposed views, which raise what they raise."""
+    if not (lead and ordered and backend == "auto" and x.numel()):
+        return False
+    if (x.is_complex() and x.device.type != "cpu"
+            and x.dtype != torch.complex64):
+        return False
+    for ax in lead:
+        m, k = x.shape[ax], math.prod(x.shape[ax + 1:])
+        if (m not in SUPPORTED_C2C_SIZES or k & (k - 1)
+                or x.numel() // m % max(1, C.LANES // m)):
+            return False
+    return True
+
+
+def _columns(x, ax, inverse, scale, exact, own):
+    """The column route over axis ``ax``, recorded as the row call
+    ``call:fft`` / ``call:ifft`` of that axis (``n`` its length)."""
+    t = _T.on and _T.now()
+    try:
+        own = own and not (torch.is_grad_enabled() and x.requires_grad)
+        return _ColumnC2C.apply(x, ax, inverse, scale, exact, own)
+    finally:
+        if t:
+            _T.record(t, "call:ifft" if inverse else "call:fft",
+                      x.movedim(ax, -1))
+
+
+def _c2c_axes(x, axes, inverse, ordered, backend, precision, norm):
+    """The C2C transform of ``x`` over ``axes``: by the column route
+    where :func:`_columns_fit`, the last axis first by its row call, else
+    one row call over each axis in turn, moved last."""
+    if inverse:
+        row = functools.partial(api.ifft, backend=backend,
+                                precision=precision, norm=norm)
+    else:
+        row = functools.partial(api.fft, ordered=ordered, backend=backend,
+                                precision=precision)
+    last = x.dim() - 1
+    lead = [ax for ax in axes if ax != last]
+    if not _columns_fit(x, lead, ordered, backend):
+        for ax in axes:
+            x = _apply_last(x, ax, row)
+        return x
+    y = api._as_complex(x)
+    own = y is not x
+    if last in axes:
+        y, own = row(y), True
+    for ax in lead:
+        scale = api._norm_scale(norm, x.shape[ax]) if inverse else None
+        y = _columns(y, ax, inverse, scale, api._exact(precision), own)
+        own = True
+    return y
+
+
 def _fftn(x, axes, ordered, backend, precision):
     axes = _norm_axes(x.dim(), axes)
     if not ordered and len(axes) > 1:
         raise ValueError("ordered=False requires a single transform axis")
-    for ax in axes:
-        x = _apply_last(x, ax, lambda v: api.fft(
-            v, ordered=ordered, backend=backend, precision=precision))
-    return x
+    return _c2c_axes(x, axes, False, ordered, backend, precision, None)
 
 
 def _ifftn(x, axes, backend, precision, norm):
     axes = _norm_axes(x.dim(), axes)
-    for ax in axes:
-        x = _apply_last(x, ax, lambda v: api.ifft(
-            v, backend=backend, precision=precision, norm=norm))
-    return x
+    return _c2c_axes(x, axes, True, True, backend, precision, norm)
 
 
 @_call("fftn")

@@ -236,7 +236,8 @@ BLUESTEIN = Entry("bluestein", "smfft_bluestein", _P, _P, _P, _P, _C, _I, _I,
                   _I, _I, _P, _P, _D, _P, _C, _P)
 FOURSTEP_PASS = Entry("fourstep_pass", "smfft_fourstep_pass", _P, _P, _C, _C,
                       _I, _P, _P, _C, _C, _I, _C, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _D, _P, _P, _P, _C, _C, _C, _C, _I, _I, _P, _P, _P)
+                      _I, _I, _D, _P, _P, _P, _C, _C, _C, _C, _I, _I, _P, _P,
+                      _P)
 REAL_HUGE = Entry("real_huge", "smfft_real_huge", _C, _P, _C, _P, _P, _C, _I,
                   _I, _I, _I, _D, _P, _P, _C, _C, _P)
 #: the kernels' entry points by name

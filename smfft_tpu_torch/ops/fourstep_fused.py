@@ -15,7 +15,11 @@ for every row:
     columns of stride N / R_p: natural-order output;
   * the JAX package's strided two-pass (:func:`factors_plan`, B22/B23):
     pass 1 reads columns of stride n2, twiddles by W_N^(t2 k1) and writes
-    the rows of Bmat (n2, n1); pass 2 reads and writes columns of stride n1.
+    the rows of Bmat (n2, n1); pass 2 reads and writes columns of stride n1;
+  * the column route (:func:`column_plan`, :func:`run_columns`): a C2C over
+    an axis of M <= 16384 points at a power-of-two stride K of a contiguous
+    tensor, viewed (B, M K), as one or two column passes at the axis's
+    stride, so the N-D transforms need no transposing copy (``ndim.py``).
 
 A pass is described by a :class:`Pass`: its radix, the index map of its
 input and of its output (``("col", S)`` or ``("rows", radices)``), the
@@ -80,7 +84,8 @@ class Pass:
     written through ``dst`` (``("col", S)``: the points of transform c =
     o*S + s at o*R*S + s + j*S; ``("rows", (R1, ..., Rq))``: the contiguous
     row ((d1*R2 + d2)*R3 + ...) for c = d1 + R1*(d2 + R2*...)), each output
-    point k times W_(R*tw_s)^((c mod tw_s)*k) when tw_s, the input times the
+    point k times W_(R*tw_s)^(s*k) when tw_s, s = c mod tw_s with its low
+    log2 ``tw_lo`` bits cleared (:func:`column_plan`), the input times the
     scale when ``scaled``.  ``split="pair"``: the output Z (B, N) of two
     real rows a complex row goes on as their packed half-spectra, rows b
     and b + B (``real_fused.pair_split_plain``), in place of Z.  ``then``:
@@ -92,6 +97,7 @@ class Pass:
     scaled: bool
     split: str | None = None
     then: Pass | None = None
+    tw_lo: int = 1
 
 
 def radices(n: int, passes: int) -> tuple[int, ...]:
@@ -229,11 +235,13 @@ def _scatter(y: torch.Tensor, r: int, m: tuple) -> torch.Tensor:
 
 def _pass_twiddle(n: int, p: Pass, inverse: bool,
                   dtype: torch.dtype, device) -> torch.Tensor:
-    """(N/R, R) twiddles of a pass: W_N^((c mod tw_s) * k * N/(R tw_s))."""
+    """(N/R, R) twiddles of a pass: W_N^(s * k * N/(R tw_s)), s = c mod
+    tw_s with its low log2 tw_lo bits cleared."""
     r = p.radix
     c = torch.arange(n // r, device=device)
     k = torch.arange(r, device=device)
-    m = ((c % p.tw_s) * (n // (r * p.tw_s)))[:, None] * k[None, :]
+    s = (c % p.tw_s) & ~(p.tw_lo - 1)
+    m = (s * (n // (r * p.tw_s)))[:, None] * k[None, :]
     return FS.roots(m, n, inverse, dtype)
 
 
@@ -337,7 +345,8 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     intermediate, and its split pass into ``dst``.  ``dst`` may be a
     function that makes it, called here: the launch's ``alloc`` span.
     ``exact`` runs the fp64 instantiation.  ``at`` = (i, p): pass i of a
-    plan of p, named in the span's variant.  Each launch that splits adds
+    plan of p, named in the span's variant; (i, p, axis): ``axis=<axis>``
+    first there (the column route's ``col``).  Each launch that splits adds
     one to ``launch_pass.fused``, each fused tail one to
     ``launch_pass.tails``."""
     sp = _T.on and _T.now()
@@ -391,7 +400,7 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
             ("fourstep pass launch (n={}, radix={}, batch={})", n, p.radix,
              rows),
             ia, ib, ik, *_map_args(p.src), oa, ob, ok, *_map_args(p.dst), nr,
-            *rad, rows, n, p.radix, p.tw_s,
+            *rad, rows, n, p.radix, p.tw_s, p.tw_lo,
             float(scale) if p.scaled else 1.0, tw.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), FS.lo_bits(n), int(inverse), int(exact), layout,
             rows_out, *tail)
@@ -399,7 +408,8 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
         launch_pass.tails += bool(p.then)
     finally:
         if sp:
-            variant = (f"radix={p.radix}"
+            variant = ((f"axis={at[2]} " if at and len(at) > 2 else "")
+                       + f"radix={p.radix}"
                        + (f"+{last.radix}" if p.then else "")
                        + (f" pass={at[0]}" + (f"-{at[0] + 1}" if p.then
                                                 else "") + f"/{at[1]}"
@@ -462,7 +472,8 @@ def _alloc(like: torch.Tensor, rows: int, n: int, planar: bool):
 
 def run_passes(src, n: int, passes: tuple[Pass, ...], *,
                inverse: bool = False, scale: float = 1.0,
-               exact: bool = False, dst=None, planar_out: bool | None = None):
+               exact: bool = False, dst=None, planar_out: bool | None = None,
+               tmp=None, axis: str | None = None):
     """The transform of a plan: ``src`` a complex (B, N) tensor or a
     planar pair.  Writes into ``dst`` when given (a complex64 /
     complex128 tensor or a planar pair), else returns a new result in
@@ -472,10 +483,13 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
     intermediate (complex64, complex128 for ``exact``), made by the first
     pass; ``dst`` may be a function that makes it, called by the last
     pass, which makes the new result too (each launch's ``alloc`` span).
-    A plan whose last pass splits (:func:`pair_split_plan`) writes its
-    spectra into ``dst`` (:func:`launch_pass`), its last two passes one
-    launch where :func:`tail_plan` fuses them; its plain version is
-    ``real_fused.rfft_large_plain``.
+    ``tmp`` may be that intermediate, given (``src`` itself: the first
+    pass then runs in place).  A plan whose last pass splits
+    (:func:`pair_split_plan`) writes its spectra into ``dst``
+    (:func:`launch_pass`), its last two passes one launch where
+    :func:`tail_plan` fuses them; its plain version is
+    ``real_fused.rfft_large_plain``.  ``axis`` names the launches' spans'
+    axis (:func:`launch_pass`).
     CPU: the plain version at the tier's precision (``c2c.at_tier``)."""
     planar_in = isinstance(src, tuple)
     planar_out = planar_in if planar_out is None else planar_out
@@ -496,8 +510,9 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
     rows = first.shape[0]
     if dst is None:
         dst = partial(_alloc, first, rows, n, planar_out)
-    tmp = partial(torch.empty, (rows, n), device=first.device,
-                  dtype=torch.complex128 if exact else torch.complex64)
+    if tmp is None:
+        tmp = partial(torch.empty, (rows, n), device=first.device,
+                      dtype=torch.complex128 if exact else torch.complex64)
     # the first pass makes tmp, the middle ones run in place on it, the
     # last writes dst
     cur, k, i = src, len(passes), 1
@@ -505,9 +520,52 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
     for p in passes:
         cur = tmp = launch_pass(cur, dst if p is passes[-1] else tmp, n, p,
                                 inverse=inverse, scale=scale, exact=exact,
-                                at=(i, k))
+                                at=(i, k) if axis is None else (i, k, axis))
         i += 2 if p.then else 1
     return cur
+
+
+def column_plan(m: int, k: int) -> tuple[Pass, ...]:
+    """The passes of a C2C over an axis of m points at stride k (both
+    powers of two, m <= 16384) of (B, m k) rows, natural order out: one
+    column pass of stride k to m = 2048; above, m = R1 R2
+    (:func:`radices`), a pass of radix R1 in place over columns of stride
+    R2 k, twiddled by W_m^(b k_a) for transform s = b k + column, then one
+    of radix R2 from columns of stride k to columns of stride R1 k, which
+    lands X[k_a + R1 k_b] of column c at (k_a + R1 k_b) k + c.  The scale
+    is the first pass's."""
+    if m <= MAX_RADIX:
+        return (Pass(m, ("col", k), ("col", k), 0, True),)
+    r1, r2 = radices(m, 2)
+    return (Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True,
+                 tw_lo=k),
+            Pass(r2, ("col", k), ("col", r1 * k), 0, False))
+
+
+def run_columns(x: torch.Tensor, m: int, k: int, *, inverse: bool = False,
+                scale: float = 1.0, exact: bool = False,
+                own: bool = False) -> torch.Tensor:
+    """The C2C over an axis of m points at stride k of a contiguous
+    complex tensor ``x`` viewed (B, m k): :func:`column_plan`'s passes,
+    natural order, ``scale`` on the input; a new (B, m k) tensor, or ``x``
+    itself.  On a card, ``own`` says that nothing else holds ``x``: the
+    first pass then runs in place on it (the one pass of m <= 2048 returns
+    ``x``; complex64 alone, the "exact" tier's intermediate is
+    complex128).  Each call adds one to ``run_columns.calls``."""
+    n = m * k
+    passes = column_plan(m, k)
+    run_columns.calls += 1
+    if not own or C.is_cpu(x) or exact and len(passes) > 1:
+        return run_passes(x, n, passes, inverse=inverse, scale=scale,
+                          exact=exact, axis="col")
+    if len(passes) == 1:
+        return run_passes(x, n, passes, inverse=inverse, scale=scale,
+                          exact=exact, dst=x, axis="col")
+    return run_passes(x, n, passes, inverse=inverse, scale=scale, tmp=x,
+                      axis="col")
+
+
+run_columns.calls = 0
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,14 @@ def copied_bytes() -> int:
     return _cuda.copied
 
 
+def column_routes() -> int:
+    """The C2C transforms over a leading axis that the column route has
+    run in this process, copying nothing (``ops.fourstep_fused.run_columns``,
+    backward passes included)."""
+    from smfft_tpu_torch.ops import fourstep_fused
+    return fourstep_fused.run_columns.calls
+
+
 def _rank_entry(rank: int, world: int, workdir: str, device: str,
                 timeout: float) -> None:
     """One spawned rank: join the gloo group, run the target saved in

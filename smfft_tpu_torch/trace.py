@@ -12,8 +12,8 @@ Three layers record:
     leading dims); a call that routes to another public call holds it as a
     child, so an N-D call holds one row call a transformed axis;
   * ``op:<name>``: the body of each autograd ``Function.forward`` of
-    ``api.py``, and ``op:fft_complex`` for the unordered C2C that bypasses
-    autograd; a call's own time is its checks and ``Function.apply``.  An
+    ``api.py`` and of ``ndim.py``'s column route (``op:column_c2c``), and
+    ``op:fft_complex`` for the unordered C2C that bypasses autograd; a call's own time is its checks and ``Function.apply``.  An
     op whose input is not contiguous rows holds a ``copy`` span, with
     ``bytes``: the copy ``ops._cuda.contiguous`` makes before the launch;
   * ``launch:<kernel>``: each kernel's launch wrapper in ``ops/*``

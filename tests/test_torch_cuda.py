@@ -1562,17 +1562,138 @@ def rel_err(got, want):
 
 
 def test_fft2_on_card_runs_two_c2c_launches(dev):
-    """fft2 / ifft2 of (5, 64, 128): one c2c launch an axis and no other
-    kernel; every element against the plain versions (the same call on
-    the CPU copy) and float64 torch.fft within the summed bound."""
-    x = rand_c(5 * 64, 128, dev, seed=21).reshape(5, 64, 128)
+    """fft2 / ifft2 over the first two axes of a (64, 128, 3) stack, whose
+    strides 384 and 3 are no powers of two (the copy path): one c2c launch
+    an axis and no other kernel, each after a copy of the transposed view;
+    every element against the plain versions (the same call on the CPU
+    copy) and float64 torch.fft within the summed bound."""
+    x = rand_c(64 * 128, 3, dev, seed=21).reshape(64, 128, 3)
     lim = bound(64) + bound(128)
     for fn, oracle_fn in ((T.fft2, torch.fft.fft2),
                           (T.ifft2, torch.fft.ifft2)):
-        y, ran = launches_of(lambda: fn(x))
+        copied = DR.copied_bytes()
+        y, ran = launches_of(lambda: fn(x, axes=(0, 1)))
         assert ran == {"c2c": 2}
+        assert DR.copied_bytes() - copied == 2 * x.nbytes
+        assert rel_err(y, fn(x.cpu(), axes=(0, 1)).to(dev)) <= lim
+        assert rel_err(y, oracle_fn(x.to(torch.complex128), dim=(0, 1))) \
+            <= lim
+
+
+def test_fft2_on_card_runs_a_c2c_launch_and_a_column_pass(dev):
+    """fft2 / ifft2 of (5, 64, 128): the row kernel over the last axis,
+    then one column pass of radix 64 at stride 128 over the first, in
+    place on the row kernel's result; no copy."""
+    x = rand_c(5 * 64, 128, dev, seed=21).reshape(5, 64, 128)
+    keep = x.clone()
+    lim = bound(64) + bound(128)
+    for fn, oracle_fn in ((T.fft2, torch.fft.fft2),
+                          (T.ifft2, torch.fft.ifft2)):
+        copied, routes = DR.copied_bytes(), DR.column_routes()
+        y, ran = launches_of(lambda: fn(x))
+        assert ran == {"c2c": 1, "fourstep_pass": 1}
+        assert (DR.copied_bytes() - copied, DR.column_routes() - routes) \
+            == (0, 1)
         assert rel_err(y, fn(x.cpu()).to(dev)) <= lim
         assert rel_err(y, oracle_fn(x.to(torch.complex128))) <= lim
+    assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("m,exact", [(4096, False), (4096, True),
+                                     (16384, False)])
+def test_column_passes_match_plain_and_torch_fft2(dev, m, exact):
+    """The column route over the first axis of an (m, m) grid (two passes,
+    64 x 64 or 128 x 128, the first twiddled blind to the column), both
+    directions, in place on an owned input and not: against the passes'
+    plain version on the card and float64 torch.fft; "exact" within one
+    ulp(max|X|).  Then fft2 of the grid against torch.fft.fft2."""
+    n = m * m
+    x = rand_c(m, m, dev, seed=m % 1009)
+    keep = x.clone()
+    plan = FF.column_plan(m, m)
+    assert [p.radix for p in plan] == list(FF.radices(m, 2))
+    x64 = x.to(torch.complex128)
+    for inverse in (False, True):
+        scale = 1.0 / m if inverse else 1.0
+        want = (torch.fft.ifft(x64, dim=0) if inverse
+                else torch.fft.fft(x64, dim=0))
+        plain = huge_plain(x.reshape(1, n), n, plan, inverse, scale, exact)
+        for own in (False, True):
+            src = x.reshape(1, n).clone() if own else x.reshape(1, n)
+            got = FF.run_columns(src, m, m, inverse=inverse, scale=scale,
+                                 exact=exact, own=own)
+            torch.cuda.synchronize()
+            assert got is not src and got.shape == (1, n)
+            assert rel_err(got, plain) <= bound(m)
+            assert rel_err(got.view(m, m), want) <= bound(m)
+            if exact:
+                top = want.abs().max().item()
+                assert max_err(got.view(m, m), want) <= ulp(top)
+            del got, src
+        del want, plain
+    assert torch.equal(x, keep)
+    if not exact:
+        y = T.fft2(x)
+        assert rel_err(y, torch.fft.fft2(x64)) <= 2 * bound(m)
+
+
+def test_column_route_on_a_3d_grid(dev):
+    """fftn of a (B, M, K) = (32, 4096, 64) grid in three axis orders: the
+    row kernel over the last axis, then the column routes over the middle
+    (two passes at stride 64) and the first (one pass at stride 2^18);
+    against the same call on the CPU copy and float64 torch.fft.fftn."""
+    x = rand_c(32 * 4096, 64, dev, seed=31).reshape(32, 4096, 64)
+    lim = bound(32) + bound(4096) + bound(64)
+    for axes in ((0, 1, 2), (1, 0, 2), (2, 1, 0)):
+        y, ran = launches_of(lambda: T.fftn(x, axes=axes))
+        assert ran == {"c2c": 1, "fourstep_pass": 3}
+        assert rel_err(y, T.fftn(x.cpu(), axes=axes).to(dev)) <= lim
+        assert rel_err(y, torch.fft.fftn(x.to(torch.complex128), dim=axes)) \
+            <= lim
+
+
+def test_an_imaging_step_copies_nothing(dev):
+    """ifft2 then fft2 of a 4096^2 grid, the benchmark's imaging step at a
+    sixteenth of its size: 2 c2c launches and 4 of the pass kernel, two
+    column routes, no byte copied; the round trip returns the grid."""
+    x = rand_c(4096, 4096, dev, seed=41)
+    copied, routes = DR.copied_bytes(), DR.column_routes()
+    grid, ran = launches_of(lambda: T.fft2(T.ifft2(x, norm="backward")))
+    assert ran == {"c2c": 2, "fourstep_pass": 4}
+    assert (DR.copied_bytes() - copied, DR.column_routes() - routes) == (0, 2)
+    assert rel_err(grid, x) <= 4 * bound(4096)
+
+
+def test_rfft_large_launches_carry_tw_lo_one(dev, monkeypatch):
+    """Every launch of the periodicity search's ``rfft_large`` (pass 1 and
+    the fused tail at 2^23) hands the C entry tw_lo = 1, so its twiddle
+    mask is tw_s - 1 as before the column route, and two calls agree bit
+    for bit."""
+    entry = _cuda.bound(_cuda.FOURSTEP_PASS)
+    seen = []
+
+    def recording(*args):
+        seen.append(args[19])  # tw_lo, after tw_s
+        return entry(*args)
+    n = 1 << 23
+    x = rand_r(4, n, dev, seed=23)
+    monkeypatch.setattr(_cuda.FOURSTEP_PASS, "fn", recording)
+    y = api.rfft_large(x, precision="highest")
+    monkeypatch.setattr(_cuda.FOURSTEP_PASS, "fn", entry)
+    again = api.rfft_large(x, precision="highest")
+    torch.cuda.synchronize()
+    assert seen == [1, 1]
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("tw_lo", [3, 128])
+def test_the_pass_entry_refuses_a_tw_lo_it_cannot_take(dev, tw_lo):
+    """tw_lo must be a power of two no larger than tw_s."""
+    n = 1 << 12
+    x = rand_c(2, n, dev, seed=7)
+    p = FF.Pass(64, ("col", 64), ("col", 64), 64, True, tw_lo=tw_lo)
+    with pytest.raises(RuntimeError, match="fourstep pass launch"):
+        FF.launch_pass(x, x.clone(), n, p)
 
 
 def test_rfft2_irfft2_on_card(dev):

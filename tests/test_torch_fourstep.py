@@ -12,6 +12,7 @@ difference within the sum of both packages' errors against numpy.  The
 card's own tests are in tests/test_torch_cuda.py (``cuda`` marker).
 """
 
+import dataclasses
 import subprocess
 import sys
 
@@ -582,6 +583,145 @@ def test_fused_tail_plain_equals_the_three_pass_plan(n, layout):
         R.to_layout(want[0][:b], want[1][:b], layout)))
     with pytest.raises(ValueError, match="fused tail"):
         FF.pass_plain(z, n, dataclasses.replace(fused[1], tw_s=0))
+
+
+# ---------------------------------------------------------------------------
+# The column route (column_plan, run_columns): a C2C over an axis of M
+# points at stride K of (B, M K) rows, the first pass's twiddle blind to the
+# column (tw_lo = K).
+# ---------------------------------------------------------------------------
+
+
+def axis_dft(x, inverse=False):
+    """The explicit DFT over axis 1 of a (B, M, K) tensor, complex128."""
+    m = x.shape[1]
+    j = torch.arange(m, dtype=torch.float64)
+    sign = 1.0 if inverse else -1.0
+    w = torch.exp(sign * 2j * np.pi * torch.outer(j, j) / m)
+    return torch.einsum("jm,bmk->bjk", w, x.to(torch.complex128))
+
+
+def column_grid(b, m, k, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.random((b, m, k)) - 0.5 + 1j * (rng.random((b, m, k)) - 0.5)
+    return torch.from_numpy(x)
+
+
+# (B, M, K, R1, R2): R1 = R2, R1 > R2, and one column (K = 1)
+TW_LO_CASES = [(1, 256, 8, 16, 16), (3, 256, 32, 16, 16),
+               (2, 512, 4, 32, 16), (2, 1024, 1, 32, 32)]
+
+
+@pytest.mark.parametrize("b,m,k,r1,r2", TW_LO_CASES)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_pass_plain_with_tw_lo_matches_an_explicit_dft(b, m, k, r1, r2,
+                                                        inverse):
+    """Pass A of radix R1 over columns of stride R2 K, its twiddle's
+    exponent (c mod R2 K) with the low log2 K bits cleared, is
+    W_M^(b k_a) times an R1-point DFT, whatever the column; pass B of
+    radix R2 lands the axis's DFT in natural order.  In float64 against
+    the explicit DFT (the scale on the input of pass A)."""
+    n = m * k
+    pa = FF.Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True,
+                 tw_lo=k)
+    pb = FF.Pass(r2, ("col", k), ("col", r1 * k), 0, False)
+    x = column_grid(b, m, k, m + k)
+    y = FF.pass_plain(x.reshape(b, n), n, pa, inverse, 0.5)
+    # pass A alone: point (d, k_a, col) is W_M^(d k_a) * DFT_R1 over j of
+    # x[b, d + j R2, col]
+    xa = x.reshape(b, r1, r2, k)
+    sign = 1.0 if inverse else -1.0
+    ja = torch.arange(r1, dtype=torch.float64)
+    w1 = torch.exp(sign * 2j * np.pi * torch.outer(ja, ja) / r1)
+    d = torch.arange(r2, dtype=torch.float64)
+    tw = torch.exp(sign * 2j * np.pi * torch.outer(ja, d) / m)
+    want_a = 0.5 * torch.einsum("aj,bjdk->badk", w1, xa) * tw[None, :, :,
+                                                              None]
+    assert err(y.reshape(b, r1, r2, k), want_a) < 1e-12
+    got = FF.pass_plain(y, n, pb, inverse)
+    assert err(got.reshape(b, m, k), 0.5 * axis_dft(x, inverse)) < 1e-10
+    # tw_lo = 1 there would twiddle each column by its own index: wrong
+    per_column = dataclasses.replace(pa, tw_lo=1)
+    first = FF.pass_plain(x.reshape(b, n), n, per_column, inverse, 0.5)
+    wrong = FF.pass_plain(first, n, pb, inverse)
+    assert (k == 1) == (err(wrong.reshape(b, m, k),
+                            0.5 * axis_dft(x, inverse)) < 1e-10)
+
+
+@pytest.mark.parametrize("m,k", [(32, 4), (2048, 1), (4096, 64),
+                                 (8192, 2), (16384, 16384)])
+def test_column_plan_is_one_pass_to_2048_then_two(m, k):
+    plan = FF.column_plan(m, k)
+    if m <= FF.MAX_RADIX:
+        assert plan == (FF.Pass(m, ("col", k), ("col", k), 0, True),)
+        return
+    r1, r2 = FF.radices(m, 2)
+    assert (r1, r2) == {4096: (64, 64), 8192: (128, 64),
+                        16384: (128, 128)}[m]
+    assert plan == (
+        FF.Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True,
+                tw_lo=k),
+        FF.Pass(r2, ("col", k), ("col", r1 * k), 0, False))
+    # no pass of an existing plan carries tw_lo
+    assert all(p.tw_lo == 1 for n in (1 << 15, 1 << 21, 1 << 23)
+               for plan in (FF.default_passes(n), FF.pair_split_plan(n))
+               for p in plan)
+
+
+def _recording_launch_pass(log):
+    """A stand-in launcher that records (src, dst, pass, at, dst's dtype)
+    and does the pass's plain function."""
+    def launch(src, dst, n, p, *, inverse=False, scale=1.0, exact=False,
+               at=None):
+        made = callable(dst)
+        dst = dst() if made else dst
+        log.append((src, dst, made, p, at))
+        y = FF.pass_plain(src.to(torch.complex128 if exact
+                                 else torch.complex64), n, p, inverse, scale)
+        dst.copy_(y)
+        return dst
+    return launch
+
+
+# (M, K, own, exact) -> (in place first, intermediate dtype)
+RUN_COLUMN_CASES = [(4096, 4, False, False), (4096, 4, True, False),
+                    (4096, 4, True, True), (1024, 8, True, False),
+                    (1024, 8, False, False)]
+
+
+@pytest.mark.parametrize("m,k,own,exact", RUN_COLUMN_CASES)
+def test_run_columns_buffers_on_the_card_path(monkeypatch, m, k, own, exact):
+    """The card branch on CPU tensors with a stand-in launcher: an input
+    the caller owns takes the first pass in place (one pass: the output is
+    the input), else the first pass makes the intermediate (complex128 for
+    "exact"); the last pass makes the output; every launch names the
+    column axis in its span."""
+    monkeypatch.setattr(C, "is_cpu", lambda t: False)
+    log = []
+    monkeypatch.setattr(FF, "launch_pass", _recording_launch_pass(log))
+    b, n = 3, m * k
+    x0 = column_grid(b, m, k, 5).to(torch.complex64)
+    x = x0.reshape(b, n).clone()
+    calls = FF.run_columns.calls
+    y = FF.run_columns(x, m, k, inverse=True, scale=1.0 / m, exact=exact,
+                       own=own)
+    assert FF.run_columns.calls == calls + 1
+    assert [e[3] for e in log] == list(FF.column_plan(m, k))
+    assert [e[4] for e in log] == [(i + 1, len(log), "col")
+                                   for i in range(len(log))]
+    first = log[0]
+    assert first[0] is x
+    if len(log) == 1:
+        assert (y is x) == own and first[2] != own
+    else:
+        in_place = own and not exact
+        assert (first[1] is x) == in_place and first[2] != in_place
+        assert first[1].dtype == (torch.complex128 if exact
+                                  else torch.complex64)
+        assert log[1][0] is first[1] and log[1][2] and log[1][1] is y
+    assert y.dtype == torch.complex64
+    want = axis_dft(x0, inverse=True) / m
+    assert err(y.reshape(b, m, k), want) < bound(m) * want.abs().max().item()
 
 
 def test_register_report_labels_the_split_pass():

@@ -15,6 +15,8 @@ backend in interpret mode, whose layout the port follows.
 import ast
 import functools
 import importlib
+import itertools
+import math
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ import torch
 import smfft_tpu.ops.pallas_c2c as PC
 
 import smfft_tpu_torch as T
+from smfft_tpu_torch.parallel import dryrun as DR
 
 JN = importlib.import_module("smfft_tpu.ndim")
 ROOT = Path(__file__).resolve().parent.parent
@@ -267,6 +270,155 @@ def test_packing_rule_raises_as_the_pallas_path_does():
         T.fftn(torch.from_numpy(data((3, 32), "complex")), axes=-1)
     with pytest.raises(ValueError, match="multiple of 4"):
         T.ihfft(torch.from_numpy(data((3, 64), "real")))
+
+
+# ---------------------------------------------------------------------------
+# The column route: a C2C over a leading axis at a power-of-two stride runs
+# as column passes at that stride (ops/fourstep_fused.run_columns), with no
+# copy; any other stride keeps the copy of the transposed view.
+# ---------------------------------------------------------------------------
+
+
+def counters():
+    return DR.copied_bytes(), DR.column_routes()
+
+
+def moved(before):
+    """(bytes copied, column routes run) since ``before``."""
+    now = counters()
+    return now[0] - before[0], now[1] - before[1]
+
+
+# (M, K): the axis's length and its stride; one pass to M = 2048, two above
+COLUMN_GRIDS = [(32, 4), (2048, 2), (4096, 4), (16384, 2)]
+
+
+@pytest.mark.parametrize("shape", COLUMN_GRIDS)
+@pytest.mark.parametrize("name", ["fftn", "ifftn"])
+def test_column_route_over_the_leading_axis_matches_jax_and_torch(name,
+                                                                  shape):
+    x = data(shape, "complex")
+    before = counters()
+    got = getattr(T, name)(torch.from_numpy(x), axes=(0,))
+    assert moved(before) == (0, 1)
+    ref = jax_ref(name, shape, "complex", axes=(0,))
+    want = getattr(torch.fft, name)(torch.from_numpy(x).to(torch.complex128),
+                                    dim=0).numpy()
+    assert got.shape == shape and got.dtype == torch.complex64
+    assert got.is_contiguous()
+    assert rel(got.numpy(), ref) <= 1e-4
+    assert rel(got.numpy(), want) <= bound(shape[0])
+
+
+@pytest.mark.parametrize("m", [32, 2048, 4096, 16384])
+@pytest.mark.parametrize("name,kw", [("fft2", {}), ("ifft2", {}),
+                                     ("ifft2", {"norm": None})])
+def test_column_route_in_2d_transforms_matches_jax_and_torch(name, kw, m):
+    """fft2 / ifft2 of an (M, 32) grid: the row call over the last axis,
+    then the column route over the first; ``norm`` scales the first
+    column pass (None: the raw inverse)."""
+    shape = (m, 32)
+    x = data(shape, "complex")
+    before = counters()
+    got = getattr(T, name)(torch.from_numpy(x), **kw).numpy()
+    assert moved(before) == (0, 1)
+    ref = jax_ref(name, shape, "complex", **kw)
+    want = getattr(np.fft, name)(x.astype(np.complex128))
+    if kw.get("norm", "backward") is None:
+        want = want * x.size
+    assert rel(got, ref) <= 1e-4
+    assert rel(got, want) <= summed_bound(shape, (0, 1))
+
+
+@pytest.mark.parametrize("axes", list(itertools.permutations((0, 1, 2))))
+@pytest.mark.parametrize("name", ["fftn", "ifftn"])
+def test_column_route_over_every_axis_order_of_a_3d_grid(name, axes):
+    """(B, M, K) = (32, 256, 64) in each axis order: the last axis's row
+    call first, then a column route a leading axis (strides 16384 and
+    64), in the order given."""
+    shape = (32, 256, 64)
+    x = data(shape, "complex")
+    before = counters()
+    got = getattr(T, name)(torch.from_numpy(x), axes=axes).numpy()
+    assert moved(before) == (0, 2)
+    ref = jax_ref(name, shape, "complex", axes=axes)
+    want = getattr(np.fft, name)(x.astype(np.complex128), axes=axes)
+    assert rel(got, ref) <= 1e-4
+    assert rel(got, want) <= summed_bound(shape, axes)
+
+
+@pytest.mark.parametrize("norm", [None, "backward"])
+def test_column_route_exact_tier_rounds_once(norm):
+    """"exact" computes both column passes in float64 (the card's
+    complex128 intermediate) and rounds once: within one ulp(max|X|) of
+    float64, where the fp32 tier is not."""
+    x = torch.from_numpy(data((4096, 32), "complex"))
+    want = torch.fft.ifft2(x.to(torch.complex128))
+    if norm is None:
+        want = want * x.numel()
+    got = T.ifft2(x, norm=norm, precision="exact")
+    top = want.abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 23)
+    assert got.dtype == torch.complex64
+    assert (got.to(torch.complex128) - want).abs().max().item() <= ulp
+    fp32 = T.ifft2(x, norm=norm)
+    assert (fp32.to(torch.complex128) - want).abs().max().item() > ulp
+
+
+def test_a_stride_that_is_no_power_of_two_keeps_the_copy_path():
+    """fftn over the first axis of (256, 96): a stride of 96 is no power
+    of two, so the axis moves last and its transposed view is copied once
+    (256 * 96 * 8 bytes), with no column route."""
+    x = data((256, 96), "complex")
+    before = counters()
+    got = T.fftn(torch.from_numpy(x), axes=(0,)).numpy()
+    assert moved(before) == (256 * 96 * 8, 0)
+    want = np.fft.fft(x.astype(np.complex128), axis=0)
+    assert rel(got, want) <= bound(256)
+    assert rel(got, jax_ref("fftn", (256, 96), "complex", axes=(0,))) <= 1e-4
+
+
+@pytest.mark.parametrize("call,copies", [
+    (lambda x: T.fftn(x, axes=0, ordered=False), True),
+    (lambda x: T.fftn(x, axes=0, backend="spec"), False),
+    (lambda x: T.rfft2(x.real.contiguous()), True),
+    (lambda x: T.irfft2(x[:, :65].contiguous(), n=128), True)])
+def test_the_column_route_leaves_other_calls_on_the_copy_path(call, copies):
+    """Unordered output, the spec backend (which transforms the transposed
+    view as it is) and the real 2-D transforms (half-spectrum stride n/2 +
+    1) run no column route."""
+    before = counters()
+    call(torch.from_numpy(data((128, 128), "complex")))
+    copied, routes = moved(before)
+    assert routes == 0 and (copied > 0) == copies
+
+
+def test_the_column_route_leaves_its_input_as_it_was():
+    """The first column pass runs in place only on the row call's own
+    result, never on the caller's tensor."""
+    x = torch.from_numpy(data((4096, 4), "complex"))
+    keep = x.clone()
+    T.fftn(x, axes=(0,))
+    T.ifft2(torch.from_numpy(data((2048, 32), "complex")))
+    T.fftn(x.conj(), axes=(0,))
+    assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((4096, 2), {"norm": "backward"}), ((4096, 2), {"norm": None}),
+    ((4096, 2), {"precision": "exact"}), ((64, 32, 2), {})])
+def test_gradcheck_through_the_column_route(shape, kw):
+    """The route's Function: the backward of a transform of scale s is
+    the raw transform of the other direction at scale s, by the column
+    route again."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.random(shape) + 1j * rng.random(shape)
+                         ).requires_grad_(True)
+    before = counters()
+    assert torch.autograd.gradcheck(
+        lambda v: T.ifftn(v, axes=tuple(range(len(shape) - 1)), **kw),
+        (x,), fast_mode=True)
+    assert moved(before)[1] > 0
 
 
 # ---------------------------------------------------------------------------

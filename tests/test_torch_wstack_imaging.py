@@ -1,8 +1,9 @@
 """The wide-field imaging deployment on the CPU: the port's ``ifft2`` then
 ``fft2`` of a w-layer grid held against the plain reference
 (``smfft_tpu_torch/reference/wstack_imaging.py``), the reference's
-independence from the port, the op layer's copy counter, and the span tree
-of a traced ``ifft2``."""
+independence from the port, the op layer's copy counter and the column
+route's counter (a power-of-two grid copies nothing, a stride of 3 keeps
+the copy path), and the span trees of a traced ``ifft2`` on both paths."""
 
 from __future__ import annotations
 
@@ -94,19 +95,43 @@ def test_the_reference_imports_nothing_of_the_port_and_no_jax():
 
 @pytest.mark.parametrize("call", ["fft2", "ifft2"])
 @pytest.mark.parametrize("rows,n", GRIDS)
-def test_a_2d_transform_copies_the_grid_twice(call, rows, n):
-    """The pass over the leading axis copies the transposed view, and the
-    pass over the last axis the transposed-back result: 2 * rows * n * 8
-    bytes, recording on or off."""
+def test_a_2d_transform_of_a_power_of_two_grid_copies_nothing(call, rows, n):
+    """The leading axis runs as column passes at its stride n
+    (``ops/fourstep_fused.run_columns``), the last axis as its row call:
+    no byte copied and one column route a call, recording on or off."""
     x = _grid(rows, n)
     fn = getattr(S, call)
     for record in (False, True):
         if record:
             trace.start()
-        before = dryrun.copied_bytes()
+        before = dryrun.copied_bytes(), dryrun.column_routes()
         fn(x)
-        assert dryrun.copied_bytes() - before == 2 * rows * n * 8
+        assert dryrun.copied_bytes() - before[0] == 0
+        assert dryrun.column_routes() - before[1] == 1
         trace.stop()
+
+
+@pytest.mark.parametrize("call", ["fft2", "ifft2"])
+@pytest.mark.parametrize("rows,n", GRIDS)
+def test_a_2d_transform_copies_the_grid_twice(call, rows, n):
+    """Where an axis's trailing stride is no power of two, the copy path
+    stays: a 2-D transform over the first two axes of a stack of three
+    grids (strides 3n and 3) copies the transposed view before the pass
+    over the first axis and again before the pass over the second:
+    2 * rows * n * 3 * 8 bytes, recording on or off, and no column
+    route."""
+    x = _grid(rows, n * 3).reshape(rows, n, 3)
+    fn = getattr(S, call)
+    for record in (False, True):
+        if record:
+            trace.start()
+        before = dryrun.copied_bytes(), dryrun.column_routes()
+        got = fn(x, axes=(0, 1))
+        assert dryrun.copied_bytes() - before[0] == 2 * rows * n * 3 * 8
+        assert dryrun.column_routes() == before[1]
+        trace.stop()
+        want = getattr(torch.fft, call)(x.to(torch.complex128), dim=(0, 1))
+        assert _err(got, want) < TOL
 
 
 def test_row_calls_on_contiguous_rows_copy_nothing():
@@ -122,26 +147,63 @@ def test_row_calls_on_contiguous_rows_copy_nothing():
     assert dryrun.copied_bytes() - before == 4 * 256 * 8
 
 
-def test_a_traced_ifft2_is_a_root_over_two_row_calls_and_their_copies():
-    rows, n = 256, 512
-    x = _grid(rows, n)
+def _tree(fn):
+    """The spans of one traced call of ``fn``."""
     trace.start()
-    S.ifft2(x, norm="backward", precision="highest")
+    fn()
     rec = trace.stop()
     spans = [rec.span(i) for i in range(len(rec))]
     roots = [i for i, s in enumerate(spans) if s["parent"] == -1]
+    return spans, roots
+
+
+def _children(spans, i):
+    return [j for j, s in enumerate(spans) if s["parent"] == i]
+
+
+def test_a_traced_ifft2_is_a_root_over_a_row_call_and_a_column_route():
+    """The last axis first, its row call around ``op:ordered_c2c``, then
+    the leading axis's column route, recorded as its row call (``n`` the
+    axis's length) around ``op:column_c2c``.  No copy.  (On the CPU the
+    plain versions launch nothing; the route's launches and buffers are
+    pinned in tests/test_torch_fourstep.py.)"""
+    rows, n = 256, 512
+    x = _grid(rows, n)
+    spans, roots = _tree(lambda: S.ifft2(x, norm="backward",
+                                         precision="highest"))
     assert [spans[i]["name"] for i in roots] == ["call:ifft2"]
     assert spans[0]["attrs"] == {"n": n, "rows": rows}
-    calls = [i for i, s in enumerate(spans) if s["parent"] == 0]
+    calls = _children(spans, 0)
     assert [spans[i]["name"] for i in calls] == ["call:ifft", "call:ifft"]
-    # the first pass runs over the leading axis: its rows are the columns
     assert [spans[i]["attrs"] for i in calls] == [
-        {"n": rows, "rows": n}, {"n": n, "rows": rows}]
+        {"n": n, "rows": rows}, {"n": rows, "rows": n}]
+    ops = [_children(spans, i) for i in calls]
+    assert [[spans[j]["name"] for j in o] for o in ops] == [
+        ["op:ordered_c2c"], ["op:column_c2c"]]
+    assert not [s for s in spans if s["name"] == "copy"]
+    assert spans[calls[0]]["end"] <= spans[calls[1]]["start"]
+
+
+def test_a_traced_ifft2_is_a_root_over_two_row_calls_and_their_copies():
+    """On the copy path (a stack of three grids, strides 3n and 3): a root
+    over one row call an axis, each around ``op:ordered_c2c`` and its copy
+    of the transposed view."""
+    rows, n = 256, 512
+    x = _grid(rows, n * 3).reshape(rows, n, 3)
+    spans, roots = _tree(lambda: S.ifft2(x, axes=(0, 1), norm="backward",
+                                         precision="highest"))
+    assert [spans[i]["name"] for i in roots] == ["call:ifft2"]
+    assert spans[0]["attrs"] == {"n": 3, "rows": rows * n}
+    calls = _children(spans, 0)
+    assert [spans[i]["name"] for i in calls] == ["call:ifft", "call:ifft"]
+    # each pass runs over an axis moved last: its rows are the others
+    assert [spans[i]["attrs"] for i in calls] == [
+        {"n": rows, "rows": n * 3}, {"n": n, "rows": rows * 3}]
     for i in calls:
-        ops = [j for j, s in enumerate(spans) if s["parent"] == i]
+        ops = _children(spans, i)
         assert [spans[j]["name"] for j in ops] == ["op:ordered_c2c"]
-        copies = [s for s in spans if s["parent"] == ops[0]]
-        assert [(s["name"], s["attrs"]) for s in copies] == [
-            ("copy", {"bytes": rows * n * 8})]
+        copies = [s for s in spans if s["parent"] == ops[0]
+                  and s["name"] == "copy"]
+        assert [s["attrs"] for s in copies] == [{"bytes": rows * n * 3 * 8}]
         assert spans[i]["start"] <= copies[0]["start"] <= copies[0]["end"] \
             <= spans[i]["end"]
