@@ -39,7 +39,10 @@ Seven slices so far:
     four in :mod:`smfft_tpu_torch.planar`, as passes of one four-step
     kernel (``csrc/fourstep.cu``, whose last pass does the pair mode's
     split to radix 256) and a Hermitian split / merge kernel
-    (``csrc/real_huge.cu``);
+    (``csrc/real_huge.cu``); on their spectra the Fourier-domain
+    acceleration search's power plane, :func:`accel_plane`
+    (:mod:`smfft_tpu_torch.accel`: a template bank by overlap-save through
+    one launch of the fused convolution bank);
   * N-D transforms and the DCT / DST, composed over the row kernels:
     :func:`fftn` / :func:`ifftn` / :func:`fft2` / :func:`ifft2`,
     :func:`rfft2` / :func:`irfft2` / :func:`rfftn` / :func:`irfftn`,
@@ -59,6 +62,7 @@ kernels' fp64-arithmetic instantiation (<= 2 ulp of max|X|).
 """
 
 from smfft_tpu_torch import planar
+from smfft_tpu_torch.accel import accel_plane
 from smfft_tpu_torch.api import (convolve, convolve_real, fft, fft_large,
                                  fft_packed_real, ifft, ifft_large,
                                  ifft_unordered, irfft, irfft_large, rfft,
@@ -83,6 +87,7 @@ __all__ = [
     "FFTParams",
     "SUPPORTED_C2C_SIZES",
     "SUPPORTED_REAL_SIZES",
+    "accel_plane",
     "convolve",
     "convolve_real",
     "czt",

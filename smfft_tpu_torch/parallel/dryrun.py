@@ -60,6 +60,21 @@ def copied_bytes() -> int:
     return _cuda.copied
 
 
+def plane_bytes() -> int:
+    """The bytes the acceleration plane's device passes have read and
+    written in this process (``accel.moved``: the framing, the bank's
+    convolution, the crop and the power)."""
+    from smfft_tpu_torch import accel
+    return accel.moved
+
+
+def accel_banks() -> int:
+    """The acceleration template banks built in this process
+    (``accel.built``, one per zmax, dz and device)."""
+    from smfft_tpu_torch import accel
+    return accel.built
+
+
 def column_routes() -> int:
     """The C2C transforms over a leading axis that the column route has
     run in this process, copying nothing (``ops.fourstep_fused.run_columns``,

@@ -58,6 +58,38 @@ def _pad_taps(h: torch.Tensor, n: int, real: bool) -> torch.Tensor:
     return row
 
 
+def overlap_save_frames(x: torch.Tensor, k: int, n: int, start: int,
+                        length: int) -> tuple[torch.Tensor, int]:
+    """Overlap-save framing of rows ``x`` (B, T) for a filter of ``k`` taps
+    and frames of ``n`` points: (frames (B * F, n), F).
+
+    Frame f holds the points [f * hop, f * hop + n) of the row padded with
+    k - 1 - ``start`` zeros in front and zeros behind (hop = n - k + 1, two
+    copies: the padded row, then the frames), so that its circular
+    convolution with the taps holds, at positions [k - 1, n), outputs
+    ``start`` + f * hop .. ``start`` + f * hop + hop - 1 of the linear
+    convolution (output i = sum_j h[j] x[i - j], x zero beyond both ends);
+    F frames cover ``length`` outputs.  0 <= ``start`` <= k - 1.
+    """
+    b, t = x.shape
+    hop = n - k + 1
+    frames = -(-length // hop)
+    left = k - 1 - start
+    right = (frames - 1) * hop + n - left - t
+    xp = torch.cat([x.new_zeros((b, left)), x[:, :t + min(0, right)],
+                    x.new_zeros((b, max(0, right)))], dim=-1)
+    return xp.unfold(-1, n, hop).reshape(b * frames, n), frames
+
+
+def overlap_save_valid(y: torch.Tensor, b: int, frames: int,
+                       k: int) -> torch.Tensor:
+    """The convolved frames of :func:`overlap_save_frames` (..., B * F, n)
+    -> each frame's valid part, circular positions [k - 1, n): a view
+    (..., B, F, hop) of ``y``, frame f of row r holding outputs start +
+    f * hop .. start + f * hop + hop - 1 of row r."""
+    return y.reshape(y.shape[:-2] + (b, frames, y.shape[-1]))[..., k - 1:]
+
+
 def fftconvolve(x: torch.Tensor, h: torch.Tensor, mode: str = "full",
                 n_fft: int | None = None, backend: str = "auto",
                 precision: str | None = None) -> torch.Tensor:
@@ -91,23 +123,13 @@ def fftconvolve(x: torch.Tensor, h: torch.Tensor, mode: str = "full",
     if n not in SUPPORTED_C2C_SIZES or n < 256 or k >= n:
         raise ValueError(f"n_fft={n} unsupported or not longer than the "
                          f"filter (K={k})")
-    hop = n - k + 1
     full_len = t + k - 1
-    frames = -(-full_len // hop)
 
     real = not x.is_complex() and not h.is_complex()
     if real:
         x = api._as_real(x)
-    # overlap-save: frame f covers padded positions [f*hop, f*hop + n);
-    # left-pad K-1 (the linear convolution's warm-up), right-pad to the
-    # frame grid
-    pad_r = (frames - 1) * hop + n - (k - 1) - t
     dt = x.dtype if real else torch.complex64
-    xp = torch.cat([torch.zeros((b, k - 1), dtype=dt, device=x.device),
-                    x.to(dt),
-                    torch.zeros((b, max(0, pad_r)), dtype=dt,
-                                device=x.device)], dim=-1)
-    fx = xp.unfold(-1, n, hop).reshape(b * frames, n)  # (B*F, n)
+    fx, frames = overlap_save_frames(x.to(dt), k, n, 0, full_len)
 
     if real:
         hf = api.rfft(_pad_taps(h, n, real=True), backend=backend,
@@ -117,10 +139,8 @@ def fftconvolve(x: torch.Tensor, h: torch.Tensor, mode: str = "full",
         hf = api.fft(_pad_taps(h, n, real=False), backend=backend,
                      precision=precision)[0]
         y = api.convolve(fx, hf, backend=backend, precision=precision)
-    # each frame's valid region: circular positions [K-1, n) are the linear
-    # convolution's outputs f*hop .. f*hop + hop - 1
-    y = y.reshape(b, frames, n)[:, :, k - 1:]
-    y = y.reshape(b, frames * hop)[:, :full_len]
+    y = overlap_save_valid(y, b, frames, k)
+    y = y.reshape(b, frames * (n - k + 1))[:, :full_len]
     if mode == "same":
         start = (k - 1) // 2
         y = y[:, start:start + t]

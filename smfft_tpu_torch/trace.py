@@ -6,16 +6,21 @@ turns it off and hands out the :class:`Records`; there is no other switch.
 Three layers record:
 
   * ``call:<name>``: each public function of :mod:`smfft_tpu_torch.api`,
-    and each N-D transform of :mod:`smfft_tpu_torch.ndim` (``fft2``,
+    each N-D transform of :mod:`smfft_tpu_torch.ndim` (``fft2``,
     ``ifft2``, ``fftn``, ``ifftn``, ``rfft2``, ``irfft2``, ``rfftn``,
-    ``irfftn``), with attributes ``n`` and ``rows`` (the product of the
-    leading dims); a call that routes to another public call holds it as a
-    child, so an N-D call holds one row call a transformed axis;
+    ``irfftn``) and :func:`smfft_tpu_torch.accel.accel_plane`, with
+    attributes ``n`` and ``rows`` (the product of the leading dims); a
+    call that routes to another public call holds it as a child, so an N-D
+    call holds one row call a transformed axis;
   * ``op:<name>``: the body of each autograd ``Function.forward`` of
     ``api.py`` and of ``ndim.py``'s column route (``op:column_c2c``), and
     ``op:fft_complex`` for the unordered C2C that bypasses autograd; a call's own time is its checks and ``Function.apply``.  An
     op whose input is not contiguous rows holds a ``copy`` span, with
-    ``bytes``: the copy ``ops._cuda.contiguous`` makes before the launch;
+    ``bytes``: the copy ``ops._cuda.contiguous`` makes before the launch.
+    ``op:accel_plane`` holds its device passes as spans with the ``bytes``
+    each reads and writes: ``frame`` (the overlap-save framing), the
+    bank's ``call:convolve``, ``crop`` (each segment's valid part, as |y|,
+    into the plane's layout) and ``power`` (the square, in place);
   * ``launch:<kernel>``: each kernel's launch wrapper in ``ops/*``
     (``kernel`` one of ``parallel.dryrun.KERNELS``), with ``rows``, ``n``,
     ``variant`` (the layout, mode or radix) and ``exact``, and its
@@ -93,6 +98,9 @@ _write = _log.extend
 _event = struct.Struct("=12q").pack
 _ids: dict[str, int] = {}      # a span's name or a launch's variant -> number
 _ids_lock = threading.Lock()
+#: the spans with a ``bytes`` attribute: a launch's output allocation, an
+#: op's copy, and the acceleration plane's device passes
+BYTE_SPANS = ("alloc", "copy", "frame", "crop", "power")
 _anchor = (0, 0)               # (time.time_ns, perf_counter_ns) at start()
 # the words of an event
 _KEY, _T0, _T1, _THREAD, _ROWS, _N, _ALLOC, _TABLES, _CALL, _BYTES, \
@@ -159,7 +167,7 @@ def _attrs(name: str, rows: int, n: int, nbytes: int, variant: str,
     if name.startswith("launch:"):
         return {"rows": rows, "n": n, "variant": variant,
                 "exact": bool(exact)}
-    if name in ("alloc", "copy"):
+    if name in BYTE_SPANS:
         return {"bytes": nbytes}
     return {}
 

@@ -1925,3 +1925,28 @@ def test_parallel_matched_filter_example_on_card():
     after = DR.counts()
     assert {k: after[k] - before[k] for k in after
             if after[k] != before[k]} == {"r2c": 1, "conv_real": 1}
+
+
+def test_an_acceleration_plane_of_the_published_bank(dev):
+    """``accel_plane`` of 2 trials of 2^20 samples at zmax 200 (201
+    templates of 233 taps, segments of 2048): one launch of
+    ``conv_kernel``'s bank form at m = 201, held against the plain
+    reference's direct correlation in float64.  max |got - want| /
+    rms(want) reads 1.2-1.4e-05 at 2^23 samples on the card (the fp32
+    spectrum's error, then the bank's transforms); 5e-5 leaves room above
+    that, and bfloat16 storage of the spectrum reads 2e-2 or more."""
+    from smfft_tpu_torch import accel
+    from smfft_tpu_torch.reference import accel_search as ref
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.rand((2, 1 << 20), generator=g, device=dev) * 2 - 1
+    spec = api.rfft_large(x)
+    before = DR.counts()
+    plane = accel.accel_plane(spec)
+    torch.cuda.synchronize()
+    after = DR.counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"conv": 1}
+    assert plane.shape == (2, 201, (1 << 19) + 1)
+    want = ref.plane(ref.spectrum(x), 200, 2)
+    rms = want.square().mean().sqrt()
+    assert ((plane.double() - want).abs().max() / rms).item() < 5e-5
