@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """GPU smoke run of smfft_tpu_torch: builds the kernels, checks them, and
 drives the C2C, real, reuse, convolution, spectral, arbitrary-length,
-huge-N, N-D / DCT and parallel main paths at the working size on one
-NVIDIA GPU.
+huge-N, N-D / DCT and parallel main paths and the acceleration plane at
+the working size on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -176,7 +176,17 @@ Phases (each failure exits non-zero at once):
      composition; after the counters are read, ``api.fft_large`` of the
      same 2^27 vector.  Under (b): ``distributed_fft`` at 2^24 with 4 gloo
      ranks, timed on rank 0 (gloo loopback: not NCCL across cards).
-  Before each of the main paths 4, 5, 8, 10, 12, 14, 16, 18 and 20 the
+ 21. The acceleration plane at the ``fdas.z200.n2e23`` cell's shape:
+     ``accel_plane`` of ACCEL_ROWS spectra of 2^22 + 1 bins at zmax 200
+     (201 templates of 233 taps, segments of 2048), both tiers, each call
+     one ``conv_plane`` launch (the counts reset just before it), every
+     element against the plain composition on the same spectrum (the
+     framing, the plain bank, crop and power: the op under
+     ``plain_on_card()``) within ACCEL_TOL of its rms, "exact" also within
+     8 ulp of its max; then the plane form's time beside the plain
+     composition's and the bound (the spectrum read and the plane written
+     at peak bandwidth).
+  Before each of the main paths 4, 5, 8, 10, 12, 14, 16, 18, 20 and 21 the
      launch counts are read; right after, their rise must equal the
      path's calls (the convolution path runs ``conv`` / ``conv_real`` and,
      once a ``fftconvolve`` call, the R2C or C2C kernel for the taps; a
@@ -216,6 +226,10 @@ M_SWEEP = 3
 STREAMS, STREAM_LEN, TAPS = 64, 1 << 21, 129
 REPS_REUSE = 3
 REPS_CONV = 5
+# the acceleration plane: the fdas.z200.n2e23 cell's trials, samples and
+# drift grid, and test_torch_accel.TOL, max |got - plain| / rms(plain)
+ACCEL_ROWS, ACCEL_SAMPLES, ACCEL_ZMAX, ACCEL_DZ = 2, 1 << 23, 200, 2
+ACCEL_TOL = 5e-5
 # the spectral phases: power sizes, Welch's frames, and the arbitrary
 # lengths with the rows of their main path
 POWER_SIZES = (256, 512, 1024, 2048, 4096)
@@ -3206,6 +3220,94 @@ def parallel_references(rows: list, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def accel_plain(spec: torch.Tensor, exact: bool) -> torch.Tensor:
+    """``accel_plane``'s plain composition on the card (the framing, the
+    plain bank, crop and power, as the op runs them on a CPU spectrum),
+    a third of the templates at a time, so that the "exact" tier's float64
+    bank fits beside the kernel's plane."""
+    from smfft_tpu_torch import accel
+    k = 2 * accel.half_width(ACCEL_ZMAX) + 1
+    h = accel.responses(ACCEL_ZMAX, ACCEL_DZ, accel.choose_nfft(k), exact,
+                        spec.device)
+    m = h.shape[0]
+    out = torch.empty((spec.shape[0], m, spec.shape[1]), device=spec.device)
+    step = -(-m // 3)
+    with plain_on_card():
+        for j in range(0, m, step):
+            out[:, j:j + step] = accel._plane(
+                spec, h[j:j + step], k, "exact" if exact else None)
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_main_accel(card: str):
+    """Phase 21: ``accel_plane`` of ACCEL_ROWS spectra of ACCEL_SAMPLES/2 +
+    1 bins at zmax ACCEL_ZMAX in both tiers, each one ``conv_plane``
+    launch, against :func:`accel_plain` on the same spectrum: within
+    ACCEL_TOL of rms(plain), "exact" also within 8 ulp of max|plain| (the
+    plain composition rounds |y| to float32 twice and squares it: 7 ulp at
+    most, the kernel half of one).  Then, after the counters are read, the
+    call's time beside the plain composition's (the op under
+    ``plain_on_card()``, "highest") and the bound.  Returns (row,
+    launches, worst max |got - plain|)."""
+    from h100bench.work import accel_search as W
+    from smfft_tpu_torch import accel
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    bins = ACCEL_SAMPLES // 2 + 1
+    spec = rand_complex(ACCEL_ROWS, bins, gen)
+    launches, worst = 0, 0.0
+    for precision in (None, "exact"):
+        reset_counts()
+        got = accel.accel_plane(spec, zmax=ACCEL_ZMAX, dz=ACCEL_DZ,
+                                precision=precision)
+        torch.cuda.synchronize()
+        check_counts(f"acceleration plane ({precision or 'highest'})",
+                     {"conv_plane": 1})
+        launches += 1
+        plain = accel_plain(spec, precision == "exact")
+        err = rms = top = 0.0
+        for i in range(ACCEL_ROWS):
+            for j in range(0, plain.shape[1], 67):
+                a = got[i, j:j + 67].double()
+                b = plain[i, j:j + 67].double()
+                err = max(err, (a - b).abs().max().item())
+                rms += b.square().sum().item()
+                top = max(top, b.max().item())
+                del a, b
+        rms = math.sqrt(rms / plain.numel())
+        del got, plain
+        torch.cuda.empty_cache()
+        worst = max(worst, err)
+        print(f"accel_plane {ACCEL_ROWS} x {bins} bins, zmax {ACCEL_ZMAX}, "
+              f"{precision or 'highest'}: max |got - plain| {err:.4e} = "
+              f"{err / rms:.3e} rms(plain) (limit {ACCEL_TOL:g}) = "
+              f"{err / ulp(top):.2f} ulp(max|plain|)")
+        if err > ACCEL_TOL * rms:
+            fail(f"accel_plane {precision or 'highest'}: {err / rms:.3e} "
+                 f"rms(plain) against the plain composition")
+        if precision == "exact" and err > 8 * ulp(top):
+            fail(f"accel_plane exact: {err / ulp(top):.2f} ulp(max|plain|) "
+                 "against the plain composition")
+    ms = cuda_ms(lambda: accel.accel_plane(spec, zmax=ACCEL_ZMAX,
+                                           dz=ACCEL_DZ), reps=REPS_CONV)
+    torch.cuda.empty_cache()
+    with plain_on_card():
+        ms_plain = cuda_ms(lambda: accel.accel_plane(
+            spec, zmax=ACCEL_ZMAX, dz=ACCEL_DZ), reps=1)
+    torch.cuda.empty_cache()
+    traffic = {"n": ACCEL_SAMPLES, "rows": ACCEL_ROWS}
+    nbytes = W.plane_bytes(traffic)
+    bound_ms, bound_by = least_ms(nbytes, W.plane_flops(traffic))
+    row = {"what": "accel_plane", "rows": ACCEL_ROWS, "bins": bins,
+           "zmax": ACCEL_ZMAX, "ms": ms, "gbs": nbytes / ms / 1e6,
+           "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"accel_plane {ACCEL_ROWS} x {bins} bins, zmax {ACCEL_ZMAX} "
+          f"({card}): {ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s | bound "
+          f"{bound_ms:.4f} ms ({bound_by}), at {bound_ms / ms:.3f} | plain "
+          f"composition {ms_plain:.2f} ms")
+    return row, launches, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)")
@@ -3289,6 +3391,7 @@ def main() -> int:
         fail("the gloo ranks did not go through their kernels once per call")
     print(f"parallel: worst error against the plain versions "
           f"{max(worst_par, worst_par_main, worst_gloo):.3e}")
+    accel_row, accel_launches, worst_accel = phase_main_accel(card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -3372,6 +3475,20 @@ def main() -> int:
         if "composition_ms" in row:
             entry["composition_ms"] = row["composition_ms"]
         kernels.append(entry)
+    print("main path rows: " + json.dumps({"card": card,
+                                           "accel": accel_row}))
+    print("conv_plane replaces no TPU kernel: accel_plane at zmax 200 of 2 "
+          "spectra of 2^22 + 1 bins (the fdas.z200.n2e23 cell's call); "
+          "plain_ms is the op's plain composition on the card (framing, "
+          "plain bank, crop, power); bound_ms the spectrum read and the "
+          "plane written at peak bandwidth")
+    kernels.append({"name": "conv_plane", "route": "cuda",
+                    "source": "smfft_tpu_torch/csrc/conv.cu",
+                    "replaces": None, "launches": accel_launches,
+                    "max_abs_err": worst_accel, "ms": accel_row["ms"],
+                    "plain_ms": accel_row["plain_ms"],
+                    "bound_ms": accel_row["bound_ms"],
+                    "bound_by": accel_row["bound_by"], "library_ms": None})
     print("main path rows: " + json.dumps({"card": card,
                                            "spectral": spec_rows,
                                            "bluestein": blue_rows}))

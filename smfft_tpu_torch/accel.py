@@ -23,13 +23,29 @@ over the observation, exactly delta_q0 at z = 0.
 
 :func:`accel_plane` builds the bank on the spectrum's device in float64
 once per (zmax, dz, device) (:func:`templates`) and its natural-order
-frequency responses once per segment length and tier, frames the spectrum
-by overlap-save (``signal.overlap_save_frames``), runs one fused
-convolution launch for the whole bank (``api.convolve``: ``conv_kernel``'s
-bank form, each segment's forward transform once, kept in registers
-through the m inverse transforms), then writes |y| of each segment's valid
-part into the (trial, template, bin) layout (the ``crop`` pass: ``hypot``
-of the real and imaginary planes) and squares it in place (the ``power``
+frequency responses once per segment length and tier (:func:`responses`),
+then computes the plane by overlap-save in segments of
+:func:`choose_nfft`'s length n.
+
+On a CUDA spectrum that is one launch (``ops.convolve.launch_conv_plane``):
+the plane form of ``conv_kernel``'s bank in ``csrc/conv.cu``.  Its prologue
+reads each segment from the spectrum in place (position p of segment f of
+trial t is X_t[f hop + p - left], hop = n - k + 1, left = k - 1 - (k -
+1)//2, zero outside the L bins), its forward transform runs once and stays
+in registers through the m inverse transforms, and its epilogue stores
+|y|^2 of each point p >= k - 1 of inverse j, unrounded and in the tier's
+precision, as float32 to bin f hop + p - (k - 1) of the (t, j) row of the
+plane, where that bin is below L.  The responses are the CPU path's, the
+inverse's 1/n applied to each segment's points as they are read.  No padded row, frame, complex segment
+or |y| reaches device memory.  It is an instantiation of its own, beside
+the bank's: its output differs in kind (float power at whole bins, not
+complex segments), so the bank's callers keep their machine code.
+
+On a CPU spectrum the plane form's plain version runs: the framing
+(``signal.overlap_save_frames``), one ``api.convolve`` of the whole bank
+(the plain ``conv_kernel`` bank), then |y| of each segment's valid part
+into the (trial, template, bin) layout (the ``crop`` pass: ``hypot`` of
+the real and imaginary planes) and its square in place (the ``power``
 pass).
 """
 
@@ -41,6 +57,9 @@ import torch
 
 from smfft_tpu_torch import api
 from smfft_tpu_torch import trace as _T
+from smfft_tpu_torch.ops import _cuda
+from smfft_tpu_torch.ops import c2c as C
+from smfft_tpu_torch.ops import convolve as CV
 from smfft_tpu_torch.params import SUPPORTED_C2C_SIZES
 from smfft_tpu_torch.signal import overlap_save_frames, overlap_save_valid
 
@@ -55,7 +74,9 @@ _CHUNK = 1 << 14
 built = 0
 #: bytes the plane's device passes have read and written in this process,
 #: counted from the tensors' sizes whether or not recording is on
-#: (``parallel.dryrun.plane_bytes``)
+#: (``parallel.dryrun.plane_bytes``): on the card the plane form's segments
+#: read, its responses once and the plane written; on the CPU the framing,
+#: the bank's convolution, the crop and the power
 moved = 0
 
 _banks: dict = {}
@@ -153,13 +174,19 @@ def responses(zmax: float, dz: float, n: int, exact: bool,
 def _plane(x: torch.Tensor, h: torch.Tensor, k: int,
            precision: str | None) -> torch.Tensor:
     """The op: spectra (T, L) complex64 against responses (m, n) ->
-    float32 (T, m, L)."""
+    float32 (T, m, L): on a CUDA spectrum the plane form, on a CPU one its
+    plain version, ``h`` from :func:`responses` on both."""
     global moved
     t0 = _T.on and _T.now()
     try:
         rows, bins = x.shape
         m, n = h.shape
         hop = n - k + 1
+        if not C.is_cpu(x):
+            out = CV.launch_conv_plane(_cuda.contiguous(x), h=h, k=k,
+                                       exact=api._exact(precision))
+            moved += rows * -(-bins // hop) * n * 8 + h.nbytes + out.nbytes
+            return out
         t = _T.on and _T.now()
         fx, frames = overlap_save_frames(x, k, n, (k - 1) // 2, bins)
         # the padded rows: the spectrum read, the row written; the frames

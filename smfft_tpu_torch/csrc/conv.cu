@@ -2,7 +2,8 @@
 // inverse transform of every row in one kernel, with one read and one
 // write of device memory.  Two kernels for Hopper (sm_90a), each in an
 // fp32 and an "exact" (fp64 arithmetic) instantiation, and each in a
-// single-filter (m = 1) and a filter-bank (m > 1) form.
+// single-filter (m = 1) and a filter-bank (m > 1) form; and the complex
+// bank's plane form, a third kernel.
 //
 // conv_kernel replaces the TPU kernels
 //   smfft_tpu/ops/convolve.py::_build_conv       (m = 1)
@@ -21,6 +22,14 @@
 // Re H[L]), bins 1..L-1 as given, 1/L folded in.  Slot 0 of the packed
 // spectrum is (DC, Nyquist), two real numbers, each multiplied by its own
 // real response.
+//
+// conv_plane_kernel replaces no TPU kernel: it is the acceleration
+// search's power plane (accel.py) in one launch.  For spectra x (T, L)
+// complex64 and m responses (m, n) of k-tap filters it computes
+//     P[t, j, b] = |y_tj[(k - 1)/2 + b]|^2,   b < L,
+// y_tj the linear convolution of x[t] (zero beyond both ends) with filter
+// j, by overlap-save in segments of n = 256..16384 points, hop = n - k + 1,
+// ceil(L / hop) segments a trial, float32 (T, m, L).
 //
 // What bounds them on the H100: device memory.  A call reads each input
 // point once and writes each output once: 8 + 8m bytes a complex point,
@@ -83,6 +92,33 @@
 //   * "exact": fp64 arithmetic, twiddles and responses, fp64 shared memory
 //     and registers between the stages up to 8192 points, fp32 storage at
 //     N = 16384 (the real kernel's L stops at 8192);
+//   * conv_plane_kernel, its own instantiation beside the bank's (so that
+//     the bank's callers keep their machine code: its output differs in
+//     kind, float power at whole bins against complex segments): the
+//     bank's loop (bank_loop, which both call), one forward transform a
+//     segment kept in registers across the m inverses, with its own
+//     prologue and epilogue.  The
+//     prologue reads row r, segment f = r mod S of spectrum i = r / S (S
+//     = ceil(L / hop) segments a spectrum), straight from the spectrum:
+//     position p from x[i, f*hop + p - left], left = k - 1 - (k - 1)/2,
+//     zero outside [0, L); no padded row or frame in device memory.  The
+//     epilogue takes each unrounded output of inverse j in the core's
+//     last stage (point p = t + s*TPF, natural order) and, for p >= k - 1
+//     with bin f*hop + p - (k - 1) < L, stores re^2 + im^2, computed in
+//     the tier's precision, as float32 to that bin of plane row (i, j)
+//     (the responses are unscaled: the prologue multiplies each point by
+//     the inverse's 1/n, exactly),
+//     so no complex segment or |y| reaches device memory: consecutive
+//     threads store consecutive bins (evict-first, so that the responses
+//     stay in L2), a block's rows are consecutive segments (one, of 4
+//     warps, from n = 2048 on: ConvPlane), and the ragged last segment of
+//     a trial stores only its bins below L.  It moves the segments'
+//     reads, the responses from L2 and the plane's 4 bytes a bin and
+//     template (6.74 GB for 2 x (2^22 + 1) bins against 201 templates of
+//     233 taps at n = 2048, 2.0 ms at peak bandwidth, against 1.74 ms of
+//     fp32 operations at peak): its transforms' SM work bounds it (4.66-
+//     4.86 ms alone on the H100), the store floor beside it (the bank
+//     form would write 15.2 GB of complex segments there);
 //   * 64-bit offsets (the output is (m, B, N)); the ragged tail of the
 //     batch computes on zeros and stores nothing, and every thread meets
 //     every barrier; the launchers return cudaGetLastError() right after
@@ -119,6 +155,39 @@ struct ConvReal {
     static constexpr int FIT = (int)(233472 / (SMEM + 1024));
     static constexpr int MINB = G::MINB < FIT ? G::MINB : FIT;
 };
+
+// The bank's loop, which conv_kernel's bank form and its plane form share:
+// the forward transform of the row in u once, kept in registers across the
+// m inverses.  Inverse j's last stage hands each output point t + s*TPF,
+// unrounded, to last(j)(s, v), which returns it; stored(j) follows with
+// the outputs in u.
+template <class G, class Last, class Stored>
+__device__ __forceinline__ void bank_loop(
+    typename G::S (&u)[G::E], typename G::S* a, typename G::S* b, int t,
+    const typename G::C* tab, int m, const typename G::C* __restrict__ h,
+    Last last, Stored stored) {
+    using C = typename G::C;
+    using S = typename G::S;
+    using Core = typename G::Core;
+    using T = real_t<C>;
+    constexpr int E = G::E, TPF = G::TPF, N = E * TPF;
+    Core::template run_regs<false, false>(u, a, b, t, tab, false, T(-1),
+                                          [](int, C v) { return v; });
+    S spec[E];
+#pragma unroll
+    for (int s = 0; s < E; ++s) spec[s] = u[s];
+    for (int j = 0; j < m; ++j) {
+        const C* hj = h + (int64_t)j * N;
+        // the next first stage writes a, which the last stage read
+        if (!Core::LAST_READS_B) __syncthreads();
+#pragma unroll
+        for (int s = 0; s < E; ++s)
+            put(u[s], cmul(as<C>(spec[s]), __ldg(&hj[t + s * TPF])));
+        Core::template run_regs<false, false>(u, a, b, t, tab, true, T(1),
+                                              last(j));
+        stored(j);
+    }
+}
 
 template <int N, bool EXACT, bool BANK>
 __global__ void __launch_bounds__(ConvGeometry<N, EXACT>::THREADS,
@@ -167,30 +236,107 @@ conv_kernel(Io io, int64_t batch, int m,
                 io.store(row + t + s * TPF, as<float2>(u[s]));
         }
     } else {
-        // the bank: the spectrum once, kept in registers across the m
-        // inverses
-        Core::template run_regs<false, false>(u, a, b, t, tab, false,
-                                              T(-1), same);
-        S spec[E];
+        bank_loop<G>(u, a, b, t, tab, m, h, [&](int) { return same; },
+                     [&](int j) {
+                         if (live) {
+                             const int64_t out = (int64_t)j * batch * N + row;
 #pragma unroll
-        for (int s = 0; s < E; ++s) spec[s] = u[s];
-        for (int j = 0; j < m; ++j) {
-            const C* hj = h + (int64_t)j * N;
-            // the next first stage writes a, which the last stage read
-            if (!Core::LAST_READS_B) __syncthreads();
-#pragma unroll
-            for (int s = 0; s < E; ++s)
-                put(u[s], cmul(as<C>(spec[s]), __ldg(&hj[t + s * TPF])));
-            Core::template run_regs<false, false>(u, a, b, t, tab, true,
-                                                  T(1), same);
-            if (live) {
-                const int64_t out = (int64_t)j * batch * N + row;
-#pragma unroll
-                for (int s = 0; s < E; ++s)
-                    io.store(out + t + s * TPF, as<float2>(u[s]));
-            }
-        }
+                             for (int s = 0; s < E; ++s)
+                                 io.store(out + t + s * TPF, as<float2>(u[s]));
+                         }
+                     });
     }
+}
+
+// The plane form's block: F = 128 / TPF rows of ConvGeometry's buffers
+// and stage table, one from N = 2048 on, where ConvGeometry's block holds
+// 256 threads.  Its barriers then hold fewer segments: at N = 2048 one
+// segment of 4 warps a block, 4 blocks an SM, ran in 4.82 ms where
+// ConvGeometry's 2 segments a block took 5.59, 4 segments 7.15 (the
+// cell's 4620 segments x 201 templates alone on the H100).
+template <int N, bool EXACT>
+struct ConvPlane {
+    using G = ConvGeometry<N, EXACT>;
+    static constexpr int F = G::TPF >= 128 ? 1 : 128 / G::TPF;
+    static constexpr int THREADS = F * G::TPF;
+    static constexpr size_t SMEM = (size_t)F * G::BUF * sizeof(typename G::S) +
+                                   G::TAB * sizeof(typename G::C);
+    static constexpr int BY_SMEM = (int)(233472 / (SMEM + 1024));
+    static constexpr int BY_WARPS = CONV_WARPS * 32 / THREADS;
+    static constexpr int MINB =
+        BY_SMEM < BY_WARPS ? (BY_SMEM > 0 ? BY_SMEM : 1)
+                           : (BY_WARPS > 0 ? BY_WARPS : 1);
+    static unsigned blocks(int64_t batch) {
+        return (unsigned)((batch + F - 1) / F);
+    }
+};
+
+// The bank's plane form: conv_kernel's bank loop, with the overlap-save
+// framing as its prologue and the valid part's power as its epilogue.
+// Row r of the launch is segment fr = r % frames of spectrum
+// trial = r / frames; it holds x[trial, fr*hop + p - left] at position p
+// (zero outside [0, bins)), and after inverse j its points p >= k - 1
+// are bins fr*hop + p - (k - 1) of the (trial, j) row of the plane.
+template <int N, bool EXACT>
+__global__ void __launch_bounds__(ConvPlane<N, EXACT>::THREADS,
+                                  ConvPlane<N, EXACT>::MINB)
+conv_plane_kernel(const float2* __restrict__ x, float* __restrict__ plane,
+                  int64_t batch, int64_t bins, int64_t frames, int k, int m,
+                  const typename ConvGeometry<N, EXACT>::C* __restrict__ h,
+                  const typename ConvGeometry<N, EXACT>::C* __restrict__ tw) {
+    using K = ConvPlane<N, EXACT>;
+    using G = typename K::G;
+    using C = typename G::C;
+    using S = typename G::S;
+    using Core = typename G::Core;
+    constexpr int E = G::E, TPF = G::TPF;
+    S* smem = shared_buffer<S>();
+    C* tab = reinterpret_cast<C*>(smem + K::F * G::BUF);
+    Core::fill(tab, tw, threadIdx.x, K::THREADS);
+    const int f = threadIdx.x / TPF, t = threadIdx.x % TPF;
+    const int64_t r = (int64_t)blockIdx.x * K::F + f;  // this segment
+    const bool live = r < batch;
+    const int64_t trial = r / frames;
+    const int64_t first = (r - trial * frames) * (N - k + 1);  // its bin 0
+    const int64_t left = k - 1 - (k - 1) / 2;
+    // position p reads x[trial, first + p - left] where that lies in
+    // [0, bins), and its power is bin first + p - (k - 1) where that lies
+    // below bins
+    const float2* xs = x + trial * bins + first - left;
+    const int64_t in_lo = left - first, in_hi = bins - first + left;
+    const int64_t out_hi = bins - first + k - 1;
+    S* a = smem + f * G::BUF;
+    S* b = G::PP ? a + G::SLOT : a;
+    // the inverse's 1/N, on the load (a power of two: the products are
+    // exact), so that the responses are unscaled
+    constexpr float INV = 1.0f / N;
+
+    S u[E];
+    unsigned keep = 0;  // bit s: point t + s*TPF is stored
+#pragma unroll
+    for (int s = 0; s < E; ++s) {
+        const int p = t + s * TPF;
+        const float2 v = live && p >= in_lo && p < in_hi
+                             ? __ldg(xs + p) : make_float2(0.0f, 0.0f);
+        put(u[s], make_float2(v.x * INV, v.y * INV));
+        keep |= (unsigned)(live && p >= k - 1 && p < out_hi) << s;
+    }
+    // |y|^2 of each kept point, unrounded, in the tier's precision; stored
+    // evict-first, so that the responses stay in L2 (4.65 ms against 4.92
+    // with plain stores, and 5.16 with the three compares of each point in
+    // place of the mask, at N = 2048)
+    bank_loop<G>(u, a, b, t, tab, m, h,
+                 [&](int j) {
+                     float* out = plane + (trial * m + j) * bins + first -
+                                  (k - 1);
+                     return [=](int s, C v) {
+                         if ((keep >> s) & 1u)
+                             __stcs(out + t + s * TPF,
+                                    (float)(v.x * v.x + v.y * v.y));
+                         return v;
+                     };
+                 },
+                 [](int) {});
 }
 
 // Z'[k], Z'[L-k] of the pair (k, L-k), 0 < k <= L/2, from its split X[k],
@@ -371,6 +517,22 @@ cudaError_t launch_conv(const Io& io, int64_t batch, int m, const void* h,
                                                      stream);
 }
 
+template <int N, bool EXACT>
+cudaError_t launch_conv_plane(const float2* x, float* plane, int64_t rows,
+                              int64_t bins, int k, int m, const void* h,
+                              const void* tw, cudaStream_t stream) {
+    using K = ConvPlane<N, EXACT>;
+    using C = typename K::G::C;
+    auto kernel = conv_plane_kernel<N, EXACT>;
+    cudaError_t err = allow_smem(kernel, K::SMEM);
+    if (err != cudaSuccess) return err;
+    const int64_t frames = (bins + N - k) / (N - k + 1);
+    kernel<<<K::blocks(rows * frames), K::THREADS, K::SMEM, stream>>>(
+        x, plane, rows * frames, bins, frames, k, m,
+        static_cast<const C*>(h), static_cast<const C*>(tw));
+    return cudaGetLastError();
+}
+
 template <int L, bool EXACT, bool BANK>
 cudaError_t launch_conv_real_form(const float* x, float* y, int64_t batch,
                                   int m, const void* h, const void* tw,
@@ -431,6 +593,42 @@ int smfft_conv(const void* in_re, const void* in_im, void* out_re,
         SMFFT_CASE(32)
         SMFFT_CASE(64)
         SMFFT_CASE(128)
+        SMFFT_CASE(256)
+        SMFFT_CASE(512)
+        SMFFT_CASE(1024)
+        SMFFT_CASE(2048)
+        SMFFT_CASE(4096)
+        SMFFT_CASE(8192)
+        SMFFT_CASE(16384)
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+#undef SMFFT_CASE
+}
+
+// Spectra x (rows, bins) complex64, 8-byte aligned, against m >= 1
+// responses h (m, n) of k-tap filters, 1 <= k < n, as smfft_conv's but
+// without the 1/n (the kernel scales each segment's points by it) ->
+// plane (rows, m, bins) float32: |y|^2 of output (k - 1)/2 + b of each
+// row's linear convolution with each filter (x zero beyond both ends), by
+// overlap-save in segments of n = 256..16384 points.  Returns a
+// cudaError_t.
+int smfft_conv_plane(const void* x, void* plane, int64_t rows, int64_t bins,
+                     int64_t n, int k, int m, const void* h,
+                     const void* tw_f, int exact, void* stream) {
+    if (rows <= 0 || bins <= 0) return (int)cudaSuccess;
+    if (m < 1 || k < 1 || k >= n) return (int)cudaErrorInvalidValue;
+    const float2* xf = static_cast<const float2*>(x);
+    float* pf = static_cast<float*>(plane);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SMFFT_CASE(NN)                                                       \
+    case NN:                                                                 \
+        return (int)(exact ? launch_conv_plane<NN, true>(xf, pf, rows, bins, \
+                                                         k, m, h, tw_f, st)  \
+                           : launch_conv_plane<NN, false>(xf, pf, rows,      \
+                                                          bins, k, m, h,     \
+                                                          tw_f, st));
+    switch (n) {
         SMFFT_CASE(256)
         SMFFT_CASE(512)
         SMFFT_CASE(1024)

@@ -153,7 +153,8 @@ def register_report(log: str | None = None) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             k = re.search(r"(c2c_multiple_kernel|real_multiple_kernel|"
-                          r"conv_real_kernel|conv_kernel|[cr]2[cr]_kernel|"
+                          r"conv_real_kernel|conv_plane_kernel|conv_kernel|"
+                          r"[cr]2[cr]_kernel|"
                           r"power_kernel|bluestein_kernel|"
                           r"fourstep_pass_kernel|real_huge_kernel)"
                           r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?(Lb1E)?", name)
@@ -218,7 +219,7 @@ C2C_PLAN_BYTES = Entry(None, "smfft_c2c_plan_bytes")
 C2C_PREPARE = Entry(None, "smfft_c2c_prepare", _P, _I, _C, _C, _C, _C, _C,
                     _P)
 ERROR_STRING = Entry(None, "smfft_error_string", _C, restype=ctypes.c_char_p)
-# the eleven kernels, in the order parallel.dryrun.counts() reports them;
+# the twelve kernels, in the order parallel.dryrun.counts() reports them;
 # each takes the stream last
 C2C_RUN = Entry("c2c", "smfft_c2c_run", _P, _P, _P, _P, _P, _I, _F, _P)
 R2C = Entry("r2c", "smfft_r2c", _P, _P, _P, _C, _I, _I, _P, _P, _C, _P)
@@ -240,6 +241,8 @@ FOURSTEP_PASS = Entry("fourstep_pass", "smfft_fourstep_pass", _P, _P, _C, _C,
                       _P)
 REAL_HUGE = Entry("real_huge", "smfft_real_huge", _C, _P, _C, _P, _P, _C, _I,
                   _I, _I, _I, _D, _P, _P, _C, _C, _P)
+CONV_PLANE = Entry("conv_plane", "smfft_conv_plane", _P, _P, _I, _I, _I, _C,
+                   _C, _P, _P, _C, _P)
 #: the kernels' entry points by name
 KERNELS = {e.kernel: e for e in ENTRIES if e.kernel}
 

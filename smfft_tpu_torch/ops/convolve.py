@@ -12,7 +12,11 @@ device memory:
   * :func:`launch_conv_real` — real rows (B, n), n = 256..16384, against m
     rfft-style responses (m, n/2 + 1): ``y[j] = irfft(rfft(x) * H[j])``,
     (m, B, n).  The imaginary parts of H[0] and H[n/2] are ignored (zero
-    for a real filter), as in the JAX package.
+    for a real filter), as in the JAX package;
+  * :func:`launch_conv_plane` — the complex bank's plane form, which
+    replaces no TPU kernel: spectra (T, L) framed by overlap-save in the
+    kernel's prologue, |y|^2 of each segment's valid part stored by its
+    epilogue as the float32 (T, m, L) plane (``accel.accel_plane``).
 
 m = 1 is the single form (the JAX package's ``_build_conv`` /
 ``_build_conv_real``), m > 1 the filter bank (``_build_conv_bank`` /
@@ -181,6 +185,53 @@ def launch_conv_real(x: torch.Tensor, *, h: torch.Tensor,
     finally:
         if sp:
             _T.launched(sp, a, t, c, out, "launch:conv_real", "real",
+                        exact, b, n)
+    return out
+
+
+def launch_conv_plane(x: torch.Tensor, *, h: torch.Tensor, k: int,
+                      exact: bool = False) -> torch.Tensor:
+    """Launch ``conv_plane_kernel`` of ``csrc/conv.cu`` on the current CUDA
+    stream: spectra ``x`` complex64 (T, L) against m natural-order
+    responses ``h`` (m, n) of ``k``-tap filters, 1 <= k < n, n =
+    256..16384, complex64 (complex128 for "exact"), unscaled: the kernel
+    multiplies each segment's points by 1/n -> float32 (T, m, L): |y|^2 of output
+    (k - 1)//2 + b, b < L, of each row's linear convolution with each
+    filter (x zero beyond both ends), by overlap-save in segments of n
+    points, read from ``x`` in place.  The CPU path has no plain
+    version of its own: ``accel._plane`` composes the framing,
+    :func:`conv_plain`, the crop and the power there."""
+    sp = _T.on and _T.now()
+    a = t = c = out = b = n = 0
+    try:
+        if x.dim() != 2 or x.dtype != torch.complex64:
+            raise ValueError(f"x must be complex64 (trials, bins), got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if h.dim() != 2:
+            raise ValueError(f"h must be (m, n), got {tuple(h.shape)}")
+        rows, bins = x.shape
+        n = h.shape[1]
+        if n < 256 or n not in P.SUPPORTED_C2C_SIZES:
+            raise ValueError(f"h must be (m, n), n a C2C size from 256, got "
+                             f"{tuple(h.shape)}")
+        if not 1 <= k < n:
+            raise ValueError(f"need 1 <= k < n, got k={k}, n={n}")
+        m = _check_response(h, x, n, exact)
+        b = rows * -(-bins // (n - k + 1))
+        a = sp and _T.now()
+        _cuda.check_rows(x)
+        out = torch.empty((rows, m, bins), device=x.device)
+        t = sp and _T.now()
+        tw_f = C.device_twiddles(n, False, bool(exact), x.device)
+        c = sp and _T.now()
+        _cuda.launch(_cuda.CONV_PLANE, x.get_device(),
+                     ("conv_plane kernel launch (n={}, trials={}, bins={}, "
+                      "m={})", n, rows, bins, m),
+                     x.data_ptr(), out.data_ptr(), rows, bins, n, k, m,
+                     h.data_ptr(), tw_f.data_ptr(), int(exact))
+    finally:
+        if sp:
+            _T.launched(sp, a, t, c, out, "launch:conv_plane", "plane",
                         exact, b, n)
     return out
 

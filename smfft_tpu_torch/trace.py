@@ -17,10 +17,12 @@ Three layers record:
     ``op:fft_complex`` for the unordered C2C that bypasses autograd; a call's own time is its checks and ``Function.apply``.  An
     op whose input is not contiguous rows holds a ``copy`` span, with
     ``bytes``: the copy ``ops._cuda.contiguous`` makes before the launch.
-    ``op:accel_plane`` holds its device passes as spans with the ``bytes``
-    each reads and writes: ``frame`` (the overlap-save framing), the
-    bank's ``call:convolve``, ``crop`` (each segment's valid part, as |y|,
-    into the plane's layout) and ``power`` (the square, in place);
+    ``op:accel_plane`` holds, on a CUDA spectrum, one
+    ``launch:conv_plane`` (the bank's plane form); on a CPU one its plain
+    passes as spans with the ``bytes`` each reads and writes: ``frame``
+    (the overlap-save framing), the bank's ``call:convolve``, ``crop``
+    (each segment's valid part, as |y|, into the plane's layout) and
+    ``power`` (the square, in place);
   * ``launch:<kernel>``: each kernel's launch wrapper in ``ops/*``
     (``kernel`` one of ``parallel.dryrun.KERNELS``), with ``rows``, ``n``,
     ``variant`` (the layout, mode or radix) and ``exact``, and its

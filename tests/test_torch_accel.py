@@ -255,3 +255,122 @@ def test_the_reference_imports_nothing_of_the_port_and_no_jax():
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
     assert names and set(names) <= {"__future__", "math", "torch"}
+
+
+# ---------------------------------------------------------------------------
+# The plane form's wrapper and the op's card branch, on CPU tensors.
+# ---------------------------------------------------------------------------
+
+
+def _wrapper_args(**bad):
+    args = dict(x=torch.zeros(2, 1000, dtype=torch.complex64),
+                h=torch.zeros(9, 256, dtype=torch.complex64), k=41)
+    args.update(bad)
+    return args
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(x=torch.zeros(2, 1000)), "x must be complex64"),
+    (dict(x=torch.zeros(2, 1000, dtype=torch.complex128)),
+     "x must be complex64"),
+    (dict(x=torch.zeros(2, 3, 1000, dtype=torch.complex64)),
+     "x must be complex64"),
+    (dict(x=torch.zeros(1000, dtype=torch.complex64)), "x must be complex64"),
+    (dict(k=256), "1 <= k < n"),
+    (dict(k=300), "1 <= k < n"),
+    (dict(k=0), "1 <= k < n"),
+    (dict(h=torch.zeros(256, dtype=torch.complex64)), r"h must be \(m, n\)"),
+    (dict(h=torch.zeros(9, 300, dtype=torch.complex64)),
+     r"h must be \(m, n\)"),
+    (dict(h=torch.zeros(9, 128, dtype=torch.complex64)),
+     r"h must be \(m, n\)"),
+    (dict(h=torch.zeros(0, 256, dtype=torch.complex64)),
+     r"h must be \(m, 256\)"),
+    (dict(h=torch.zeros(9, 256, dtype=torch.complex128)),
+     "h must be contiguous torch.complex64"),
+    (dict(), "x must be a CUDA tensor"),
+])
+def test_the_plane_forms_wrapper_checks_its_arguments(bad, match):
+    """``launch_conv_plane`` raises before any launch: a spectrum that is
+    not complex64 (T, L), k outside [1, n), a response that is not (m, n)
+    at a segment length from 256 or not of the tier's type, and a CPU
+    tensor, which only the plain composition of ``accel_plane`` takes."""
+    from smfft_tpu_torch.ops import _cuda
+    from smfft_tpu_torch.ops import convolve as CV
+    before = _cuda.CONV_PLANE.count
+    with pytest.raises(ValueError, match=match):
+        CV.launch_conv_plane(**_wrapper_args(**bad))
+    assert _cuda.CONV_PLANE.count == before
+
+
+def test_the_launch_counts_carry_the_plane_form():
+    """``dryrun.counts()`` keys every kernel's declaration, the plane form
+    last."""
+    counts = dryrun.counts()
+    assert list(counts)[-1] == "conv_plane"
+    assert len(counts) == 12 and "conv" in counts
+
+
+class _PlaneLib:
+    """The library's entry points stood in: ``smfft_conv_plane`` records
+    its arguments and returns 0; the others return 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def smfft_conv_plane(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+@pytest.mark.parametrize("precision", [None, "exact"])
+def test_the_card_branch_is_one_launch_of_the_plane_form(monkeypatch,
+                                                        precision):
+    """``accel_plane`` of a spectrum that is not on the CPU: the op holds
+    one ``launch:conv_plane`` and no framing, convolution, crop or power;
+    the launch reads the spectrum in place, passes the segment length of
+    ``choose_nfft``, the taps, the templates and the CPU path's unscaled
+    responses; ``plane_bytes`` rises by
+    the segments read, the responses once and the plane written."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_launch_path import launch_path
+    from smfft_tpu_torch.ops import _cuda
+    from smfft_tpu_torch.ops import c2c as C
+    lib = launch_path(monkeypatch, _PlaneLib())
+    monkeypatch.setattr(C, "is_cpu", lambda t: False)
+    rows, n, zmax = 2, 1 << 12, 8
+    spec = ref.spectrum(_trials(rows, n, 2)).to(torch.complex64)
+    bins, m, k = n // 2 + 1, zmax + 1, 2 * accel.half_width(zmax) + 1
+    nf = accel.choose_nfft(k)
+    frames = -(-bins // (nf - k + 1))
+    exact = precision == "exact"
+    counts, moved = dryrun.counts(), dryrun.plane_bytes()
+    trace.start()
+    out = S.accel_plane(spec, zmax=zmax, precision=precision)
+    spans = _spans(trace.stop())
+    assert out.shape == (rows, m, bins) and out.dtype == torch.float32
+    after = dryrun.counts()
+    assert {c: after[c] - counts[c] for c in after
+            if after[c] != counts[c]} == {"conv_plane": 1}
+    (args,) = lib.calls
+    h = accel.responses(zmax, 2, nf, exact, "cpu")
+    assert args[0] == spec.data_ptr() and args[1] == out.data_ptr()
+    assert args[2:7] == (rows, bins, nf, k, m)
+    assert args[7] == h.data_ptr() and args[9] == int(exact)
+    assert h.dtype == (torch.complex128 if exact else torch.complex64)
+    assert dryrun.plane_bytes() - moved == (rows * frames * nf * 8 + h.nbytes
+                                            + rows * m * bins * 4)
+    assert [(s["name"], s["parent"]) for s in spans] == [
+        ("call:accel_plane", -1), ("op:accel_plane", 0),
+        ("launch:conv_plane", 1), ("alloc", 2), ("tables", 2), ("call", 2)]
+    assert spans[2]["attrs"] == {"rows": rows * frames, "n": nf,
+                                 "variant": "plane", "exact": exact}
+    assert spans[3]["attrs"] == {"bytes": out.nbytes}
+    # the responses are the CPU path's, built once and served from the
+    # cache
+    S.accel_plane(spec, zmax=zmax, precision=precision)
+    assert lib.calls[1][7] == h.data_ptr()

@@ -1929,8 +1929,8 @@ def test_parallel_matched_filter_example_on_card():
 
 def test_an_acceleration_plane_of_the_published_bank(dev):
     """``accel_plane`` of 2 trials of 2^20 samples at zmax 200 (201
-    templates of 233 taps, segments of 2048): one launch of
-    ``conv_kernel``'s bank form at m = 201, held against the plain
+    templates of 233 taps, segments of 2048): one launch of the bank's
+    plane form at m = 201, held against the plain
     reference's direct correlation in float64.  max |got - want| /
     rms(want) reads 1.2-1.4e-05 at 2^23 samples on the card (the fp32
     spectrum's error, then the bank's transforms); 5e-5 leaves room above
@@ -1945,8 +1945,99 @@ def test_an_acceleration_plane_of_the_published_bank(dev):
     torch.cuda.synchronize()
     after = DR.counts()
     assert {k: after[k] - before[k] for k in after
-            if after[k] != before[k]} == {"conv": 1}
+            if after[k] != before[k]} == {"conv_plane": 1}
     assert plane.shape == (2, 201, (1 << 19) + 1)
     want = ref.plane(ref.spectrum(x), 200, 2)
     rms = want.square().mean().sqrt()
     assert ((plane.double() - want).abs().max() / rms).item() < 5e-5
+
+
+# the plane form's tolerance: ``test_torch_accel.TOL``, max |got - want| /
+# rms(want) over a plane
+PLANE_TOL = 5e-5
+
+
+def _plane_err(got, want):
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.square().mean().sqrt()
+            ).item()
+
+
+@pytest.mark.parametrize("zmax,samples,rows,precision,dtype", [
+    (8, 1 << 16, 2, None, torch.complex64),
+    (8, 1 << 16, 2, "exact", torch.complex64),
+    (30, 1 << 16, 2, None, torch.complex64),
+    (30, 1 << 16, 2, "exact", torch.complex64),
+    (200, 1 << 16, 2, None, torch.complex64),
+    (200, 1 << 16, 2, "exact", torch.complex64),
+    (30, 256, 3, None, torch.complex64),       # 129 bins, one segment of 512
+    (200, 2000, 2, "exact", torch.complex64),  # 1001 bins under 2048
+    (8, 2 * (216 * 40 - 1), 2, None, torch.complex64),  # L = 40 hops
+    (8, 2 * 216 * 40, 2, None, torch.complex64),        # one bin more
+    (30, 1 << 15, 1, None, torch.complex64),   # a single trial, (L,) in
+    (8, 1 << 15, 2, None, torch.complex128),
+])
+def test_the_plane_form_matches_the_reference_and_the_cpu_path(
+        dev, zmax, samples, rows, precision, dtype):
+    """``accel_plane`` of a CUDA spectrum: one ``conv_plane`` launch, no
+    ``conv``, held against the float64 reference's direct correlation and
+    the CPU path (framing, the plain bank, crop and power) on the same
+    spectrum.  zmax 8 / 30 / 200 take segments of 256 / 512 / 2048 (hop
+    216 / 450 / 1816)."""
+    from smfft_tpu_torch import accel
+    from smfft_tpu_torch.reference import accel_search as ref
+    g = torch.Generator(device=dev).manual_seed(samples + zmax + rows)
+    x = torch.rand((rows, samples), generator=g, device=dev,
+                   dtype=torch.float64) * 2 - 1
+    spec = ref.spectrum(x)
+    arg = spec.to(dtype)
+    if rows == 1:
+        arg = arg[0]
+    before = DR.counts()
+    plane = accel.accel_plane(arg, zmax=zmax, precision=precision)
+    torch.cuda.synchronize()
+    after = DR.counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"conv_plane": 1}
+    m, bins = zmax + 1, samples // 2 + 1
+    want_shape = (m, bins) if rows == 1 else (rows, m, bins)
+    assert plane.shape == want_shape and plane.dtype == torch.float32
+    plane = plane.reshape(rows, m, bins)
+    assert _plane_err(plane, ref.plane(spec, zmax, 2)) < PLANE_TOL
+    cpu = accel.accel_plane(arg.cpu(), zmax=zmax, precision=precision)
+    assert _plane_err(plane.cpu(), cpu.reshape(rows, m, bins)) < PLANE_TOL
+
+
+def test_the_plane_form_does_not_spill(dev):
+    """ptxas's report: the fp32 plane form at n = 256..8192 spills
+    nothing, and the bank form it sits beside keeps its 120 registers at
+    2048."""
+    _cuda.library()
+    report = _cuda.register_report()
+    plane = [ln for ln in report if ln.startswith("conv_plane_kernel<")
+             and " fp32:" in ln and int(ln.split("<")[1].split(">")[0])
+             <= 8192]
+    assert len(plane) == 6, report
+    assert all(ln.endswith(" 0 bytes of spill stores") for ln in plane), \
+        plane
+    assert "conv_kernel<2048,bank> fp32: 120 registers, 0 bytes of spill " \
+        "stores" in report
+
+
+@pytest.mark.parametrize("m", [1, 201])
+def test_the_bank_at_the_plane_forms_shape_matches_plain_and_oracle(dev, m):
+    """``api.convolve`` of 37 rows of 2048 points against the published
+    bank's 201 responses (and one): the bank form runs ``bank_loop``, the
+    loop it shares with the plane form.  Every filter's rows against the
+    plain version and float64 torch.fft within bound(n)."""
+    n, b = 2048, 37
+    x = rand_c(b, n, dev, seed=23)
+    h = rand_c(m, n, dev, seed=24)
+    got = api.convolve(x, h if m > 1 else h[0]).reshape(m, b, n)
+    hs = h / n
+    plain = torch.complex(*CV.conv_plain(x.real, x.imag, hs.real, hs.imag))
+    want = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128))[None]
+                          * h.to(torch.complex128)[:, None])
+    torch.cuda.synchronize()
+    assert max_err(got, plain) < bound(n)
+    assert max_err(got, want) < bound(n)
