@@ -7,10 +7,13 @@ source (headers included), the flags and the compiler, so a stale library
 is never loaded.  The library is bound with ``ctypes``; pointers and the
 stream travel as ``c_void_p``, counts as ``c_int64``, flags as ``c_int``.
 
-Each entry point is declared once here (:class:`Entry`), and every kernel
-wrapper of ``ops/*`` checks its rows with :func:`check_rows` and launches
-through :func:`launch`, which reads the stream, takes the device guard
-where it must, raises on an error and counts the launch.  A wrapper whose
+Each entry point is declared once here (:class:`Entry`); a kernel's
+declaration names the one ``__global__`` its library call launches, the
+port's one list of its kernels (:data:`LAUNCHED` by launch span, ptxas's
+report by :func:`register_report`).  Every kernel wrapper of ``ops/*``
+checks its rows with :func:`check_rows` and launches through
+:func:`launch`, which reads the stream, takes the device guard where it
+must, raises on an error and counts the launch.  A wrapper whose
 input is not contiguous rows (a transposed view, a conjugate view) makes
 it so with :func:`contiguous`, which counts the bytes it copies.
 
@@ -152,12 +155,7 @@ def register_report(log: str | None = None) -> list[str]:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"(c2c_multiple_kernel|real_multiple_kernel|"
-                          r"conv_real_kernel|conv_plane_kernel|conv_kernel|"
-                          r"[cr]2[cr]_kernel|"
-                          r"power_kernel|bluestein_kernel|"
-                          r"fourstep_pass_kernel|real_huge_kernel)"
-                          r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?(Lb1E)?", name)
+            k = _MANGLED.search(name)
             # the integer template arguments, and a second flag after
             # EXACT (the convolutions' bank form, the pass kernel's pair
             # split) and a third (the pass kernel's fused tail)
@@ -197,14 +195,18 @@ def library() -> ctypes.CDLL:
 class Entry:
     """One entry point of the library: its C symbol, argument types and
     result type, and the function :func:`library` binds to them; for a
-    kernel, its name as ``parallel.dryrun.counts()`` keys it and its
-    count, the :func:`launch` calls that returned without error."""
+    kernel, its name as ``parallel.dryrun.counts()`` keys it, the one
+    ``__global__`` of ``csrc/*.cu`` that its library call launches
+    (``function``), and its count, the :func:`launch` calls that returned
+    without error."""
 
-    __slots__ = ("kernel", "symbol", "argtypes", "restype", "fn", "count")
+    __slots__ = ("kernel", "function", "symbol", "argtypes", "restype", "fn",
+                 "count")
 
     def __init__(self, kernel: str | None, symbol: str, *argtypes,
-                 restype=ctypes.c_int):
-        self.kernel, self.symbol, self.argtypes = kernel, symbol, argtypes
+                 function: str | None = None, restype=ctypes.c_int):
+        self.kernel, self.function = kernel, function
+        self.symbol, self.argtypes = symbol, argtypes
         self.restype, self.fn, self.count = restype, None, 0
         ENTRIES.append(self)
 
@@ -219,32 +221,49 @@ C2C_PLAN_BYTES = Entry(None, "smfft_c2c_plan_bytes")
 C2C_PREPARE = Entry(None, "smfft_c2c_prepare", _P, _I, _C, _C, _C, _C, _C,
                     _P)
 ERROR_STRING = Entry(None, "smfft_error_string", _C, restype=ctypes.c_char_p)
-# the twelve kernels, in the order parallel.dryrun.counts() reports them;
-# each takes the stream last
-C2C_RUN = Entry("c2c", "smfft_c2c_run", _P, _P, _P, _P, _P, _I, _F, _P)
-R2C = Entry("r2c", "smfft_r2c", _P, _P, _P, _C, _I, _I, _P, _P, _C, _P)
-C2R = Entry("c2r", "smfft_c2r", _P, _P, _C, _P, _I, _I, _F, _P, _P, _C, _P)
+# the twelve kernels, in the order parallel.dryrun.counts() reports them,
+# each with the __global__ its library call launches; each takes the
+# stream last
+C2C_RUN = Entry("c2c", "smfft_c2c_run", _P, _P, _P, _P, _P, _I, _F, _P,
+                function="c2c_kernel")
+R2C = Entry("r2c", "smfft_r2c", _P, _P, _P, _C, _I, _I, _P, _P, _C, _P,
+            function="r2c_kernel")
+C2R = Entry("c2r", "smfft_c2r", _P, _P, _C, _P, _I, _I, _F, _P, _P, _C, _P,
+            function="c2r_kernel")
 C2C_MULTIPLE = Entry("c2c_multiple", "smfft_c2c_multiple", _P, _P, _P, _P,
-                     _C, _I, _I, _C, _C, _C, _C, _C, _F, _D, _P, _C, _P)
+                     _C, _I, _I, _C, _C, _C, _C, _C, _F, _D, _P, _C, _P,
+                     function="c2c_multiple_kernel")
 REAL_MULTIPLE = Entry("real_multiple", "smfft_real_multiple", _P, _P, _I, _I,
-                      _C, _P, _P, _P, _P)
+                      _C, _P, _P, _P, _P, function="real_multiple_kernel")
 CONV = Entry("conv", "smfft_conv", _P, _P, _P, _P, _C, _I, _I, _C, _P, _P,
-             _P, _C, _P)
+             _P, _C, _P, function="conv_kernel")
 CONV_REAL = Entry("conv_real", "smfft_conv_real", _P, _P, _I, _I, _C, _P, _P,
-                  _P, _P, _C, _P)
-POWER = Entry("power", "smfft_power", _P, _P, _P, _I, _I, _P, _P, _P)
+                  _P, _P, _C, _P, function="conv_real_kernel")
+POWER = Entry("power", "smfft_power", _P, _P, _P, _I, _I, _P, _P, _P,
+              function="power_kernel")
 BLUESTEIN = Entry("bluestein", "smfft_bluestein", _P, _P, _P, _P, _C, _I, _I,
-                  _I, _I, _P, _P, _D, _P, _C, _P)
+                  _I, _I, _P, _P, _D, _P, _C, _P, function="bluestein_kernel")
 FOURSTEP_PASS = Entry("fourstep_pass", "smfft_fourstep_pass", _P, _P, _C, _C,
                       _I, _P, _P, _C, _C, _I, _C, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _D, _P, _P, _P, _C, _C, _C, _C, _I, _I, _P, _P,
-                      _P)
+                      _P, function="fourstep_pass_kernel")
 REAL_HUGE = Entry("real_huge", "smfft_real_huge", _C, _P, _C, _P, _P, _C, _I,
-                  _I, _I, _I, _D, _P, _P, _C, _C, _P)
+                  _I, _I, _I, _D, _P, _P, _C, _C, _P,
+                  function="real_huge_kernel")
 CONV_PLANE = Entry("conv_plane", "smfft_conv_plane", _P, _P, _I, _I, _I, _C,
-                   _C, _P, _P, _C, _P)
+                   _C, _P, _P, _C, _P, function="conv_plane_kernel")
 #: the kernels' entry points by name
 KERNELS = {e.kernel: e for e in ENTRIES if e.kernel}
+#: the ``__global__`` that each ``launch:<kernel>`` span's library call runs,
+#: by the span's name: one kernel on the card a launch, named by the
+#: profiler ``<function><template arguments>``
+LAUNCHED = {f"launch:{e.kernel}": e.function for e in KERNELS.values()}
+# a kernel instantiation's name as ptxas reports it (mangled): a declared
+# ``__global__`` (the longest first), its integer template arguments and up
+# to three flags
+_MANGLED = re.compile(
+    "(" + "|".join(sorted(LAUNCHED.values(), key=len, reverse=True)) + ")"
+    r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?(Lb1E)?")
 
 
 def _no_cuda(*_):

@@ -1,5 +1,5 @@
 """The port's spans: each public call, each op and each kernel launch, with
-the host's time on the profiler's clock.
+the host's time on ``time.time_ns``'s clock.
 
 Recording is off at import.  :func:`start` turns it on and :func:`stop`
 turns it off and hands out the :class:`Records`; there is no other switch.
@@ -76,8 +76,12 @@ innermost span that holds it on the same thread (autograd runs CUDA
 backward on a thread of its own).  A site that an exception leaves before
 its end records nothing, so the call, op and launch sites end in a
 ``finally``.  Times are ``perf_counter_ns`` while recording; :func:`stop`
-moves them onto ``time.time_ns``'s clock, which ``torch.profiler``'s events
-use, by the pair of readings :func:`start` takes.
+moves them onto ``time.time_ns``'s clock, which ``torch.profiler``'s host
+events use, by the pair of readings :func:`start` takes.  The card's
+operations in the profiler's timeline drift from that clock, so a kernel
+is tied to its ``launch:<kernel>`` span by order and by the ``__global__``
+that ``ops._cuda.LAUNCHED`` names for the span, never by time: each
+library call launches one kernel.
 """
 
 from __future__ import annotations

@@ -2041,3 +2041,66 @@ def test_the_bank_at_the_plane_forms_shape_matches_plain_and_oracle(dev, m):
     torch.cuda.synchronize()
     assert max_err(got, plain) < bound(n)
     assert max_err(got, want) < bound(n)
+
+
+def test_each_launch_runs_one_kernel_of_its_declared_name(dev):
+    """Under ``torch.profiler`` (CUDA activity), one call reaching each
+    kernel entry: every counted launch is exactly one device operation named
+    ``<function><template arguments>`` by its entry's declared
+    ``__global__``, and the launch spans in start order name the port's
+    kernels in start order (the benchmark's idle split ties them so)."""
+    from smfft_tpu_torch import accel, trace
+    n = 1024
+    x, xr = rand_c(4, n, dev, seed=1), rand_r(4, n, dev, seed=2)
+    half = rand_r(4, n // 2, dev, seed=3), rand_r(4, n // 2, dev, seed=4)
+    x100 = rand_c(4, 100, dev, seed=5)
+    big = rand_c(2, 1 << 15, dev, seed=6)
+    hr, hi = planar.rfft_large(rand_r(2, 1 << 16, dev, seed=7))
+    spec = torch.fft.rfft(rand_r(1, 1 << 16, dev, seed=8))
+    ones = torch.ones(1, n, dtype=torch.complex64, device=dev)
+    calls = {
+        "c2c": lambda: C.launch(x),
+        "r2c": lambda: R.launch_r2c(xr),
+        "c2r": lambda: R.launch_c2r(*half, n=n),
+        "c2c_multiple": lambda: M.launch_multiple(x, loops=2),
+        "real_multiple": lambda: M.launch_real_multiple(xr, 1),
+        "conv": lambda: CV.launch_conv(x, h=ones),
+        "conv_real": lambda: CV.launch_conv_real(xr, h=ones[:, :n // 2]),
+        "power": lambda: SP.launch_power(xr),
+        "bluestein": lambda: CH.launch_bluestein(x100, n=100, m=256),
+        "fourstep_pass": lambda: T.fft_large(big),
+        "real_huge": lambda: planar.irfft_large(hr, hi),
+        "conv_plane": lambda: accel.accel_plane(spec, zmax=8),
+    }
+    assert set(calls) == set(_cuda.KERNELS)
+    for fn in calls.values():     # the tables, plans and banks, built once
+        fn()
+    torch.cuda.synchronize()
+    before = DR.counts()
+    act = torch.profiler.ProfilerActivity
+    trace.start()
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    rec = trace.stop()
+    after = DR.counts()
+    launched = {k: after[k] - before[k] for k in after}
+    assert all(launched[k] >= 1 for k in calls), launched
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sorted((e.start_ns(), e.name().removeprefix("void ").replace(
+        "(anonymous namespace)::", ""))
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == cuda)
+    functions = [e.function for e in _cuda.KERNELS.values()]
+    for k, e in _cuda.KERNELS.items():
+        ran = [name for _, name in ops if name.startswith(e.function + "<")]
+        assert len(ran) == launched[k], (k, ran, launched[k])
+    port = [name for _, name in ops
+            if any(name.startswith(f + "<") for f in functions)]
+    spans = sorted((int(rec.start[i]), rec.names[rec.name[i]])
+                   for i in range(len(rec))
+                   if rec.names[rec.name[i]].startswith("launch:"))
+    assert len(spans) == len(port) == sum(launched.values())
+    for (_, span), name in zip(spans, port):
+        assert name.startswith(_cuda.LAUNCHED[span] + "<"), (span, name)

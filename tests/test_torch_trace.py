@@ -1,14 +1,18 @@
 """The port's spans (``smfft_tpu_torch.trace``) on the CPU: what the public
 calls, the ops and the launch wrappers record, the threads' parents, the
-switch, the clock against ``torch.profiler``'s, and the collector."""
+switch, the clock against ``torch.profiler``'s, and the collector; and the
+``__global__`` each kernel entry declares, by which a launch span names its
+kernel on the card and ptxas's report names its instantiations."""
 
 from __future__ import annotations
 
 import gc
+import re
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -469,3 +473,51 @@ def test_huge_n_recording_stays_off_at_import():
             "api.irfft_large(api.rfft_large(x))\n"
             "assert trace.on is False and len(trace._log) == 0\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
+
+
+# the ``__global__``s that csrc/*.cu defines: the name after the
+# qualifiers and ``__launch_bounds__(...)``
+_GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^()]*\)\s*)?"
+                     r"(\w+)\s*\(")
+
+
+def _defined_globals() -> set[str]:
+    return {m.group(1) for src in sorted(_cuda.CSRC.glob("*.cu"))
+            for m in _GLOBAL.finditer(src.read_text())}
+
+
+@pytest.mark.parametrize("kernel", sorted(_cuda.KERNELS))
+def test_each_kernel_entry_declares_the_global_it_launches(kernel):
+    """A kernel's declaration names the one ``__global__`` its library call
+    launches, and ``csrc/*.cu`` defines it; the helpers launch none."""
+    function = _cuda.KERNELS[kernel].function
+    assert function and function in _defined_globals()
+    assert _cuda.LAUNCHED[f"launch:{kernel}"] == function
+    assert all(e.function is None for e in _cuda.ENTRIES if not e.kernel)
+
+
+def test_every_global_is_some_entrys_and_the_lookup_covers_the_kernels():
+    """The port has one list of its kernels: every ``__global__`` of
+    ``csrc/*.cu`` is one entry's, no two entries share one, the lookup by
+    launch span covers ``parallel.dryrun.KERNELS``, and every launch span
+    a wrapper of ``ops/*`` records is in it."""
+    from smfft_tpu_torch.parallel import dryrun
+    functions = [e.function for e in _cuda.KERNELS.values()]
+    assert len(set(functions)) == len(functions) == 12
+    assert set(functions) == _defined_globals()
+    assert set(_cuda.LAUNCHED) == {f"launch:{k}" for k in dryrun.KERNELS}
+    recorded = {m.group(1) for src in (_cuda.CSRC.parent / "ops").glob("*.py")
+                for m in re.finditer(r'"(launch:\w+)"', src.read_text())}
+    assert recorded == set(_cuda.LAUNCHED)
+
+
+def test_the_register_report_of_a_build_log_is_unchanged():
+    """On a saved excerpt of an H100 build's ptxas log (the first
+    instantiation of each kernel, flag set, precision and spill state), the
+    report built from the declared names reads line for line as the report
+    of the kernels' names written out did (``ptxas_excerpt.report``)."""
+    data = Path(__file__).parent / "data"
+    log = (data / "ptxas_excerpt.log").read_text()
+    want = (data / "ptxas_excerpt.report").read_text().splitlines()
+    assert len(want) == log.count("Compiling entry function") == 45
+    assert _cuda.register_report(log) == want
