@@ -147,7 +147,10 @@ Phases (each failure exits non-zero at once):
      read, the sum of the path's kernels timed alone on its shapes.  Then
      the column route at the imaging cell's 16384^2 grid
      (``phase_column_route``): each column pass and the row kernel alone
-     beside one sweep's floor, ``fft2`` beside ``torch.fft.fft2``.
+     beside one sweep's floor, ``fft2`` beside ``torch.fft.fft2``; and the
+     fused column launch there (``phase_fused_columns``): both directions
+     against the two launches bit for bit, its time beside one sweep's
+     floor and the two launches', its launches and its waits.
  19. Parallel sweep (``smfft_tpu_torch.parallel``), (a) in a world of one
      rank under NCCL in this process: ``sharded_fft`` forward and inverse,
      ``sharded_rfft`` / ``sharded_irfft``, ``sharded_convolve`` with an
@@ -2486,7 +2489,7 @@ def phase_main_ndim(card: str):
     torch.cuda.empty_cache()
     x = rand_complex(*ND_WIDE, gen)
     path(f"fftn {ND_WIDE} complex64, one image", lambda: T.fftn(x),
-         {"c2c": 1, "fourstep_pass": 2}, x, 16.0 * x.numel(),
+         {"c2c": 1, "fourstep_pass": 1}, x, 16.0 * x.numel(),
          [("c2c", ND_WIDE[0], ND_WIDE[1], False),
           ("fourstep_pass", 1, ND_WIDE, False)],
          lambda a: torch.fft.fftn(c64(a)), lambda a: a,
@@ -2625,12 +2628,13 @@ def kernels_alone(rows: list) -> None:
 
 def phase_column_route(card: str) -> dict:
     """The 2-D path's column route at the imaging cell's size: a 16384^2
-    complex64 grid (2^28 points), each of its two column passes (radix
-    128: pass A in place over columns of stride 2^21 with the twiddle,
-    pass B from stride 2^14 to 2^21) and the row kernel timed alone
-    (median of REPS_CONV CUDA-event runs) beside one sweep's floor (the
-    grid read and written once over the card's memory rate, 1.282 ms at
-    3.35 TB/s); the whole ``fft2`` beside ``torch.fft.fft2`` (the
+    complex64 grid (2^28 points), each of its two column passes as the
+    two launches run them (radix 128: pass A in place over columns of
+    stride 2^21 with the twiddle, pass B from stride 2^14 to 2^21) and the
+    row kernel timed alone (median of REPS_CONV CUDA-event runs) beside
+    one sweep's floor (the grid read and written once over the card's
+    memory rate, 1.282 ms at 3.35 TB/s); the whole ``fft2`` (the row
+    kernel and the fused column launch) beside ``torch.fft.fft2`` (the
     yardstick; the port never calls it) and against it in float64 on the
     whole grid.  Alone:
         python3 -c "import chip_smoke as c; n, card = c.phase_card();
@@ -2645,7 +2649,7 @@ def phase_column_route(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     x = rand_complex(m, m, gen)
     floor_ms = least_ms(16.0 * n, 0.0)[0]
-    pa, pb = FF.column_plan(m, m)
+    pa, pb = FF.column_plan(m, m, exact=True)   # the two launches' passes
     buf = x.reshape(1, n).clone()
     out = torch.empty_like(buf)
     ms_a = cuda_ms(lambda: FF.launch_pass(buf, buf, n, pa, at=(1, 2, "col")),
@@ -2678,11 +2682,76 @@ def phase_column_route(card: str) -> dict:
           f"fft2 {ms_fft2:.4f} ms ({launched}, {copied} bytes copied), "
           f"torch.fft.fft2 {ms_lib:.4f} ms; relative error {err:.3e}")
     print("column route row: " + json.dumps(row))
-    if launched != {"c2c": 1, "fourstep_pass": 2} or copied:
-        fail("fft2 of the grid did not run one row launch and two column "
-             "passes without a copy")
+    if launched != {"c2c": 1, "fourstep_pass": 1} or copied:
+        fail("fft2 of the grid did not run one row launch and the fused "
+             "column launch without a copy")
     if not err <= 2 * bound(m):
         fail(f"fft2 of the grid: error {err:.3e} over the bound")
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_fused_columns(card: str) -> dict:
+    """The fused column launch at 2^28 points: the column route over the
+    leading axis of the imaging cell's 16384^2 grid (radix 128 carrying
+    radix 128, the intermediate handed through L2 a slab of 32 columns at
+    a time), in both directions: its result against the two launches' bit
+    for bit, its time (median of REPS_CONV CUDA-event runs of the launch
+    alone, in place) beside one sweep's floor (``bound_ms``) and the two
+    launches' time, the launches of one ``run_columns`` call, and the
+    pass-B items a launch that found their slab unfinished
+    (``column_waits``).  Alone:
+        python3 -c "import chip_smoke as c; n, card = c.phase_card();
+                    c.phase_fused_columns(card)"
+    """
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    m = 16384
+    n = m * m
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    x = rand_complex(1, n, gen)
+    bound_ms = least_ms(16.0 * n, 0.0)[0]
+    (fused,) = FF.column_plan(m, m)
+    two = FF.column_plan(m, m, exact=True)
+    row = {"card": card, "grid": [m, m], "bound_ms": bound_ms}
+    for inverse in (False, True):
+        scale = 1.0 / m if inverse else 1.0
+        c0, f0 = counts()["fourstep_pass"], FF.run_columns.fused
+        got = FF.run_columns(x, m, m, inverse=inverse, scale=scale)
+        torch.cuda.synchronize()
+        launches = counts()["fourstep_pass"] - c0
+        if launches != 1 or FF.run_columns.fused - f0 != 1:
+            fail(f"the column route at {m}^2 made {launches} launches, "
+                 "not the fused one")
+        want = FF.run_passes(x, n, two, inverse=inverse, scale=scale,
+                             axis="col")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"the fused column launch differs from the two launches "
+                 f"(inverse={inverse}): {max_err(got, want):.3e}")
+        del got, want
+        torch.cuda.empty_cache()
+        buf, out = x.clone(), torch.empty_like(x)
+        w0 = FF.column_waits()
+        ms = cuda_ms(lambda: FF.launch_pass(
+            buf, out, n, fused, inverse=inverse, scale=scale,
+            at=(1, 2, "col"), mid=buf), reps=REPS_CONV)
+        waits = (FF.column_waits() - w0) / (REPS_CONV + 1)
+        ms_two = cuda_ms(lambda: [FF.launch_pass(
+            buf, buf, n, two[0], inverse=inverse, scale=scale),
+            FF.launch_pass(buf, out, n, two[1], inverse=inverse)],
+            reps=REPS_CONV)
+        del buf, out
+        torch.cuda.empty_cache()
+        key = "inverse" if inverse else "forward"
+        row[key] = {"ms": ms, "two_launches_ms": ms_two,
+                    "launches": launches, "waits": waits}
+        print(f"fused column launch {m}^2 {key} ({card}): {ms:.4f} ms, one "
+              f"sweep's bound {bound_ms:.4f} ms (at {bound_ms / ms:.3f}), "
+              f"the two launches {ms_two:.4f} ms; {launches} launch a call;"
+              f" {waits:.0f} of {n // 4096} pass-B items a launch "
+              "found their slab unfinished")
+    print("fused column row: " + json.dumps(row))
     del x
     torch.cuda.empty_cache()
     return row
@@ -3376,6 +3445,7 @@ def main() -> int:
     print(f"ndim / DCT: worst relative error against the plain versions "
           f"{max(worst_nd, worst_nd_main):.3e}")
     phase_column_route(card)
+    phase_fused_columns(card)
     with nccl_world():
         worst_par = phase_parallel_sweep()
         reset_counts()

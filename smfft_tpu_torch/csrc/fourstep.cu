@@ -116,7 +116,11 @@
 // twiddle, for last passes of radix 16..256.
 //
 // The fused tail (below) runs pass 2 and the split pass of a pair-mode
-// plan in one launch, through L2: a third overload of the kernel.
+// plan in one launch, through L2: a third overload of the kernel.  The
+// fused column launch (after it) runs both passes of the column route's
+// two-pass plan in one launch, through L2 (a fourth): one sweep of device
+// memory a call where the two launches make two, bound by L2's capacity
+// and throughput where each pass alone is bound by device memory.
 
 #include "hcore.cuh"
 #include "huge.cuh"
@@ -631,10 +635,40 @@ fourstep_pass_kernel(PassArgs a, SplitOut o, double scale,
 //     epilogue.
 // ---------------------------------------------------------------------------
 
-// The tail's device words: the ticket, the waits, the epoch of the last
-// launch, the blocks of this launch that have left, one counter a block.
+// The device words of a launch that hands out its items by ticket (the
+// fused tail's, the fused column launch's): the ticket, the waits, the
+// epoch of the last launch, the blocks of this launch that have left, then
+// one counter a block (the tail) or a slab (the column launch).
 struct TailSync {
     unsigned long long* words;
+
+    // this launch's epoch, in warp 0 (0 elsewhere): the word changes only
+    // once every block has left, so every block reads the same
+    __device__ __forceinline__ unsigned long long epoch(int tid) const {
+        unsigned long long e = 0;
+        if (tid < 32)
+            e = __shfl_sync(0xffffffffu,
+                            tid == 0 ? *(volatile unsigned long long*)(
+                                           words + 2)
+                                     : 0ull,
+                            0) + 1;
+        return e;
+    }
+    // the block leaves (its tickets all taken, its counts all made): the
+    // last to leave stores the epoch and sets the ticket back for the next
+    // launch
+    __device__ __forceinline__ void leave(int tid,
+                                          unsigned long long epoch) const {
+        if (tid == 0) {
+            __threadfence();
+            if (atomicAdd(words + 3, 1ull) == gridDim.x - 1) {
+                *(volatile unsigned long long*)words = 0;
+                *(volatile unsigned long long*)(words + 3) = 0;
+                *(volatile unsigned long long*)(words + 2) = epoch;
+                __threadfence();
+            }
+        }
+    }
 };
 
 // The tail's items (models/hcore.py tail_geometry): the split pass's
@@ -839,17 +873,8 @@ fourstep_pass_kernel(PassArgs a2, PassArgs a3, SplitOut o, TailSync sy,
     float2* const z = static_cast<float2*>(a2.in.a);
     unsigned long long* const ticket = sy.words;
     unsigned long long* const waits = sy.words + 1;
-    unsigned long long* const last = sy.words + 2;
-    unsigned long long* const left = sy.words + 3;
     unsigned long long* const done = sy.words + 4;
-    // this launch's epoch (warp 0): the word changes only once every block
-    // has left, so every block reads the same
-    unsigned long long epoch = 0;
-    if (tid < 32)
-        epoch = __shfl_sync(0xffffffffu,
-                            tid == 0 ? *(volatile unsigned long long*)last
-                                     : 0ull,
-                            0) + 1;
+    const unsigned long long epoch = sy.epoch(tid);
     const unsigned long long mark = epoch << 16;
     const unsigned long long want = mark + G::PER_BLOCK;
     const unsigned long long evict_first = l2_policy_first();
@@ -934,20 +959,6 @@ fourstep_pass_kernel(PassArgs a2, PassArgs a3, SplitOut o, TailSync sy,
         }
     };
 
-    // the block leaves (its tickets all taken, its counts all made): the
-    // last to leave stores the epoch and sets the ticket back for the next
-    // launch
-    auto leave = [&]() {
-        if (tid == 0) {
-            __threadfence();
-            if (atomicAdd(left, 1ull) == gridDim.x - 1) {
-                *(volatile unsigned long long*)ticket = 0;
-                *(volatile unsigned long long*)left = 0;
-                *(volatile unsigned long long*)last = epoch;
-                __threadfence();
-            }
-        }
-    };
 
     // the first item, loaded before the loop; then each turn: the next
     // item's loads in flight while the current one is transformed and
@@ -956,7 +967,7 @@ fourstep_pass_kernel(PassArgs a2, PassArgs a3, SplitOut o, TailSync sy,
     __syncthreads();
     long long cur = s_next;
     if (cur >= items) {
-        leave();
+        sy.leave(tid, epoch);
         return;
     }
     TailItem it = tail_item<R2, R3>(cur, log_r1, pairs);
@@ -1054,7 +1065,351 @@ fourstep_pass_kernel(PassArgs a2, PassArgs a3, SplitOut o, TailSync sy,
         b ^= 1;
     }
     cp_wait<0>();
-    leave();
+    sy.leave(tid, epoch);
+}
+
+// ---------------------------------------------------------------------------
+// The fused column launch (fourstep_pass_kernel<RA, RB, false, false>):
+// both passes of a two-pass column plan (ops/fourstep_fused.py
+// column_plan: an axis of M = RA RB points at stride K, M = 4096..16384) in
+// one persistent launch, which hands the intermediate from pass A to pass B
+// through L2.  Pass A's transform (b, col) reads and writes the points b +
+// RB j of column col; pass B's (o, col) reads the points RA o + j, each
+// written by pass A's transforms of the same column.  So a slab of W
+// adjacent columns (W = 32 at M = 16384: 4 MiB) is closed under both passes:
+// pass B's items of a slab need pass A's items of that slab alone.
+//
+// What bounds it on the H100: the two passes' separate launches each read
+// and write the grid once (at 16384^2 1.59 and 1.54 ms, where a copy of the
+// 2 GiB grid takes 1.43); fused, device memory sees one read and one write
+// (the row kernel's result in, the output out), and the intermediate is
+// written to and read from L2 while a few slabs are in flight.  So what
+// bounds the launch is L2: its capacity, which sets how many slabs may be
+// in flight, and its throughput, which carries four streams of the grid
+// (in, the intermediate out and back, out) where a pass carries two.  The
+// SM work of two passes on one sweep's bytes hides under it (on an H100 at
+// 16384^2 the launch without its transforms took 2.22 ms, with them
+// 2.23).  The design:
+//   * one ordered list of work (models/hcore.py column_items): pass A's
+//     items of the first LAG slabs, then for each slab q those of q + LAG
+//     and pass B's items of q in turn, then pass B's of the last LAG slabs,
+//     handed out by an atomic ticket.  LAG + 1 slabs fit a 20 MiB L2 budget
+//     (LAG = 4 at 4 MiB slabs): more held in flight and the intermediate no
+//     longer stays in L2 (LAG = 8: 3.7 ms), fewer and pass B's items find
+//     their slab unfinished (LAG = 2: 2.6 ms, most of them waiting).  A
+//     pass-B item waits only for items of lower tickets, and a block waits
+//     only with no item of its own unfinished: no deadlock;
+//   * two blocks an SM (256 threads, two 32 KiB item buffers each): while
+//     an item is transformed and stored its block's next item loads, and
+//     the ticket after that is taken, its counter polled at the end of the
+//     item; the stores are not waited for.  Three blocks an SM held so
+//     many tickets that the lag needed for them overflowed L2 (3.07 ms);
+//   * the device words are the tail's scheme: the ticket, a count of
+//     pass-B items whose slab was not done when polled (column_waits()),
+//     the epoch of the last launch, the blocks that have left, one counter
+//     a slab of pass-A items done (atomicMax to this launch's epoch, then
+//     +1; the stores, __syncthreads and __threadfence before it), so that a
+//     launch needs nothing from the host (a CUDA graph replays it);
+//   * an item is T = 4096 / R adjacent transforms (columns) of R points,
+//     32 KiB, point-major in its buffer (hcore.cuh's Core with the point
+//     stride LDS = T): each of its R rows is a contiguous run of the grid
+//     (256 bytes at T = 32), loaded by 16-byte cp.async.cg (L2, never L1:
+//     no SM holds an old line of the intermediate) and read by the stages
+//     with the 32 lanes of a warp across 32 transforms, so every
+//     shared-memory access of a warp is one row's contiguous 256 bytes, and
+//     every store a 256-byte run;
+//   * pass A reads with an evict_first hint, writes the intermediate with
+//     evict_last, and counts the item; pass B reads the intermediate, then
+//     discards its lines (discard.global.L2: the intermediate is dead, each
+//     line has one reader, so it is never written back; without it 2.58
+//     against 2.35 ms at LAG = 3), and streams its output (st.global.cs);
+//   * the same arithmetic as the two launches, bit for bit on the H100:
+//     pass A's twiddle W_N^(mul t) W_N^(mul TPF s) (mul blind to the
+//     column, tw_lo) from a per-item table of R products, the scale on pass
+//     A's input, the core.
+// ---------------------------------------------------------------------------
+
+// One side of the fused column launch at radix R: an item of T = 4096 / R
+// transforms, E = 16 points a thread, lanes across 32 transforms.
+template <int R>
+struct ColSide {
+    static constexpr int T = 4096 / R;
+    static constexpr int E = 16;
+    static constexpr int TPF = R / E;
+    static constexpr int FW = T < 32 ? T : 32;
+    using Core = hc::Core<R, TPF, false, false, false, T>;
+};
+
+// The fused column launch's layout (models/hcore.py column_geometry): W
+// columns a slab, NI items a side a slab, LAG slabs between a slab's pass-A
+// items and its pass-B items, two item buffers, the two stage tables and
+// pass A's twiddle products.
+template <int RA, int RB>
+struct ColTile {
+    using A = ColSide<RA>;
+    using B = ColSide<RB>;
+    static constexpr int THREADS = 256;
+    static constexpr int W = A::T > B::T ? A::T : B::T;
+    static constexpr int NI = W / A::T * RB;
+    static constexpr int64_t SLAB = (int64_t)RA * RB * W * 8;
+    static constexpr int64_t L2_BUDGET = int64_t(20) << 20;
+    static constexpr int LAG = (int)(L2_BUDGET / SLAB) - 1;
+    static constexpr int SLOTS = 4096;
+    static constexpr size_t SMEM =
+        ((size_t)2 * SLOTS + A::Core::TAB + B::Core::TAB + RA) *
+        sizeof(float2);
+    static_assert(A::T * A::TPF == THREADS && B::T * B::TPF == THREADS &&
+                      NI == W / B::T * RA && LAG >= 1 &&
+                      (NI & (NI - 1)) == 0,
+                  "both sides' items share the threads and a slab");
+};
+
+// One item of the fused column launch: its side, its slab, and its first
+// transform (of that pass's batch * N / R).
+struct ColItem {
+    bool b;
+    int64_t slab, first;
+};
+
+// Ticket i's item (models/hcore.py column_item): pass A's items of the
+// first LAG slabs, then for each slab q those of q + LAG and pass B's of q
+// in turn, then pass B's of the last LAG slabs.  A slab is W columns of a
+// row (K / W slabs a row, 2^log_spr); pass A's item u of slab q is
+// transforms b * K + col of b = u / (W / TA), pass B's o * K + col of o =
+// u / (W / TB), each T adjacent columns.
+template <int RA, int RB>
+__device__ __forceinline__ ColItem col_item(int64_t i, int64_t slabs,
+                                            int log_spr, int log_k) {
+    using G = ColTile<RA, RB>;
+    constexpr int NI = G::NI;
+    const int64_t lag = slabs < G::LAG ? slabs : G::LAG;
+    int64_t q, u;
+    bool b;
+    if (i < lag * NI) {
+        b = false, q = i / NI, u = i % NI;
+    } else if (i < lag * NI + (slabs - lag) * 2 * NI) {
+        const int64_t r = i - lag * NI;
+        const int64_t k = r / (2 * NI);
+        b = r & 1;
+        q = b ? k : k + lag;
+        u = (r % (2 * NI)) >> 1;
+    } else {
+        const int64_t r = i - lag * NI - (slabs - lag) * 2 * NI;
+        b = true, q = slabs - lag + r / NI, u = r % NI;
+    }
+    const int64_t row = q >> log_spr;
+    const int64_t col = (q & ((int64_t(1) << log_spr) - 1)) * G::W;
+    constexpr int TA = G::A::T, TB = G::B::T;
+    if (!b)
+        return {false, q,
+                ((row * RB + u / (G::W / TA)) << log_k) + col +
+                    (u % (G::W / TA)) * TA};
+    return {true, q,
+            ((row * RA + u / (G::W / TB)) << log_k) + col +
+                (u % (G::W / TB)) * TB};
+}
+
+__device__ __forceinline__ void cp_async16_hint(void* dst, const void* src,
+                                                unsigned long long pol) {
+    asm volatile(
+        "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+        :: "r"(smem_addr(dst)), "l"(src), "l"(pol));
+}
+
+template <int RA, int RB, bool EXACT, bool SPLIT>
+__global__ void __launch_bounds__(ColTile<RA, RB>::THREADS, 2)
+fourstep_pass_kernel(PassArgs a, PassArgs b, TailSync sy, double scale,
+                     const float2* __restrict__ twa,
+                     const float2* __restrict__ twb,
+                     const float2* __restrict__ lo,
+                     const float2* __restrict__ hi, int inverse) {
+    static_assert(!EXACT && !SPLIT,
+                  "the fused column launch is fp32, with no split");
+    using G = ColTile<RA, RB>;
+    using SA = typename G::A;
+    using SB = typename G::B;
+    using C = float2;
+    using Tr = float;
+    constexpr int E = 16;
+    C* const bufs = shared_buffer<C>();   // two item buffers
+    C* const taba = bufs + 2 * G::SLOTS;
+    C* const tabb = taba + SA::Core::TAB;
+    C* const twk = tabb + SB::Core::TAB;  // W_N^(mul t) W_N^(mul TPF s)
+    __shared__ long long s_next;
+    __shared__ int s_ready;
+    const int tid = threadIdx.x;
+    const Tr sgn = inverse ? Tr(1) : Tr(-1);
+    const int fa = tid % SA::FW + SA::FW * (tid / (SA::FW * SA::TPF));
+    const int ta = (tid / SA::FW) % SA::TPF;
+    const int fb = tid % SB::FW + SB::FW * (tid / (SB::FW * SB::TPF));
+    const int tb = (tid / SB::FW) % SB::TPF;
+    const int log_k = b.in_ls;
+    const int log_spr = log_k - ilog2(G::W);
+    const int64_t slabs = (b.total >> b.log_pr) << log_spr;
+    const int64_t items = slabs * 2 * G::NI;
+    const float2* const src = static_cast<const float2*>(a.in.a);
+    float2* const mid = static_cast<float2*>(a.out.a);
+    float2* const dst = static_cast<float2*>(b.out.a);
+    unsigned long long* const ticket = sy.words;
+    unsigned long long* const waits = sy.words + 1;
+    unsigned long long* const done = sy.words + 4;
+    const unsigned long long epoch = sy.epoch(tid);
+    const unsigned long long mark = epoch << 16;
+    const unsigned long long want = mark + G::NI;
+    const unsigned long long evict_first = l2_policy_first();
+    const unsigned long long evict_last = l2_policy_last();
+
+    SA::Core::fill(taba, twa, tid, G::THREADS);
+    SB::Core::fill(tabb, twb, tid, G::THREADS);
+
+    auto decode = [&](long long i) {
+        return col_item<RA, RB>(i, slabs, log_spr, log_k);
+    };
+    // thread 0: whether item it may be loaded (pass A always; pass B once
+    // its slab's pass-A items are all done)
+    auto ready = [&](const ColItem& it) {
+        return !it.b || load_acquire(done + it.slab) >= want;
+    };
+    // thread 0: the ticket t into s_next, and whether its item may be
+    // loaded into s_ready, counting a pass-B item that may not
+    auto poll = [&](unsigned long long t) {
+        const bool ok = (long long)t >= items || ready(decode(t));
+        if (!ok) atomicAdd(waits, 1ull);
+        s_next = (long long)t;
+        s_ready = ok;
+    };
+    // thread 0 waits for item it's slab; a wait of over 2^26 polls (~17 s
+    // and more) traps, so that a fault cannot hang the card
+    auto wait = [&](const ColItem& it) {
+        if (tid == 0)
+            for (unsigned n = 0; !ready(it); ++n) {
+                if (n >> 26) __trap();
+                __nanosleep(256);
+            }
+    };
+    // an item's loads into buf: R rows of T points, 16 bytes a copy
+    auto issue = [&](const ColItem& it, C* buf) {
+        if (!it.b) {
+            constexpr int T = SA::T, LOG_T = ilog2(T / 2);
+            const int64_t at = transform_at(a, 0, a.in_ls, ilog2(RA),
+                                            it.first);
+#pragma unroll
+            for (int k = 0; k < RA * T / 2 / G::THREADS; ++k) {
+                const int e = tid + k * G::THREADS;
+                const int j = e >> LOG_T, c = 2 * (e & (T / 2 - 1));
+                cp_async16_hint(buf + j * T + c,
+                                src + at + c + ((int64_t)j << a.in_ls),
+                                evict_first);
+            }
+        } else {
+            constexpr int T = SB::T, LOG_T = ilog2(T / 2);
+            const int64_t at = transform_at(b, 0, b.in_ls, ilog2(RB),
+                                            it.first);
+#pragma unroll
+            for (int k = 0; k < RB * T / 2 / G::THREADS; ++k) {
+                const int e = tid + k * G::THREADS;
+                const int j = e >> LOG_T, c = 2 * (e & (T / 2 - 1));
+                cp_async16_hint(buf + j * T + c,
+                                mid + at + c + ((int64_t)j << b.in_ls),
+                                evict_first);
+            }
+        }
+    };
+
+    if (tid == 0) poll(atomicAdd(ticket, 1ull));
+    __syncthreads();
+    long long cur = s_next;
+    if (cur >= items) {
+        sy.leave(tid, epoch);
+        return;
+    }
+    ColItem it = decode(cur);
+    if (!s_ready) wait(it);
+    __syncthreads();
+    issue(it, bufs);
+    cp_commit();
+    if (tid == 0) poll(atomicAdd(ticket, 1ull));
+    __syncthreads();
+    long long nxt = s_next;
+    bool ready_next = s_ready;
+    int sel = 0;
+    for (;;) {
+        C* const buf = bufs + sel * G::SLOTS;
+        C* const other = bufs + (sel ^ 1) * G::SLOTS;
+        const ColItem nit = nxt < items ? decode(nxt) : ColItem{};
+        const bool early = nxt < items && ready_next;
+        if (early) issue(nit, other);
+        cp_commit();
+        const unsigned long long after =
+            tid == 0 ? atomicAdd(ticket, 1ull) : 0ull;
+        cp_wait<1>();
+        __syncthreads();  // buf holds it
+        C u[E];
+        if (!it.b) {
+            // pass A: W_N^(mul k), k = t + s TPF, as the plain pass forms
+            // it (mul = the item's b K: every column of the item has it)
+            if (tid < RA) {
+                const int64_t mul = (it.first & ((int64_t(1) << a.log_pr) -
+                                                 1) & a.tw_mask)
+                                    << a.log_tw_step;
+                twk[tid] = cmul(
+                    root(lo, hi, mul * (tid % SA::TPF), a.lo_bits),
+                    root(lo, hi, mul * SA::TPF * (tid / SA::TPF),
+                         a.lo_bits));
+            }
+            SA::Core::run_smem(buf + fa, u, ta, taba, false, sgn,
+                               Tr(scale), [&](int s, C v) {
+                                   return cmul(v, twk[ta + s * SA::TPF]);
+                               });
+            const int64_t at = transform_at(a, 0, a.out_ls, ilog2(RA),
+                                            it.first) + fa;
+#pragma unroll
+            for (int s = 0; s < E; ++s)
+                store_hint(mid + at +
+                               ((int64_t)(ta + s * SA::TPF) << a.out_ls),
+                           u[s], evict_last);
+            __syncthreads();  // every store of the item is issued
+            if (tid == 0) {
+                __threadfence();
+                atomicMax(done + it.slab, mark);
+                atomicAdd(done + it.slab, 1ull);
+            }
+        } else {
+            // the rows are in the buffer: drop their lines from L2
+            constexpr int LINES = SB::T * (int)sizeof(C) / 128;
+            const int64_t at = transform_at(b, 0, b.in_ls, ilog2(RB),
+                                            it.first);
+            for (int l = tid; l < RB * LINES; l += G::THREADS)
+                discard_l2(mid + at + ((int64_t)(l / LINES) << b.in_ls) +
+                           (l % LINES) * (128 / (int)sizeof(C)));
+            SB::Core::run_smem(buf + fb, u, tb, tabb, false, sgn, Tr(1),
+                               [](int, C v) { return v; });
+            const int64_t out = transform_at(b, 0, b.out_ls, ilog2(RB),
+                                             it.first) + fb;
+#pragma unroll
+            for (int s = 0; s < E; ++s)
+                __stcs(dst + out + ((int64_t)(tb + s * SB::TPF) << b.out_ls),
+                       u[s]);
+        }
+        if (nxt >= items) break;
+        if (!early) {
+            wait(nit);
+            __syncthreads();
+            issue(nit, other);
+            cp_commit();
+        }
+        if (tid == 0) poll(after);
+        // other holds (or is loading) nxt, every read of buf is done, and
+        // s_next / s_ready are set
+        __syncthreads();
+        cur = nxt;
+        it = nit;
+        nxt = s_next;
+        ready_next = s_ready;
+        sel ^= 1;
+    }
+    cp_wait<0>();
+    sy.leave(tid, epoch);
 }
 
 __host__ int ilog2_64(int64_t v) {
@@ -1148,6 +1503,30 @@ cudaError_t launch_tail(const PassArgs& a2, const PassArgs& a3,
     return cudaGetLastError();
 }
 
+// The fused column launch over a's and b's transforms.
+template <int RA, int RB>
+cudaError_t launch_cols(const PassArgs& a, const PassArgs& b,
+                        const TailSync& sy, double scale, const void* twa,
+                        const void* twb, const void* lo, const void* hi,
+                        int inverse, cudaStream_t stream) {
+    using G = ColTile<RA, RB>;
+    void (*kernel)(PassArgs, PassArgs, TailSync, double, const float2*,
+                   const float2*, const float2*, const float2*, int) =
+        fourstep_pass_kernel<RA, RB, false, false>;
+    if ((int64_t(1) << b.in_ls) < G::W) return cudaErrorInvalidValue;
+    const int64_t items =
+        (b.total >> b.log_pr) * ((int64_t(1) << b.in_ls) / G::W) * 2 * G::NI;
+    unsigned grid = 0;
+    cudaError_t err =
+        persistent_grid(kernel, G::THREADS, G::SMEM, items, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
+        a, b, sy, scale, static_cast<const float2*>(twa),
+        static_cast<const float2*>(twb), static_cast<const float2*>(lo),
+        static_cast<const float2*>(hi), inverse);
+    return cudaGetLastError();
+}
+
 template <int R>
 cudaError_t dispatch(const PassArgs& args, const SplitOut* split,
                      double scale, const void* tw, const void* lo,
@@ -1180,16 +1559,26 @@ extern "C" {
 // n/2 bins at out_a / out_b in layout spec_layout (0 planar pair, 1 packed
 // complex64, 2 numpy complex64 of n/2 + 1 bins), the q rows batch after
 // the p rows (out_kind unused); -1: out is the pass's output.
-// tail_radix > 0: the fused tail, radix = tail_radix = 128.  The pass
-// given (columns of stride tail_radix in and out, tw_s = tail_radix,
-// fp32) runs in place on the complex64 intermediate at in_a (128-byte
-// aligned), then the plan's last pass of radix tail_radix over the
-// digit-reversed rows (n / (radix * tail_radix), radix) writes its pair
-// split as above; tw_tail is the W_tail_radix table, sync the device words
-// (the ticket, the waits, the epoch, the blocks left, then a counter for
-// each of the batch * n / (radix * tail_radix) blocks), zeros before the
-// first launch on them and left as the last launch leaves them, one launch
-// on them at a time.  Returns a cudaError_t (0 on success).
+// tail_radix > 0 and spec_layout >= 0: the fused tail, radix = tail_radix
+// = 128.  The pass given (columns of stride tail_radix in and out, tw_s =
+// tail_radix, fp32) runs in place on the complex64 intermediate at in_a
+// (128-byte aligned), then the plan's last pass of radix tail_radix over
+// the digit-reversed rows (n / (radix * tail_radix), radix) writes its
+// pair split as above; tw_tail is the W_tail_radix table, sync the device
+// words (the ticket, the waits, the epoch, the blocks left, then a counter
+// for each of the batch * n / (radix * tail_radix) blocks), zeros before
+// the first launch on them and left as the last launch leaves them, one
+// launch on them at a time.  tail_radix > 0 and spec_layout = -1: the
+// fused column launch of an axis of m = radix * tail_radix points at
+// stride k = n / m (radix, tail_radix) = (64, 64), (128, 64) or (128,
+// 128), k at least the slab's columns (64, 64, 32), fp32: the pass given
+// (pass A: columns of stride tail_radix * k in and out, tw_s = tail_radix
+// * k, tw_lo = k) from in_a (complex64, 16-byte aligned) into mid (the
+// complex64 intermediate, 128-byte aligned; in_a itself for a pass in
+// place), then pass B of radix tail_radix from columns of stride k of mid
+// into columns of stride radix * k of out_a (complex64); sync as the
+// tail's, a counter for each of the batch * k / columns slabs.  Returns a
+// cudaError_t (0 on success).
 int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                         int64_t in_s, void* out_a, void* out_b, int out_kind,
                         int out_map, int64_t out_s, int nr, int64_t r0,
@@ -1199,14 +1588,23 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                         const void* tw, const void* lo, const void* hi,
                         int lo_bits, int inverse, int exact, int spec_layout,
                         int64_t spec_rows, int64_t tail_radix,
-                        const void* tw_tail, void* sync, void* stream) {
+                        const void* tw_tail, void* sync, void* mid,
+                        void* stream) {
     if (batch <= 0) return (int)cudaSuccess;
     if (nr < 0 || nr > 4 || n % radix || tw_lo < 1 || (tw_lo & (tw_lo - 1)) ||
         (tw_lo > 1 && (tw_lo > tw_s || spec_layout >= 0)))
         return (int)cudaErrorInvalidValue;
     const bool split = spec_layout >= 0;
-    const bool tail = tail_radix > 0;
-    if (tail && (!split || exact || inverse || in_kind != 0 ||
+    const bool tail = tail_radix > 0 && split;
+    const bool cols = tail_radix > 0 && !split;
+    if (cols && (exact || in_kind != 0 || out_kind != 0 || in_map != 0 ||
+                 out_map != 0 || in_s != out_s || tw_s != in_s || nr != 0 ||
+                 !sync || !tw_tail || !mid || (uintptr_t)in_a % 16 ||
+                 (uintptr_t)mid % 128 || n % (radix * tail_radix) ||
+                 tw_lo != n / (radix * tail_radix) ||
+                 in_s != tail_radix * tw_lo))
+        return (int)cudaErrorInvalidValue;
+    if (tail && (exact || inverse || in_kind != 0 ||
                  in_map != 0 || out_map != 0 || in_s != tail_radix ||
                  out_s != tail_radix || tw_s != tail_radix || nr != 0 ||
                  !sync || !tw_tail ||
@@ -1248,6 +1646,30 @@ int smfft_fourstep_pass(void* in_a, void* in_b, int in_kind, int in_map,
                                 n / 2},
                        spec_rows};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (cols) {
+        // pass A from in_a into mid; pass B from mid into out_a
+        args.out = Cells{mid, nullptr, 0};
+        PassArgs pb{};
+        pb.in = args.out;
+        pb.out = Cells{out_a, nullptr, 0};
+        pb.in_ls = ilog2_64(tw_lo);
+        pb.out_ls = ilog2_64(radix * tw_lo);
+        pb.log_n = args.log_n;
+        pb.log_pr = ilog2_64(n / tail_radix);
+        pb.total = batch * (n / tail_radix);
+        pb.tw_mask = -1;
+        pb.lo_bits = lo_bits;
+        const TailSync sy{static_cast<unsigned long long*>(sync)};
+#define SMFFT_COLS(RA, RB)                                                 \
+    if (radix == RA && tail_radix == RB)                                   \
+        return (int)launch_cols<RA, RB>(args, pb, sy, scale, tw, tw_tail,  \
+                                        lo, hi, inverse, st);
+        SMFFT_COLS(64, 64)
+        SMFFT_COLS(128, 64)
+        SMFFT_COLS(128, 128)
+#undef SMFFT_COLS
+        return (int)cudaErrorInvalidValue;
+    }
     if (tail) {
         // pass 2 in place; the split pass over rows (R1, R2) of radix R3
         const int64_t q = n / (radix * tail_radix);

@@ -220,8 +220,10 @@ __device__ __forceinline__ void twiddle_anchored(C (&v)[R], C w, C w4) {
 // else in place in a.  ANCH: the radix-8 and radix-16 stages keep W^(4k)
 // beside W^k in the table and take their powers by twiddle_anchored (the
 // fp32 error of the products four deep was up to 3.3x the stockham.cuh
-// kernels', which read every power from the W_M table).
-template <int M, int TPF, bool PAD, bool PP, bool ANCH = false>
+// kernels', which read every power from the W_M table).  LDS: the distance
+// between a row's consecutive points in its buffer (fourstep.cu's fused
+// column launch keeps its tiles point-major, LDS transforms a point).
+template <int M, int TPF, bool PAD, bool PP, bool ANCH = false, int LDS = 1>
 struct Core {
     static constexpr int E = M / TPF;
     static constexpr int NS = nstages(M);
@@ -243,7 +245,7 @@ struct Core {
     static_assert(E >= 16 && E % 16 == 0, "a thread holds 16k points");
 
     static __device__ __forceinline__ int pos(int idx) {
-        return PAD ? idx + (idx >> 4) : idx;
+        return (PAD ? idx + (idx >> 4) : idx) * LDS;
     }
 
     // The stage tables from the W_M table tw: stage s (p = 16^s, radix
@@ -367,7 +369,7 @@ struct Core {
 #pragma unroll
             for (int r = 0; r < 16; ++r) {
                 const int idx = t + q * TPF + r * (M / 16);
-                raw[q][r] = a[PADIN ? pos(idx) : idx];
+                raw[q][r] = a[PADIN ? pos(idx) : idx * LDS];
             }
         __syncthreads();
 #pragma unroll
@@ -487,7 +489,7 @@ struct Core {
 #pragma unroll
             for (int r = 0; r < 16; ++r) {
                 const int idx = t + r * TPF;
-                u[r] = as<C>(a[PADIN ? pos(idx) : idx]);
+                u[r] = as<C>(a[PADIN ? pos(idx) : idx * LDS]);
                 u[r] = cmake(u[r].x * scale, u[r].y * scale);
             }
             Dft<16, false, false>::run(u, sg);

@@ -27,7 +27,10 @@ kernels' own index arithmetic written out in numpy:
     (:func:`pass_split_patterns`); the fused tail's work order
     (:func:`tail_items`), the blocks each split item waits for
     (:func:`tail_reads`), the rows its slots read (:func:`tail_slot_row`)
-    and a group pair's bytes (:func:`tail_group_bytes`);
+    and a group pair's bytes (:func:`tail_group_bytes`); the fused column
+    launch's work order (:func:`column_items`), the points each item reads
+    and writes (:func:`column_points`) and the slabs open at once
+    (:func:`column_in_flight`);
   * the row kernels' block layout (:func:`row_geometry`), their revblock
     staging (:func:`stage_pos`), the C2C kernel's layouts
     (:func:`c2c_rows`), the R2C kernel's pair split and its stores in
@@ -550,6 +553,118 @@ def tail_group_bytes(rs: tuple) -> int:
     g = tail_geometry(r2, r3)
     blocks = {it[1] for it in tail_items(1, rs)[:g["NP"]]}
     return len(blocks) * r2 * r3 * 8
+
+
+# ---------------------------------------------------------------------------
+# The fused column launch (csrc/fourstep.cu fourstep_pass_kernel<RA, RB,
+# false, false>, ColTile): both passes of a two-pass column plan over an
+# axis of M = RA RB points at stride K of (rows, M K) in one launch.  Pass
+# A's transform b K + col (b < RB) reads and writes the points b + RB j of
+# column col, pass B's o K + col (o < RA) reads the points RA o + j and
+# writes o + RA k: a slab of W adjacent columns of a row is closed under
+# both.  Tickets run pass A's items of the first LAG slabs, then for each
+# slab q those of q + LAG and pass B's of q in turn, then pass B's of the
+# last LAG slabs.
+# ---------------------------------------------------------------------------
+
+#: The fused column launch's L2 budget (``csrc/fourstep.cu``
+#: ColTile::L2_BUDGET): LAG + 1 slabs in flight.
+COLUMN_L2_BYTES = 20 << 20
+
+
+def column_geometry(ra: int, rb: int) -> dict:
+    """The fused column launch's layout at radices (RA, RB): a side's item
+    is T = 4096 / R adjacent transforms of R points (E = 16 points a
+    thread, TPF threads a transform, the lanes of a warp across FW = 32
+    transforms), point-major; W columns a slab (the wider item's), NI
+    items a side a slab, the slab's bytes and LAG."""
+    def side(r):
+        t = 4096 // r
+        return {"R": r, "T": t, "E": 16, "TPF": r // 16, "FW": min(t, 32)}
+    a, b = side(ra), side(rb)
+    w = max(a["T"], b["T"])
+    slab = ra * rb * w * 8
+    return {"A": a, "B": b, "threads": 256, "W": w, "NI": w // a["T"] * rb,
+            "slab_bytes": slab, "LAG": COLUMN_L2_BYTES // slab - 1}
+
+
+def column_count(rows: int, k: int, rs: tuple) -> int:
+    """The tickets of a fused column launch over ``rows`` rows of M K
+    points, rs = (RA, RB)."""
+    g = column_geometry(*rs)
+    return rows * (k // g["W"]) * 2 * g["NI"]
+
+
+def column_item(i: int, rows: int, k: int, rs: tuple) -> tuple:
+    """Ticket i's work, as the kernel decodes it (col_item): (side "A" or
+    "B", slab, first transform of that pass's rows * M K / R)."""
+    ra, rb = rs
+    g = column_geometry(ra, rb)
+    ni, w = g["NI"], g["W"]
+    slabs = rows * (k // w)
+    lag = min(slabs, g["LAG"])
+    if i < lag * ni:
+        side, (q, u) = "A", divmod(i, ni)
+    elif i < lag * ni + (slabs - lag) * 2 * ni:
+        r = i - lag * ni
+        kk, rr = divmod(r, 2 * ni)
+        side = "B" if r % 2 else "A"
+        q, u = (kk if side == "B" else kk + lag), rr // 2
+    else:
+        q, u = divmod(i - lag * ni - (slabs - lag) * 2 * ni, ni)
+        side, q = "B", slabs - lag + q
+    row, col = divmod(q, k // w)
+    t = g[side]["T"]
+    d, sub = divmod(u, w // t)
+    r_other = rb if side == "A" else ra
+    return side, q, (row * r_other + d) * k + col * w + sub * t
+
+
+def column_items(rows: int, k: int, rs: tuple) -> list[tuple]:
+    """Every item of a fused column launch in ticket order."""
+    return [column_item(i, rows, k, rs)
+            for i in range(column_count(rows, k, rs))]
+
+
+def column_points(item: tuple, k: int, rs: tuple):
+    """(read, written): the points of the (rows, M K) grid that an item
+    reads and writes, (T, R) arrays in its buffer's order (transform f,
+    point j): pass A in place over columns of stride RB K, pass B from
+    columns of stride K into columns of stride RA K."""
+    side, _, first = item
+    ra, rb = rs
+    m = ra * rb
+    r = ra if side == "A" else rb
+    t = 4096 // r
+    g = first + np.arange(t)[:, None]            # the item's transforms
+    j = np.arange(r)[None, :]
+    row, c = divmod(g, m * k // r)
+    base = row * m * k
+    if side == "A":
+        at = base + c + j * rb * k
+        return at, at
+    o, col = divmod(c, k)
+    return (base + o * rb * k + col + j * k,
+            base + c + j * ra * k)
+
+
+def column_in_flight(rows: int, k: int, rs: tuple) -> int:
+    """The most slabs open at once in ticket order: a slab opens with its
+    first pass-A ticket and closes with its last pass-B ticket."""
+    items = column_items(rows, k, rs)
+    first, last = {}, {}
+    for i, (side, q, _) in enumerate(items):
+        if side == "A":
+            first.setdefault(q, i)
+        else:
+            last[q] = i
+    events = sorted([(i, 1) for i in first.values()]
+                    + [(i, -1) for i in last.values()])
+    open_, most = 0, 0
+    for _, d in events:
+        open_ += d
+        most = max(most, open_)
+    return most
 
 
 # ---------------------------------------------------------------------------

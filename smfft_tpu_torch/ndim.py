@@ -12,8 +12,10 @@ K, the product of the axes after it): :class:`_ColumnC2C` runs one or two
 launches of ``csrc/fourstep.cu``'s pass kernel that read and write the
 axis at its stride (``ops/fourstep_fused.run_columns``), the last axis
 first, so the leading axes' first passes run in place on the row kernel's
-result.  A 2-D C2C FFT of a 16384^2 grid is then one row launch and two
-column passes: three sweeps of the grid, no copy.
+result.  Where an axis takes two passes (M > 2048) they are one launch in
+fp32 when a slab of columns fits the stride, the second reading the
+first's output from L2: a 2-D C2C FFT of a 16384^2 grid is then one row
+launch and one column launch, two sweeps of the grid, no copy.
 
 Elsewhere (``ordered=False``, a stride that is not a power of two, the
 C2C axes of ``rfft2`` / ``irfft2`` / ``rfftn`` / ``irfftn``, whose

@@ -142,8 +142,9 @@ def _build(nvcc: str) -> Path:
 def register_report(log: str | None = None) -> list[str]:
     """One line per kernel instantiation from ptxas's report in a build
     log: the kernel, its integer template arguments (and ``bank`` or
-    ``split`` for a second flag set, ``tail`` for a third), fp32 or fp64,
-    registers and spill stores."""
+    ``split`` for a second flag set, ``tail`` for a third, ``cols`` for
+    the pass kernel's two radices without a split: its fused column
+    launch), fp32 or fp64, registers and spill stores."""
     lines, name, spill = [], None, 0
     for line in (build_log if log is None else log).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -158,13 +159,18 @@ def register_report(log: str | None = None) -> list[str]:
             k = _MANGLED.search(name)
             # the integer template arguments, and a second flag after
             # EXACT (the convolutions' bank form, the pass kernel's pair
-            # split) and a third (the pass kernel's fused tail)
-            flag = ("" if not k or not k.group(4) else ",split"
-                    if k.group(1) == "fourstep_pass_kernel" else ",bank")
+            # split) and a third (the pass kernel's fused tail); the pass
+            # kernel's two radices without a split: its fused column
+            # launch
+            ints = re.findall(r"Li(\d+)E", k.group(2)) if k else []
+            second = bool(k and k.group(4) == "Lb1E")
+            pass_kernel = bool(k and k.group(1) == "fourstep_pass_kernel")
+            flag = ("" if not second else ",split" if pass_kernel
+                    else ",bank")
             flag += ",tail" if k and k.group(5) else ""
-            label = (f"{k.group(1)}<"
-                     f"{','.join(re.findall(r'Li(\d+)E', k.group(2)))}"
-                     f"{flag}>" if k else name)
+            flag += ",cols" if pass_kernel and len(ints) == 2 and not second \
+                else ""
+            label = f"{k.group(1)}<{','.join(ints)}{flag}>" if k else name
             # the "exact" instantiations compute in double2, or carry the
             # template flag EXACT = true after the sizes
             kind = ("fp64" if "double2" in name
@@ -246,7 +252,7 @@ BLUESTEIN = Entry("bluestein", "smfft_bluestein", _P, _P, _P, _P, _C, _I, _I,
 FOURSTEP_PASS = Entry("fourstep_pass", "smfft_fourstep_pass", _P, _P, _C, _C,
                       _I, _P, _P, _C, _C, _I, _C, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _D, _P, _P, _P, _C, _C, _C, _C, _I, _I, _P, _P,
-                      _P, function="fourstep_pass_kernel")
+                      _P, _P, function="fourstep_pass_kernel")
 REAL_HUGE = Entry("real_huge", "smfft_real_huge", _C, _P, _C, _P, _P, _C, _I,
                   _I, _I, _I, _D, _P, _P, _C, _C, _P,
                   function="real_huge_kernel")
@@ -263,7 +269,7 @@ LAUNCHED = {f"launch:{e.kernel}": e.function for e in KERNELS.values()}
 # to three flags
 _MANGLED = re.compile(
     "(" + "|".join(sorted(LAUNCHED.values(), key=len, reverse=True)) + ")"
-    r"I((?:Li\d+E)*)(Lb[01]E)?(Lb1E)?(Lb1E)?")
+    r"I((?:Li\d+E)*)(Lb[01]E)?(Lb[01]E)?(Lb1E)?")
 
 
 def _no_cuda(*_):

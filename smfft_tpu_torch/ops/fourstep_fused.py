@@ -19,7 +19,9 @@ for every row:
   * the column route (:func:`column_plan`, :func:`run_columns`): a C2C over
     an axis of M <= 16384 points at a power-of-two stride K of a contiguous
     tensor, viewed (B, M K), as one or two column passes at the axis's
-    stride, so the N-D transforms need no transposing copy (``ndim.py``).
+    stride, so the N-D transforms need no transposing copy (``ndim.py``);
+    the two passes in one launch where the shape allows, which hands each
+    slab of columns from the one to the other through the card's L2.
 
 A pass is described by a :class:`Pass`: its radix, the index map of its
 input and of its output (``("col", S)`` or ``("rows", radices)``), the
@@ -30,7 +32,8 @@ straight from the pass's outputs, the packed half-spectra in place of the
 pass's output.  A pass may carry the plan's next one (``then``): the fused
 tail (:func:`tail_plan`), pass 2 and the split pass of a three-pass
 pair-mode plan in one launch, which hands each block group from the one to
-the other through the card's L2.  The passes exchange complex64
+the other through the card's L2, and the fused column launch
+(:func:`column_plan`).  The passes exchange complex64
 intermediates, complex128 for the "exact" tier, so that tier's only fp32
 rounding is the output's.
 
@@ -77,6 +80,17 @@ TAIL_RADIX = 128
 #: pass 1 of radix 2048 (one tile buffer) lost more than the tail saved.
 TAIL_FIRST_MAX = 1024
 
+#: The radix pairs of the fused column launch
+#: (``fourstep_pass_kernel<RA, RB, false, false>``, ColTile): the
+#: two-pass column plans of M = 4096, 8192 and 16384.
+COLUMN_PAIRS = ((64, 64), (128, 64), (128, 128))
+
+
+def column_slab(r1: int, r2: int) -> int:
+    """The fused column launch's slab width W at radices (r1, r2): the
+    columns of its wider item (4096 / R transforms an item)."""
+    return 4096 // min(r1, r2)
+
 
 @dataclass(frozen=True)
 class Pass:
@@ -89,7 +103,8 @@ class Pass:
     scale when ``scaled``.  ``split="pair"``: the output Z (B, N) of two
     real rows a complex row goes on as their packed half-spectra, rows b
     and b + B (``real_fused.pair_split_plain``), in place of Z.  ``then``:
-    the plan's next pass, run by the same launch (:func:`tail_plan`)."""
+    the plan's next pass, run by the same launch (:func:`tail_plan`, or
+    without a split :func:`column_plan`'s fused column launch)."""
     radix: int
     src: tuple
     dst: tuple
@@ -165,6 +180,32 @@ def _check_tail(n: int, p: Pass) -> None:
         raise ValueError("the fused tail is a column pass of stride R3 and "
                          f"then the plan's split pass of radix R3; got {p}")
     _check_split(n, t)
+
+
+def _check_columns(n: int, p: Pass) -> None:
+    """The fused column launch (:func:`column_plan`): pass A of an axis of
+    M = R1 R2 points at stride K = N / M over columns of stride R2 K in
+    place, its twiddle blind to the column, then pass B from columns of
+    stride K to columns of stride R1 K."""
+    t = p.then
+    r1, r2 = p.radix, t.radix
+    k = n // (r1 * r2)
+    if (t.then or t.split or (r1, r2) not in COLUMN_PAIRS
+            or n % (r1 * r2) or k < column_slab(r1, r2)
+            or p != Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True,
+                         then=t, tw_lo=k)
+            or t != Pass(r2, ("col", k), ("col", r1 * k), 0, False)):
+        raise ValueError("the fused column launch is a column plan's two "
+                         f"passes at radices {COLUMN_PAIRS}; got {p}")
+
+
+def _check_fused(n: int, p: Pass) -> None:
+    """A pass that carries the next: the fused tail or the fused column
+    launch."""
+    if p.then.split:
+        _check_tail(n, p)
+    else:
+        _check_columns(n, p)
 
 
 def _check_split(n: int, p: Pass) -> None:
@@ -252,7 +293,7 @@ def pass_plain(x: torch.Tensor, n: int, p: Pass, inverse: bool = False,
     packed planar half-spectra (2B, N/2) of its output; a pass with
     ``then`` is the two in turn."""
     if p.then:
-        _check_tail(n, p)
+        _check_fused(n, p)
         y = pass_plain(x, n, replace(p, then=None), inverse, scale)
         return pass_plain(y, n, p.then, inverse, scale)
     _check_split(n, p)
@@ -332,7 +373,7 @@ def _map_args(m: tuple):
 
 def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
                 scale: float = 1.0, exact: bool = False,
-                at: tuple[int, int] | None = None):
+                at: tuple[int, int] | None = None, mid=None):
     """Launch ``fourstep_pass_kernel`` of ``csrc/fourstep.cu`` once on the
     current CUDA stream: pass ``p`` from ``src`` into ``dst`` (each a
     complex64 / complex128 (B, N) tensor or a planar float32 pair; they may
@@ -342,8 +383,11 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     planar pair, packed or numpy complex64), its q rows B after the p rows
     (a q row past its last is left out).  A fused tail (``p.then``, from
     :func:`tail_plan`) runs ``p`` in place on ``src``, a complex64
-    intermediate, and its split pass into ``dst``.  ``dst`` may be a
-    function that makes it, called here: the launch's ``alloc`` span.
+    intermediate, and its split pass into ``dst``.  A fused column launch
+    (``p.then`` without a split, from :func:`column_plan`) runs pass A from
+    ``src`` into ``mid`` (complex64; None: ``src`` itself, in place) and
+    pass B from there into ``dst``, complex64 all.  ``dst`` and ``mid`` may
+    be functions that make them, called here: the launch's ``alloc`` span.
     ``exact`` runs the fp64 instantiation.  ``at`` = (i, p): pass i of a
     plan of p, named in the span's variant; (i, p, axis): ``axis=<axis>``
     first there (the column route's ``col``).  Each launch that splits adds
@@ -352,15 +396,20 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
     sp = _T.on and _T.now()
     a = t = c = rows = out = 0
     last = p.then or p
+    cols = p.then is not None and not last.split
     try:
         if p.then:
-            _check_tail(n, p)
+            _check_fused(n, p)
         else:
             _check_split(n, p)
         ia, ib, ik = _operand(src, n, "src")
         if callable(dst):
             a = sp and _T.now()
             dst = out = dst()
+        if cols and callable(mid):
+            a = a or (sp and _T.now())
+            mid = mid()
+            out = mid if isinstance(out, int) else (out, mid)
         first = src[0] if isinstance(src, tuple) else src
         rows = first.shape[0]
         if last.split:
@@ -385,12 +434,25 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
         t = sp and _T.now()
         tw = C.device_twiddles(p.radix, bool(inverse), bool(exact), dev)
         lo, hi = FS.device_roots(n, bool(inverse), bool(exact), dev)
-        tail = (0, None, None)
-        if p.then:
+        tail, ma = (0, None, None), None
+        if cols:
+            mid = first if mid is None else mid
+            if ik != 0 or ok != 0 or exact:
+                raise ValueError("the fused column launch runs complex64 in "
+                                 "and out")
+            ma = _operand(mid, n, "mid")[0]
+            if mid.dtype != torch.complex64 or mid.shape[0] != rows:
+                raise ValueError(f"mid must be complex64 ({rows}, {n})")
+            r1, r2 = p.radix, last.radix
+            words = _words(_column_sync, first,
+                           rows * (n // (r1 * r2)) // column_slab(r1, r2))
+        elif p.then:
             if ik != 0 or exact or (p.radix, last.radix) != (TAIL_RADIX,) * 2:
                 raise ValueError("the fused tail runs radix 128 twice in "
                                  "place on a complex64 intermediate")
-            words = _tail_words(first, rows * n // p.radix // last.radix)
+            words = _words(_tail_sync, first,
+                           rows * n // p.radix // last.radix)
+        if p.then:
             tail = (last.radix, C.device_twiddles(
                 last.radix, bool(inverse), False, dev).data_ptr(),
                 words.data_ptr())
@@ -403,9 +465,9 @@ def launch_pass(src, dst, n: int, p: Pass, *, inverse: bool = False,
             *rad, rows, n, p.radix, p.tw_s, p.tw_lo,
             float(scale) if p.scaled else 1.0, tw.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), FS.lo_bits(n), int(inverse), int(exact), layout,
-            rows_out, *tail)
+            rows_out, *tail, ma)
         launch_pass.fused += bool(last.split)
-        launch_pass.tails += bool(p.then)
+        launch_pass.tails += bool(p.then and last.split)
     finally:
         if sp:
             variant = ((f"axis={at[2]} " if at and len(at) > 2 else "")
@@ -433,34 +495,50 @@ launch_pass.tails = 0
 #: the host, so a CUDA graph replays it, and no launch clears the words.
 _tail_sync: dict = {}
 
+#: The fused column launch's device words, as the tail's, with one counter
+#: a slab (W columns of a row) of pass-A items done.
+_column_sync: dict = {}
+
 #: Words outgrown by a larger batch, kept because a captured CUDA graph
 #: may still launch on them.
-_tail_retired: list = []
+_retired: list = []
 
 
-def _tail_words(like: torch.Tensor, blocks: int) -> torch.Tensor:
-    """The words for a tail launch over ``blocks`` blocks on ``like``'s
-    device and current stream."""
+def _words(table: dict, like: torch.Tensor, counters: int) -> torch.Tensor:
+    """The words of ``table`` for a launch with ``counters`` counters on
+    ``like``'s device and current stream."""
     dev = like.get_device()
     key = (dev, _cuda._raw_stream(dev))
-    words = _tail_sync.get(key)
-    if words is None or words.numel() < 4 + blocks:
-        grown = torch.zeros(4 + blocks, dtype=torch.int64, device=like.device)
+    words = table.get(key)
+    if words is None or words.numel() < 4 + counters:
+        grown = torch.zeros(4 + counters, dtype=torch.int64,
+                            device=like.device)
         if words is not None:
             grown[1] = words[1]
-            _tail_retired.append(words)
-        words = _tail_sync[key] = grown
+            _retired.append(words)
+        words = table[key] = grown
     return words
+
+
+def _waits(table: dict) -> int:
+    for words in table.values():
+        if words.is_cuda:
+            torch.cuda.synchronize(words.device)
+    return sum(int(words[1]) for words in table.values())
 
 
 def tail_waits() -> int:
     """The fused tail's split items, over every launch in this process,
     whose blocks were not all written when the item was handed out (it
     then waited for them): read after a synchronize."""
-    for words in _tail_sync.values():
-        if words.is_cuda:
-            torch.cuda.synchronize(words.device)
-    return sum(int(words[1]) for words in _tail_sync.values())
+    return _waits(_tail_sync)
+
+
+def column_waits() -> int:
+    """The fused column launch's pass-B items, over every launch in this
+    process, whose slab's pass-A items were not all done when the item was
+    handed out (it then waited for them): read after a synchronize."""
+    return _waits(_column_sync)
 
 
 def _alloc(like: torch.Tensor, rows: int, n: int, planar: bool):
@@ -484,7 +562,8 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
     pass; ``dst`` may be a function that makes it, called by the last
     pass, which makes the new result too (each launch's ``alloc`` span).
     ``tmp`` may be that intermediate, given (``src`` itself: the first
-    pass then runs in place).  A plan whose last pass splits
+    pass then runs in place); a fused column launch writes its
+    intermediate there.  A plan whose last pass splits
     (:func:`pair_split_plan`) writes its spectra into ``dst``
     (:func:`launch_pass`), its last two passes one launch where
     :func:`tail_plan` fuses them; its plain version is
@@ -515,50 +594,72 @@ def run_passes(src, n: int, passes: tuple[Pass, ...], *,
                       dtype=torch.complex128 if exact else torch.complex64)
     # the first pass makes tmp, the middle ones run in place on it, the
     # last writes dst
-    cur, k, i = src, len(passes), 1
+    cur, k, i = src, sum(2 if p.then else 1 for p in passes), 1
     passes = tail_plan(n, passes, exact)
     for p in passes:
+        # a fused column launch's intermediate
+        mid = {"mid": tmp} if p.then and not p.then.split else {}
         cur = tmp = launch_pass(cur, dst if p is passes[-1] else tmp, n, p,
                                 inverse=inverse, scale=scale, exact=exact,
-                                at=(i, k) if axis is None else (i, k, axis))
+                                at=(i, k) if axis is None else (i, k, axis),
+                                **mid)
         i += 2 if p.then else 1
     return cur
 
 
-def column_plan(m: int, k: int) -> tuple[Pass, ...]:
-    """The passes of a C2C over an axis of m points at stride k (both
+def column_plan(m: int, k: int, exact: bool = False) -> tuple[Pass, ...]:
+    """The launches of a C2C over an axis of m points at stride k (both
     powers of two, m <= 16384) of (B, m k) rows, natural order out: one
     column pass of stride k to m = 2048; above, m = R1 R2
     (:func:`radices`), a pass of radix R1 in place over columns of stride
     R2 k, twiddled by W_m^(b k_a) for transform s = b k + column, then one
     of radix R2 from columns of stride k to columns of stride R1 k, which
     lands X[k_a + R1 k_b] of column c at (k_a + R1 k_b) k + c.  The scale
-    is the first pass's."""
+    is the first pass's.  The two passes are one launch, the first
+    carrying the second (``then``: the fused column launch, which hands
+    each slab of W = :func:`column_slab` columns from the one to the other
+    through L2), where the shape allows: fp32, (R1, R2) in
+    :data:`COLUMN_PAIRS` and k >= W; else two launches."""
     if m <= MAX_RADIX:
         return (Pass(m, ("col", k), ("col", k), 0, True),)
     r1, r2 = radices(m, 2)
-    return (Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True,
-                 tw_lo=k),
-            Pass(r2, ("col", k), ("col", r1 * k), 0, False))
+    a = Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True, tw_lo=k)
+    b = Pass(r2, ("col", k), ("col", r1 * k), 0, False)
+    if exact or (r1, r2) not in COLUMN_PAIRS or k < column_slab(r1, r2):
+        return (a, b)
+    return (replace(a, then=b),)
 
 
 def run_columns(x: torch.Tensor, m: int, k: int, *, inverse: bool = False,
                 scale: float = 1.0, exact: bool = False,
                 own: bool = False) -> torch.Tensor:
     """The C2C over an axis of m points at stride k of a contiguous
-    complex tensor ``x`` viewed (B, m k): :func:`column_plan`'s passes,
+    complex tensor ``x`` viewed (B, m k): :func:`column_plan`'s launches,
     natural order, ``scale`` on the input; a new (B, m k) tensor, or ``x``
     itself.  On a card, ``own`` says that nothing else holds ``x``: the
     first pass then runs in place on it (the one pass of m <= 2048 returns
     ``x``; complex64 alone, the "exact" tier's intermediate is
-    complex128).  Each call adds one to ``run_columns.calls``."""
+    complex128).  Each call adds one to ``run_columns.calls``, each that
+    takes the fused column launch on a card one to ``run_columns.fused``
+    (an ``x`` that is not 16-byte aligned takes the two launches; one not
+    128-byte aligned is not the fused launch's intermediate)."""
     n = m * k
-    passes = column_plan(m, k)
+    passes = column_plan(m, k, exact)
     run_columns.calls += 1
-    if not own or C.is_cpu(x) or exact and len(passes) > 1:
+    if C.is_cpu(x):
         return run_passes(x, n, passes, inverse=inverse, scale=scale,
                           exact=exact, axis="col")
-    if len(passes) == 1:
+    if passes[0].then:
+        # the fused launch reads x 16 bytes at a time, and drops whole
+        # 128-byte lines of its intermediate
+        if x.data_ptr() % 16:
+            passes = (replace(passes[0], then=None), passes[0].then)
+        own = own and not x.data_ptr() % 128
+    run_columns.fused += passes[0].then is not None
+    if not own or exact and len(passes) > 1:
+        return run_passes(x, n, passes, inverse=inverse, scale=scale,
+                          exact=exact, axis="col")
+    if len(passes) == 1 and not passes[0].then:
         return run_passes(x, n, passes, inverse=inverse, scale=scale,
                           exact=exact, dst=x, axis="col")
     return run_passes(x, n, passes, inverse=inverse, scale=scale, tmp=x,
@@ -566,6 +667,7 @@ def run_columns(x: torch.Tensor, m: int, k: int, *, inverse: bool = False,
 
 
 run_columns.calls = 0
+run_columns.fused = 0
 
 
 # ---------------------------------------------------------------------------

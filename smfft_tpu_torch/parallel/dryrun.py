@@ -83,6 +83,14 @@ def column_routes() -> int:
     return fourstep_fused.run_columns.calls
 
 
+def column_fused() -> int:
+    """The column routes of this process that ran both passes of a
+    two-pass column plan in one launch on a card, the fused column launch
+    (``ops.fourstep_fused.run_columns.fused``)."""
+    from smfft_tpu_torch.ops import fourstep_fused
+    return fourstep_fused.run_columns.fused
+
+
 def _rank_entry(rank: int, world: int, workdir: str, device: str,
                 timeout: float) -> None:
     """One spawned rank: join the gloo group, run the target saved in

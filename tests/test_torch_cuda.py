@@ -1603,15 +1603,17 @@ def test_fft2_on_card_runs_a_c2c_launch_and_a_column_pass(dev):
                                      (16384, False)])
 def test_column_passes_match_plain_and_torch_fft2(dev, m, exact):
     """The column route over the first axis of an (m, m) grid (two passes,
-    64 x 64 or 128 x 128, the first twiddled blind to the column), both
+    64 x 64 or 128 x 128, the first twiddled blind to the column; one
+    launch in fp32, the fused column launch, two in "exact"), both
     directions, in place on an owned input and not: against the passes'
     plain version on the card and float64 torch.fft; "exact" within one
     ulp(max|X|).  Then fft2 of the grid against torch.fft.fft2."""
     n = m * m
     x = rand_c(m, m, dev, seed=m % 1009)
     keep = x.clone()
-    plan = FF.column_plan(m, m)
+    plan = FF.column_plan(m, m, exact=True)
     assert [p.radix for p in plan] == list(FF.radices(m, 2))
+    assert len(FF.column_plan(m, m, exact)) == (2 if exact else 1)
     x64 = x.to(torch.complex128)
     for inverse in (False, True):
         scale = 1.0 / m if inverse else 1.0
@@ -1640,13 +1642,14 @@ def test_column_passes_match_plain_and_torch_fft2(dev, m, exact):
 def test_column_route_on_a_3d_grid(dev):
     """fftn of a (B, M, K) = (32, 4096, 64) grid in three axis orders: the
     row kernel over the last axis, then the column routes over the middle
-    (two passes at stride 64) and the first (one pass at stride 2^18);
-    against the same call on the CPU copy and float64 torch.fft.fftn."""
+    (two passes at stride 64 in one launch, the fused column launch) and
+    the first (one pass at stride 2^18); against the same call on the CPU
+    copy and float64 torch.fft.fftn."""
     x = rand_c(32 * 4096, 64, dev, seed=31).reshape(32, 4096, 64)
     lim = bound(32) + bound(4096) + bound(64)
     for axes in ((0, 1, 2), (1, 0, 2), (2, 1, 0)):
         y, ran = launches_of(lambda: T.fftn(x, axes=axes))
-        assert ran == {"c2c": 1, "fourstep_pass": 3}
+        assert ran == {"c2c": 1, "fourstep_pass": 2}
         assert rel_err(y, T.fftn(x.cpu(), axes=axes).to(dev)) <= lim
         assert rel_err(y, torch.fft.fftn(x.to(torch.complex128), dim=axes)) \
             <= lim
@@ -1654,14 +1657,120 @@ def test_column_route_on_a_3d_grid(dev):
 
 def test_an_imaging_step_copies_nothing(dev):
     """ifft2 then fft2 of a 4096^2 grid, the benchmark's imaging step at a
-    sixteenth of its size: 2 c2c launches and 4 of the pass kernel, two
-    column routes, no byte copied; the round trip returns the grid."""
+    sixteenth of its size: 2 c2c launches and 2 of the pass kernel (the
+    fused column launch), two column routes, no byte copied; the round
+    trip returns the grid."""
     x = rand_c(4096, 4096, dev, seed=41)
     copied, routes = DR.copied_bytes(), DR.column_routes()
     grid, ran = launches_of(lambda: T.fft2(T.ifft2(x, norm="backward")))
-    assert ran == {"c2c": 2, "fourstep_pass": 4}
+    assert ran == {"c2c": 2, "fourstep_pass": 2}
     assert (DR.copied_bytes() - copied, DR.column_routes() - routes) == (0, 2)
     assert rel_err(grid, x) <= 4 * bound(4096)
+
+
+# the fused column launch through the N-D calls: (call, shape, axes) at
+# every M it is instantiated for (4096, 8192, 16384), square and not, a
+# batch of grids, the leading axis of a 3-D grid
+FUSED_COLUMN_CALLS = [
+    ("fft2", (4096, 4096), None), ("ifft2", (8192, 8192), None),
+    ("fft2", (16384, 16384), None), ("ifft2", (16384, 256), None),
+    ("fft2", (4096, 8192), None), ("ifft2", (8192, 64), None),
+    ("fft2", (3, 4096, 128), (1, 2)), ("ifft2", (2, 16384, 32), (1, 2)),
+    ("fftn", (16384, 32, 32), None), ("ifftn", (4096, 32, 64), None),
+    ("fftn", (8192, 4, 128), (0,)), ("ifftn", (2, 8192, 64), (1,))]
+
+
+def _fused_column_call(name, x, axes):
+    fn = getattr(T, name)
+    return fn(x) if axes is None else fn(x, axes=axes)
+
+
+@pytest.mark.parametrize("name,shape,axes", FUSED_COLUMN_CALLS)
+def test_fused_column_launch_through_the_nd_calls(dev, monkeypatch, name,
+                                                  shape, axes):
+    """Each leading axis of M > 2048 with a slab of columns at its stride
+    runs as one launch of the pass kernel (``run_columns.fused`` counted
+    once a route); the result is the two launches' bit for bit (the same
+    arithmetic) and float64 torch.fft's within the summed bound; a second
+    call (the device words' next epoch) gives the same; the waits are read
+    after a synchronize."""
+    n_last = shape[-1]
+    x = rand_c(math.prod(shape) // n_last, n_last, dev,
+               seed=sum(shape) % 997).reshape(shape)
+    dims = tuple(range(x.dim())) if axes is None else axes
+    fused0 = DR.column_fused()
+    y, ran = launches_of(lambda: _fused_column_call(name, x, axes))
+    lead = [a for a in dims if a != x.dim() - 1]
+    fused = [a for a in lead if x.shape[a] > 2048]
+    assert DR.column_fused() - fused0 == len(fused) >= 1
+    assert ran.get("fourstep_pass") == len(lead)
+    again = _fused_column_call(name, x, axes)
+    # the column route's plans as two launches (the "exact" tier's plan at
+    # the fp32 tier)
+    plan = FF.column_plan
+    monkeypatch.setattr(FF, "column_plan",
+                        lambda m, k, exact=False: plan(m, k, True))
+    two = _fused_column_call(name, x, axes)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again) and torch.equal(y, two)
+    oracle = getattr(torch.fft, name)
+    want = oracle(x.to(torch.complex128), dim=dims)
+    assert rel_err(y, want) <= sum(bound(x.shape[a]) for a in dims)
+    assert FF.column_waits() >= 0
+
+
+def test_fused_column_launch_replays_in_a_cuda_graph(dev):
+    """ifft2 of a 4096^2 grid captured in a CUDA graph on a stream after
+    one warm-up, replayed on new grids with an eager call on the same
+    stream (the same device words) between: each replay equals the eager
+    call bit for bit, since the launch keeps its epoch and its ticket on
+    the device."""
+    x = rand_c(4096, 4096, dev, seed=25)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        T.ifft2(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = T.ifft2(x)
+    for seed in (26, 27):
+        with torch.cuda.stream(s):
+            x.copy_(rand_c(4096, 4096, dev, seed=seed))
+            graph.replay()
+            got = out.clone()
+            eager = T.ifft2(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager)
+        want = torch.fft.ifft2(x.to(torch.complex128))
+        assert rel_err(got, want) <= 2 * bound(4096)
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (16384, 64)])
+def test_exact_column_route_keeps_two_launches(dev, shape):
+    """The "exact" tier keeps the two launches and their complex128
+    intermediate (no fused launch counted), within one ulp(max|X|) of
+    float64."""
+    x = rand_c(*shape, dev, seed=shape[1] % 991)
+    fused0 = DR.column_fused()
+    y, ran = launches_of(lambda: T.fftn(x, axes=(0,), precision="exact"))
+    assert ran == {"fourstep_pass": 2}
+    assert DR.column_fused() == fused0
+    want = torch.fft.fft(x.to(torch.complex128), dim=0)
+    assert max_err(y, want) <= ulp(want.abs().max().item())
+
+
+def test_fused_column_launch_registers(dev):
+    """ptxas's report names the fused column launch's three instantiations
+    (``<RA,RB,cols>``: 64 x 64, 128 x 64, 128 x 128), fp32 alone, and
+    leaves the plain, split and tail instantiations' lines as they were."""
+    _cuda.library()
+    got = [ln for ln in _cuda.register_report() if ",cols>" in ln]
+    assert sorted(ln.split(" fp32")[0] for ln in got) == sorted(
+        f"fourstep_pass_kernel<{a},{b},cols>"
+        for a, b in FF.COLUMN_PAIRS)
+    tail = [ln for ln in _cuda.register_report() if ",tail>" in ln]
+    assert tail == ["fourstep_pass_kernel<128,128,split,tail> fp32: 128 "
+                    "registers, 0 bytes of spill stores"]
 
 
 def test_rfft_large_launches_carry_tw_lo_one(dev, monkeypatch):

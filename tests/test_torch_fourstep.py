@@ -658,10 +658,15 @@ def test_column_plan_is_one_pass_to_2048_then_two(m, k):
     r1, r2 = FF.radices(m, 2)
     assert (r1, r2) == {4096: (64, 64), 8192: (128, 64),
                         16384: (128, 128)}[m]
-    assert plan == (
-        FF.Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True,
-                tw_lo=k),
-        FF.Pass(r2, ("col", k), ("col", r1 * k), 0, False))
+    two = (FF.Pass(r1, ("col", r2 * k), ("col", r2 * k), r2 * k, True,
+                   tw_lo=k),
+           FF.Pass(r2, ("col", k), ("col", r1 * k), 0, False))
+    # fp32 with a slab of columns at the stride: the two passes in one
+    # launch, the first carrying the second; "exact" keeps two
+    fits = k >= FF.column_slab(r1, r2)
+    assert plan == ((dataclasses.replace(two[0], then=two[1]),) if fits
+                    else two)
+    assert FF.column_plan(m, k, exact=True) == two
     # no pass of an existing plan carries tw_lo
     assert all(p.tw_lo == 1 for n in (1 << 15, 1 << 21, 1 << 23)
                for plan in (FF.default_passes(n), FF.pair_split_plan(n))

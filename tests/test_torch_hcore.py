@@ -353,6 +353,102 @@ def test_tail_engages_at_2e21_to_2e24_with_8_mib_group_pairs(k):
     assert FF.tail_plan(n, FF.default_passes(n)) == FF.default_passes(n)
 
 
+# the fused column launch: (rows, M, K) of the grids it runs on, stride K at
+# one slab a row, a few, and many
+COLUMN_GRIDS = [(1, 4096, 64), (2, 4096, 256), (1, 8192, 64),
+                (3, 8192, 128), (1, 16384, 32), (2, 16384, 128),
+                (1, 16384, 1024)]
+
+
+def _column_radices(m):
+    """The radices of the column plan's two passes at M."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    return FF.radices(m, 2)
+
+
+@pytest.mark.parametrize("m", [4096, 8192, 16384])
+def test_column_items_share_threads_and_fit_two_blocks_an_sm(m):
+    """The fused column launch's two sides at the column plan's radices:
+    256 threads, E = 16 points a thread, the lanes of a warp across 32
+    transforms (256-byte runs), an item of 32 KiB; a slab is the wider
+    item's columns and holds as many items of each side; LAG + 1 slabs
+    fit the L2 budget; two blocks of two item buffers and the tables fit
+    an SM; the plan's slab is the model's."""
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    rs = FF.radices(m, 2)
+    assert rs in FF.COLUMN_PAIRS
+    g = H.column_geometry(*rs)
+    for side in (g["A"], g["B"]):
+        assert side["T"] * side["TPF"] == g["threads"] == 256
+        assert side["E"] == 16 and side["FW"] == 32
+        assert side["T"] * side["R"] * 8 == 32 << 10
+    assert g["W"] % g["A"]["T"] == g["W"] % g["B"]["T"] == 0
+    assert g["NI"] == g["W"] // g["B"]["T"] * rs[0]
+    assert (g["LAG"] + 1) * g["slab_bytes"] <= H.COLUMN_L2_BYTES
+    assert g["LAG"] >= 4
+    assert FF.column_slab(*rs) == g["W"]
+    smem = (2 * 4096 + 16 + 16 + rs[0]) * 8
+    assert 2 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("rows,m,k", COLUMN_GRIDS)
+def test_column_items_write_every_point_once_a_pass(rows, m, k):
+    """The tickets hand out every transform of pass A and of pass B once;
+    pass A writes every point of the grid once, in place, and pass B reads
+    every point once and writes every point once."""
+    rs = _column_radices(m)
+    items = H.column_items(rows, k, rs)
+    n = rows * m * k
+    for side, r in (("A", rs[0]), ("B", rs[1])):
+        firsts = sorted(it[2] for it in items if it[0] == side)
+        t = 4096 // r
+        assert firsts == list(range(0, n // r, t))
+        pts = [H.column_points(it, k, rs) for it in items if it[0] == side]
+        for which in (0, 1):
+            got = np.sort(np.concatenate([p[which].ravel() for p in pts]))
+            assert np.array_equal(got, np.arange(n))
+
+
+@pytest.mark.parametrize("rows,m,k", COLUMN_GRIDS)
+def test_column_pass_b_items_wait_only_on_lower_tickets(rows, m, k):
+    """Each pass-B item reads only points that pass-A items of its own slab
+    wrote, every one of them at a lower ticket (a waiting item waits only
+    on items that running blocks hold: no deadlock), the slab's last over
+    LAG - 1 slabs' pass-A items before it where the grid has more than LAG
+    slabs."""
+    rs = _column_radices(m)
+    g = H.column_geometry(*rs)
+    items = H.column_items(rows, k, rs)
+    owner = np.full(rows * m * k, -1)
+    slab_of = np.full(rows * m * k, -1)
+    for i, it in enumerate(items):
+        if it[0] == "A":
+            owner[H.column_points(it, k, rs)[1].ravel()] = i
+            slab_of[H.column_points(it, k, rs)[1].ravel()] = it[1]
+    slabs = rows * (k // g["W"])
+    for i, it in enumerate(items):
+        if it[0] != "B":
+            continue
+        read = H.column_points(it, k, rs)[0].ravel()
+        assert (slab_of[read] == it[1]).all()
+        assert owner[read].max() < i
+        if slabs > g["LAG"]:
+            assert i - owner[read].max() > (g["LAG"] - 1) * g["NI"]
+
+
+@pytest.mark.parametrize("rows,m,k", COLUMN_GRIDS)
+def test_column_slabs_in_l2_stay_within_the_budget(rows, m, k):
+    """In ticket order at most LAG + 1 slabs are open at once (a slab from
+    its first pass-A ticket to its last pass-B ticket): the intermediate
+    in flight stays inside the L2 budget."""
+    rs = _column_radices(m)
+    g = H.column_geometry(*rs)
+    most = H.column_in_flight(rows, k, rs)
+    slabs = rows * (k // g["W"])
+    assert most == min(slabs, g["LAG"] + 1)
+    assert most * g["slab_bytes"] <= H.COLUMN_L2_BYTES
+
+
 # ---------------------------------------------------------------------------
 # The row kernels on the core: c2c_kernel and the R2C kernel.
 # ---------------------------------------------------------------------------

@@ -421,6 +421,56 @@ def test_gradcheck_through_the_column_route(shape, kw):
     assert moved(before)[1] > 0
 
 
+def fused_count():
+    return DR.column_fused()
+
+
+@pytest.mark.parametrize("name", ["fftn", "ifftn"])
+@pytest.mark.parametrize("shape,ax,kw,fused", [
+    ((4096, 64), 0, {}, True), ((8192, 64), 0, {}, True),
+    ((16384, 32), 0, {}, True), ((2, 4096, 128), 1, {}, True),
+    ((4096, 32), 0, {}, False), ((16384, 16), 0, {}, False),
+    ((4096, 64), 0, {"precision": "exact"}, False)])
+def test_column_route_launches_with_stand_in_launchers(monkeypatch, name,
+                                                       shape, ax, kw, fused):
+    """The card path of the column route over the leading axis (the pass
+    kernel stood in by its plain function): one launch, pass A carrying
+    pass B (``run_columns.fused`` counted), where the plan is fp32 and a
+    slab of W columns fits the stride (W = 64 at M = 4096 and 8192, 32 at
+    16384; a batch of two grids over the middle axis too); two launches where the stride is narrower or the tier is
+    "exact"; the values are the CPU path's."""
+    from tests.torch_launch_path import column_launches
+    x = torch.from_numpy(data(shape, "complex"))
+    cpu = getattr(T, name)(x, axes=(ax,), **kw)
+    log = column_launches(monkeypatch)
+    before, routes = fused_count(), DR.column_routes()
+    got = getattr(T, name)(x, axes=(ax,), **kw)
+    assert DR.column_routes() - routes == 1
+    assert fused_count() - before == int(fused)
+    assert [p.then is not None for p, _ in log] == ([True] if fused
+                                                    else [False, False])
+    assert [at for _, at in log] == ([(1, 2, "col")] if fused
+                                     else [(1, 2, "col"), (2, 2, "col")])
+    assert torch.equal(got, cpu)
+
+
+@pytest.mark.parametrize("name", ["fftn", "ifftn"])
+def test_a_16384_square_column_call_is_one_launch(monkeypatch, name):
+    """The imaging cell's grid, 16384^2 (made, never written: the stand-in
+    launcher makes its outputs and computes nothing): the column route over
+    the leading axis is one launch of radix 128 carrying radix 128, no
+    byte copied, ``run_columns.fused`` counted once."""
+    from tests.torch_launch_path import column_launches
+    x = torch.empty((16384, 16384), dtype=torch.complex64)
+    log = column_launches(monkeypatch, compute=False)
+    before = counters() + (fused_count(),)
+    y = getattr(T, name)(x, axes=(0,))
+    assert y.shape == x.shape and y.dtype == torch.complex64
+    assert [(p.radix, p.then.radix, at) for p, at in log] == [
+        (128, 128, (1, 2, "col"))]
+    assert moved(before[:2]) == (0, 1) and fused_count() - before[2] == 1
+
+
 # ---------------------------------------------------------------------------
 # Gradients and real-input promotion.
 # ---------------------------------------------------------------------------

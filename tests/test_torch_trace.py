@@ -434,6 +434,34 @@ def test_rfft_large_records_its_passes_its_split_and_their_buffers(
                == ["tables", "call"] for i in launches)
 
 
+def test_a_fused_column_launch_records_its_passes_and_its_buffers(
+        card_path, monkeypatch):
+    """A traced ``fftn`` over the leading axis of a (4096, 64) grid on the
+    card path: the column route's one launch, pass A carrying pass B
+    through L2, named ``axis=col radix=64+64 pass=1-2/2 tail=l2``, with the
+    output and the intermediate the ``alloc`` of that launch, and the
+    fused launch counted."""
+    import smfft_tpu_torch as S
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    monkeypatch.setattr(C, "is_cpu", lambda t: False)
+    monkeypatch.setattr(FF, "_operand", lambda t, n, name: (0, None, 0))
+    fused = FF.run_columns.fused
+    x = _c(4096, 64)
+    trace.start()
+    S.fftn(x, axes=(0,))
+    spans = _spans(trace.stop())
+    assert FF.run_columns.fused == fused + 1
+    launches = [i for i, s in enumerate(spans)
+                if s["name"].startswith("launch:")]
+    assert [(spans[i]["name"], spans[i]["attrs"]["variant"])
+            for i in launches] == [("launch:fourstep_pass",
+                                    "axis=col radix=64+64 pass=1-2/2 "
+                                    "tail=l2")]
+    kids = _children(spans, launches[0])
+    assert [k["name"] for k in kids] == ["alloc", "tables", "call"]
+    assert kids[0]["attrs"] == {"bytes": 2 * 4096 * 64 * 8}
+
+
 @pytest.mark.parametrize("rows,mode", [(2, "pair"), (1, "halfc")])
 def test_irfft_large_records_its_merge_its_passes_and_their_buffers(
         card_path, monkeypatch, rows, mode):

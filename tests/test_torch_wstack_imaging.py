@@ -147,6 +147,54 @@ def test_row_calls_on_contiguous_rows_copy_nothing():
     assert dryrun.copied_bytes() - before == 4 * 256 * 8
 
 
+def _step(x, **kw):
+    """The cell's step: the image, then the grid predicted from it."""
+    return S.fft2(S.ifft2(x, norm="backward", **kw), **kw)
+
+
+def test_an_imaging_step_at_16384_is_one_column_launch_a_call(monkeypatch):
+    """The cell's step on its 16384^2 grid on the card path, the pass
+    kernel stood in (its outputs made, nothing computed, the grid never
+    written) and each row call by a fresh grid: one launch of the pass
+    kernel a call, radix 128 carrying radix 128 (the fused column launch),
+    ``run_columns.fused`` counted twice, no byte copied."""
+    from tests.torch_launch_path import column_launches
+    log = column_launches(monkeypatch, compute=False)
+    for name in ("fft", "ifft"):
+        monkeypatch.setattr(api, name, lambda x, **kw: torch.empty_like(x))
+    x = torch.empty((16384, 16384), dtype=torch.complex64)
+    before = (dryrun.copied_bytes(), dryrun.column_routes(),
+              dryrun.column_fused())
+    y = _step(x)
+    assert y.shape == x.shape and y.dtype == torch.complex64
+    assert [(p.radix, p.then.radix, at) for p, at in log] == [
+        (128, 128, (1, 2, "col"))] * 2
+    assert (dryrun.copied_bytes() - before[0], dryrun.column_routes()
+            - before[1], dryrun.column_fused() - before[2]) == (0, 2, 2)
+
+
+@pytest.mark.parametrize("rows,n,kw,launches", [
+    (4096, 64, {}, 1), (16384, 32, {}, 1), (4096, 32, {}, 2),
+    (4096, 64, {"precision": "exact"}, 2)])
+def test_an_imaging_step_with_stand_in_launchers(monkeypatch, rows, n, kw,
+                                                 launches):
+    """The cell's step on the card path, the pass kernel stood in by its
+    plain function: one launch a call where the two column passes fuse
+    (fp32, a slab of columns at the stride), two where the grid is
+    narrower than a slab or the tier is "exact"; the grids are the CPU
+    path's, and the round trip returns the grid."""
+    from tests.torch_launch_path import column_launches
+    x = _grid(rows, n, seed=3)
+    cpu = _step(x, **kw)
+    log = column_launches(monkeypatch)
+    fused = dryrun.column_fused()
+    got = _step(x, **kw)
+    assert len(log) == 2 * launches
+    assert dryrun.column_fused() - fused == (2 if launches == 1 else 0)
+    assert torch.equal(got, cpu)
+    assert _err(got, x) < TOL
+
+
 def _tree(fn):
     """The spans of one traced call of ``fn``."""
     trace.start()

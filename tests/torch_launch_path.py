@@ -21,3 +21,42 @@ def launch_path(monkeypatch, lib, current=lambda: -1,
     monkeypatch.setattr(_cuda, "_CARD", "cpu")
     monkeypatch.setattr(C, "_plans", {})
     return lib
+
+
+class _CardC2C:
+    """``ops/c2c`` as ``ops/fourstep_fused`` sees it, every tensor on the
+    card branch."""
+
+    def __getattr__(self, name):
+        return getattr(C, name)
+
+    @staticmethod
+    def is_cpu(t):
+        return False
+
+
+def column_launches(monkeypatch, compute: bool = True) -> list:
+    """Stand in the huge-N passes' card branch through ``monkeypatch``:
+    ``ops/fourstep_fused`` takes its card path for CPU tensors (the row
+    calls keep theirs), and each launch of the pass kernel appends (its
+    Pass, its ``at``) to the list returned, makes its outputs, and with
+    ``compute`` writes its plain function (``pass_plain``) into them."""
+    import torch
+
+    from smfft_tpu_torch.ops import fourstep_fused as FF
+    log = []
+
+    def launch(src, dst, n, p, *, inverse=False, scale=1.0, exact=False,
+               at=None, mid=None):
+        dst = dst() if callable(dst) else dst
+        if callable(mid):
+            mid()
+        log.append((p, at))
+        if compute:
+            dst.copy_(FF.pass_plain(
+                src.to(torch.complex128 if exact else torch.complex64), n,
+                p, inverse, scale))
+        return dst
+    monkeypatch.setattr(FF, "C", _CardC2C())
+    monkeypatch.setattr(FF, "launch_pass", launch)
+    return log
