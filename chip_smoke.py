@@ -189,7 +189,18 @@ Phases (each failure exits non-zero at once):
      8 ulp of its max; then the plane form's time beside the plain
      composition's and the bound (the spectrum read and the plane written
      at peak bandwidth).
-  Before each of the main paths 4, 5, 8, 10, 12, 14, 16, 18, 20 and 21 the
+ 22. The harmonic sum at the ``hsum.h32.n2e23`` cell's width:
+     ``ops/harmonic.launch_interbin`` then ``launch_harmonic_sum`` (32
+     harmonics, counts on) on HSUM_ROWS spectra of 2^22 + 1 bins from
+     ``rfft_large``, both tiers, each pair of calls one ``interbin`` and
+     one ``harmonic_sum`` launch (the counts reset just before it); the SNR
+     against the plain passes on the same spectrum (``interbin_plain``,
+     ``stats_plain``, ``sum_plain``) within HSUM_TOL of its rms, which the
+     spectrum rounded to bfloat16 must fail.  Then each kernel alone at the
+     cell's 128 trials (counts off, as the cell calls it) beside its plain
+     pass on the card and its bound (the bytes the launch's tensors hold at
+     peak bandwidth, or its operations).
+  Before each of the main paths 4, 5, 8, 10, 12, 14, 16, 18, 20, 21 and 22 the
      launch counts are read; right after, their rise must equal the
      path's calls (the convolution path runs ``conv`` / ``conv_real`` and,
      once a ``fftconvolve`` call, the R2C or C2C kernel for the taps; a
@@ -233,6 +244,11 @@ REPS_CONV = 5
 # drift grid, and test_torch_accel.TOL, max |got - plain| / rms(plain)
 ACCEL_ROWS, ACCEL_SAMPLES, ACCEL_ZMAX, ACCEL_DZ = 2, 1 << 23, 200, 2
 ACCEL_TOL = 5e-5
+# the harmonic sum: the hsum.h32.n2e23 cell's samples, harmonics and trials,
+# a few trials for the check, and test_torch_periodicity.HTOL, max |got -
+# plain| / rms(plain) over the SNR
+HSUM_ROWS, HSUM_CELL_ROWS, HSUM_SAMPLES, HSUM_H = 3, 128, 1 << 23, 32
+HSUM_TOL = 2e-5
 # the spectral phases: power sizes, Welch's frames, and the arbitrary
 # lengths with the rows of their main path
 POWER_SIZES = (256, 512, 1024, 2048, 4096)
@@ -3377,6 +3393,114 @@ def phase_main_accel(card: str):
     return row, launches, worst
 
 
+def hsum_spectra(rows: int, gen: torch.Generator) -> torch.Tensor:
+    """``rfft_large`` of ``rows`` uniform trials of HSUM_SAMPLES samples in
+    [-1, 1), as the cell makes its spectra."""
+    from smfft_tpu_torch import api
+    x = torch.rand((rows, HSUM_SAMPLES), generator=gen, device="cuda")
+    return api.rfft_large(x.mul_(2).sub_(1), precision="highest")
+
+
+def hsum_plain(spec: torch.Tensor, exact: bool, counts: bool) -> tuple:
+    """The harmonic sum's plain passes on the card: ``interbin_plain``,
+    ``stats_plain`` and ``sum_plain`` of ``ops/harmonic``."""
+    from smfft_tpu_torch.ops import harmonic as HS
+    q = HS.interbin_plain(spec, exact)
+    mu, inv_sigma = HS.stats_plain(q)
+    return HS.sum_plain(q, mu, inv_sigma, HSUM_H, counts)
+
+
+def hsum_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.double()
+    return ((got.double() - want).abs().max()
+            / want.square().mean().sqrt()).item()
+
+
+def phase_main_harmonic(card: str):
+    """Phase 22: the harmonic sum's two kernels through their wrappers on
+    HSUM_ROWS spectra of the cell's width, both tiers: one launch each
+    (the counts reset just before the pair), the SNR within HSUM_TOL of
+    rms(plain) against :func:`hsum_plain` on the same spectrum (the share
+    of points whose count is the plain passes' printed beside it); the
+    spectrum rounded to bfloat16 outside HSUM_TOL.  Then each kernel alone
+    at HSUM_CELL_ROWS trials beside its plain pass and its bound.  Returns
+    ({kernel: row}, launches, worst error over rms(plain))."""
+    from h100bench.work import periodicity_harmonics as W
+    from smfft_tpu_torch.ops import harmonic as HS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    spec = hsum_spectra(HSUM_ROWS, gen)
+    bins = spec.shape[1]
+    launches, worst = {"interbin": 0, "harmonic_sum": 0}, 0.0
+    for exact in (False, True):
+        tier = "exact" if exact else "highest"
+        reset_counts()
+        q, part = HS.launch_interbin(spec, exact=exact)
+        snr, count = HS.launch_harmonic_sum(q, part, harmonics=HSUM_H,
+                                            counts=True, exact=exact)
+        torch.cuda.synchronize()
+        got = check_counts(f"harmonic sum ({tier})",
+                           {"interbin": 1, "harmonic_sum": 1})
+        for k in launches:
+            launches[k] += got[k]
+        del q, part
+        want, want_count = hsum_plain(spec, exact, True)
+        err = hsum_err(snr, want)
+        same = (count == want_count).double().mean().item()
+        del snr, count, want, want_count
+        bf = torch.view_as_complex(torch.view_as_real(spec).to(
+            torch.bfloat16).float().contiguous())
+        q, part = HS.launch_interbin(bf, exact=exact)
+        bf_err = hsum_err(HS.launch_harmonic_sum(
+            q, part, harmonics=HSUM_H, exact=exact)[0],
+            hsum_plain(spec, exact, False)[0])
+        del bf, q, part
+        torch.cuda.empty_cache()
+        worst = max(worst, err)
+        print(f"harmonic sum {HSUM_ROWS} x {bins} bins, {HSUM_H} harmonics, "
+              f"{tier}: max |snr - plain| {err:.3e} rms(plain) (limit "
+              f"{HSUM_TOL:g}); counts equal at {same:.6f} of the points; "
+              f"bfloat16 spectrum {bf_err:.3e}")
+        if err > HSUM_TOL:
+            fail(f"harmonic sum {tier}: {err:.3e} rms(plain) against the "
+                 "plain passes")
+        if bf_err <= HSUM_TOL:
+            fail(f"harmonic sum {tier}: the bfloat16 spectrum reads "
+                 f"{bf_err:.3e}, within HSUM_TOL")
+    del spec
+    torch.cuda.empty_cache()
+    spec = hsum_spectra(HSUM_CELL_ROWS, gen)
+    traffic = {"n": HSUM_SAMPLES, "rows": HSUM_CELL_ROWS}
+    q, part = HS.launch_interbin(spec)
+    (snr,) = HS.launch_harmonic_sum(q, part, harmonics=HSUM_H)
+    rows = {}
+    for name, fn, plain_fn, nbytes, flops in (
+            ("interbin", lambda: HS.launch_interbin(spec),
+             lambda: HS.interbin_plain(spec),
+             spec.nbytes + q.nbytes + part.nbytes,
+             8.0 * HSUM_CELL_ROWS * bins),
+            ("harmonic_sum",
+             lambda: HS.launch_harmonic_sum(q, part, harmonics=HSUM_H),
+             lambda: HS.sum_plain(q, *HS.stats_plain(q), HSUM_H),
+             q.nbytes + part.nbytes + snr.nbytes,
+             4.0 * HSUM_CELL_ROWS * W.terms(traffic))):
+        ms = cuda_ms(fn)
+        torch.cuda.empty_cache()
+        ms_plain = cuda_ms(plain_fn, reps=1)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = least_ms(nbytes, flops)
+        rows[name] = {"what": name, "rows": HSUM_CELL_ROWS, "bins": bins,
+                      "harmonics": HSUM_H, "ms": ms,
+                      "gbs": nbytes / ms / 1e6, "plain_ms": ms_plain,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"{name} alone, {HSUM_CELL_ROWS} x {bins} bins ({card}): "
+              f"{ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s | bound "
+              f"{bound_ms:.4f} ms ({bound_by}), at {bound_ms / ms:.3f} | "
+              f"plain pass {ms_plain:.2f} ms")
+    del spec, q, part, snr
+    torch.cuda.empty_cache()
+    return rows, launches, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is false)")
@@ -3462,6 +3586,7 @@ def main() -> int:
     print(f"parallel: worst error against the plain versions "
           f"{max(worst_par, worst_par_main, worst_gloo):.3e}")
     accel_row, accel_launches, worst_accel = phase_main_accel(card)
+    hsum_rows, hsum_launches, worst_hsum = phase_main_harmonic(card)
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -3559,6 +3684,23 @@ def main() -> int:
                     "plain_ms": accel_row["plain_ms"],
                     "bound_ms": accel_row["bound_ms"],
                     "bound_by": accel_row["bound_by"], "library_ms": None})
+    print("main path rows: " + json.dumps({"card": card,
+                                           "harmonic": hsum_rows}))
+    print("interbin and harmonic_sum replace no TPU kernel: their ms are "
+          f"each launch alone on {HSUM_CELL_ROWS} spectra of 2^22 + 1 bins "
+          f"at {HSUM_H} harmonics (the hsum.h32.n2e23 cell's call); "
+          "plain_ms is the plain pass on the card; bound_ms the launch's "
+          "tensors read or written once at peak bandwidth; launches and "
+          f"max_abs_err (over rms(plain)) from the {HSUM_ROWS}-trial "
+          "check in both tiers")
+    for name, row in hsum_rows.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "smfft_tpu_torch/csrc/periodicity.cu",
+                        "replaces": None, "launches": hsum_launches[name],
+                        "max_abs_err": worst_hsum, "ms": row["ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": None})
     print("main path rows: " + json.dumps({"card": card,
                                            "spectral": spec_rows,
                                            "bluestein": blue_rows}))

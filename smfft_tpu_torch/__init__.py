@@ -42,7 +42,10 @@ Seven slices so far:
     (``csrc/real_huge.cu``); on their spectra the Fourier-domain
     acceleration search's power plane, :func:`accel_plane`
     (:mod:`smfft_tpu_torch.accel`: a template bank by overlap-save through
-    one launch of the fused convolution bank);
+    one launch of the fused convolution bank) and the periodicity
+    search's harmonic sum of their interbinned power,
+    :func:`harmonic_sum` (:mod:`smfft_tpu_torch.periodicity`: two
+    launches of ``csrc/periodicity.cu``);
   * N-D transforms and the DCT / DST, composed over the row kernels:
     :func:`fftn` / :func:`ifftn` / :func:`fft2` / :func:`ifft2`,
     :func:`rfft2` / :func:`irfft2` / :func:`rfftn` / :func:`irfftn`,
@@ -76,6 +79,7 @@ from smfft_tpu_torch.ndim import (fft2, fftfreq, fftn, fftshift, hfft,
                                   irfftn, rfft2, rfftfreq, rfftn)
 from smfft_tpu_torch.params import (FFTParams, SUPPORTED_C2C_SIZES,
                                     SUPPORTED_REAL_SIZES, plan_for)
+from smfft_tpu_torch.periodicity import harmonic_sum
 from smfft_tpu_torch.signal import (envelope, fftconvolve, fftcorrelate,
                                     get_window, hilbert, istft, oaconvolve,
                                     periodogram, power_spectrum, resample,
@@ -107,6 +111,7 @@ __all__ = [
     "fftn",
     "fftshift",
     "get_window",
+    "harmonic_sum",
     "hfft",
     "hilbert",
     "idct",

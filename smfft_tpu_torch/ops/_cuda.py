@@ -227,7 +227,7 @@ C2C_PLAN_BYTES = Entry(None, "smfft_c2c_plan_bytes")
 C2C_PREPARE = Entry(None, "smfft_c2c_prepare", _P, _I, _C, _C, _C, _C, _C,
                     _P)
 ERROR_STRING = Entry(None, "smfft_error_string", _C, restype=ctypes.c_char_p)
-# the twelve kernels, in the order parallel.dryrun.counts() reports them,
+# the fourteen kernels, in the order parallel.dryrun.counts() reports them,
 # each with the __global__ its library call launches; each takes the
 # stream last
 C2C_RUN = Entry("c2c", "smfft_c2c_run", _P, _P, _P, _P, _P, _I, _F, _P,
@@ -258,6 +258,10 @@ REAL_HUGE = Entry("real_huge", "smfft_real_huge", _C, _P, _C, _P, _P, _C, _I,
                   function="real_huge_kernel")
 CONV_PLANE = Entry("conv_plane", "smfft_conv_plane", _P, _P, _I, _I, _I, _C,
                    _C, _P, _P, _C, _P, function="conv_plane_kernel")
+INTERBIN = Entry("interbin", "smfft_interbin", _P, _P, _P, _I, _I, _C, _P,
+                 function="interbin_kernel")
+HARMONIC_SUM = Entry("harmonic_sum", "smfft_harmonic_sum", _P, _P, _P, _P,
+                     _I, _I, _C, _C, _P, function="harmonic_sum_kernel")
 #: the kernels' entry points by name
 KERNELS = {e.kernel: e for e in ENTRIES if e.kernel}
 #: the ``__global__`` that each ``launch:<kernel>`` span's library call runs,

@@ -68,6 +68,15 @@ def plane_bytes() -> int:
     return accel.moved
 
 
+def harmonic_bytes() -> int:
+    """The bytes the harmonic sum's device passes have read and written in
+    this process (``periodicity.moved``: on the card the spectrum read, Q
+    and its partial sums written and read once, the SNR and counts
+    written)."""
+    from smfft_tpu_torch import periodicity
+    return periodicity.moved
+
+
 def accel_banks() -> int:
     """The acceleration template banks built in this process
     (``accel.built``, one per zmax, dz and device)."""

@@ -8,10 +8,12 @@ Three layers record:
   * ``call:<name>``: each public function of :mod:`smfft_tpu_torch.api`,
     each N-D transform of :mod:`smfft_tpu_torch.ndim` (``fft2``,
     ``ifft2``, ``fftn``, ``ifftn``, ``rfft2``, ``irfft2``, ``rfftn``,
-    ``irfftn``) and :func:`smfft_tpu_torch.accel.accel_plane`, with
-    attributes ``n`` and ``rows`` (the product of the leading dims); a
-    call that routes to another public call holds it as a child, so an N-D
-    call holds one row call a transformed axis;
+    ``irfftn``), :func:`smfft_tpu_torch.accel.accel_plane` and
+    :func:`smfft_tpu_torch.periodicity.harmonic_sum` (``n`` = M, the
+    interbinned points a trial), with attributes ``n`` and ``rows`` (the
+    product of the leading dims); a call that routes to another public
+    call holds it as a child, so an N-D call holds one row call a
+    transformed axis;
   * ``op:<name>``: the body of each autograd ``Function.forward`` of
     ``api.py`` and of ``ndim.py``'s column route (``op:column_c2c``), and
     ``op:fft_complex`` for the unordered C2C that bypasses autograd; a call's own time is its checks and ``Function.apply``.  An
@@ -22,7 +24,11 @@ Three layers record:
     passes as spans with the ``bytes`` each reads and writes: ``frame``
     (the overlap-save framing), the bank's ``call:convolve``, ``crop``
     (each segment's valid part, as |y|, into the plane's layout) and
-    ``power`` (the square, in place);
+    ``power`` (the square, in place).  ``op:harmonic_sum`` holds, on a
+    CUDA spectrum, ``launch:interbin`` then ``launch:harmonic_sum``; on a
+    CPU one the spans ``interbin`` (Q from the spectrum), ``stats`` (its
+    mean and deviation) and ``sum`` (the harmonics' sums, the SNR and the
+    counts), each with the ``bytes`` it reads and writes;
   * ``launch:<kernel>``: each kernel's launch wrapper in ``ops/*``
     (``kernel`` one of ``parallel.dryrun.KERNELS``), with ``rows``, ``n``,
     ``variant`` (the layout, mode or radix) and ``exact``, and its
@@ -105,8 +111,10 @@ _event = struct.Struct("=12q").pack
 _ids: dict[str, int] = {}      # a span's name or a launch's variant -> number
 _ids_lock = threading.Lock()
 #: the spans with a ``bytes`` attribute: a launch's output allocation, an
-#: op's copy, and the acceleration plane's device passes
-BYTE_SPANS = ("alloc", "copy", "frame", "crop", "power")
+#: op's copy, and the plain passes of the acceleration plane and of the
+#: harmonic sum
+BYTE_SPANS = ("alloc", "copy", "frame", "crop", "power", "interbin", "stats",
+              "sum")
 _anchor = (0, 0)               # (time.time_ns, perf_counter_ns) at start()
 # the words of an event
 _KEY, _T0, _T1, _THREAD, _ROWS, _N, _ALLOC, _TABLES, _CALL, _BYTES, \

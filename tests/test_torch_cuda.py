@@ -2158,7 +2158,8 @@ def test_each_launch_runs_one_kernel_of_its_declared_name(dev):
     ``<function><template arguments>`` by its entry's declared
     ``__global__``, and the launch spans in start order name the port's
     kernels in start order (the benchmark's idle split ties them so)."""
-    from smfft_tpu_torch import accel, trace
+    from smfft_tpu_torch import accel, periodicity, trace
+    from smfft_tpu_torch.ops import harmonic as HS
     n = 1024
     x, xr = rand_c(4, n, dev, seed=1), rand_r(4, n, dev, seed=2)
     half = rand_r(4, n // 2, dev, seed=3), rand_r(4, n // 2, dev, seed=4)
@@ -2180,6 +2181,8 @@ def test_each_launch_runs_one_kernel_of_its_declared_name(dev):
         "fourstep_pass": lambda: T.fft_large(big),
         "real_huge": lambda: planar.irfft_large(hr, hi),
         "conv_plane": lambda: accel.accel_plane(spec, zmax=8),
+        "interbin": lambda: HS.launch_interbin(spec),
+        "harmonic_sum": lambda: periodicity.harmonic_sum(spec, harmonics=8),
     }
     assert set(calls) == set(_cuda.KERNELS)
     for fn in calls.values():     # the tables, plans and banks, built once
@@ -2213,3 +2216,75 @@ def test_each_launch_runs_one_kernel_of_its_declared_name(dev):
     assert len(spans) == len(port) == sum(launched.values())
     for (_, span), name in zip(spans, port):
         assert name.startswith(_cuda.LAUNCHED[span] + "<"), (span, name)
+
+
+# the harmonic sum's tolerance: ``test_torch_periodicity.HTOL``, max |got -
+# want| / rms(want) over a call's SNR
+HSUM_TOL = 2e-5
+
+
+def _snr_err(got, want):
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.square().mean().sqrt()
+            ).item()
+
+
+@pytest.mark.parametrize("log_n,rows,precision", [
+    (20, 1, None), (20, 3, None), (20, 1, "exact"), (20, 3, "exact"),
+    (23, 1, None), (23, 3, None), (23, 1, "exact"), (23, 3, "exact")])
+def test_the_harmonic_sum_matches_the_reference_on_the_card(
+        dev, log_n, rows, precision):
+    """``harmonic_sum`` of a CUDA spectrum at 32 harmonics: one launch of
+    each of its two kernels, the SNR within HSUM_TOL of the float64
+    reference, the counts tie-aware (the reference's SNR at the program's
+    count within HSUM_TOL of its best), and at 2^20 the CPU path's SNR on
+    the same spectrum within HSUM_TOL."""
+    from smfft_tpu_torch import periodicity
+    from smfft_tpu_torch.reference import periodicity as href
+    n = 1 << log_n
+    g = torch.Generator(device=dev).manual_seed(26 + log_n + rows)
+    x = torch.rand((rows, n), generator=g, device=dev,
+                   dtype=torch.float64) * 2 - 1
+    spec = href.spectrum(x).to(torch.complex64)
+    arg = spec[0] if rows == 1 else spec
+    before = DR.counts()
+    snr, count = periodicity.harmonic_sum(arg, precision=precision,
+                                          return_counts=True)
+    torch.cuda.synchronize()
+    after = DR.counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"interbin": 1, "harmonic_sum": 1}
+    assert snr.dtype == torch.float32 and count.dtype == torch.uint8
+    snr, count = snr.reshape(rows, n + 1), count.reshape(rows, n + 1)
+    want, _ = href.harmonic_sum(spec, 32)
+    assert _snr_err(snr, want) < HSUM_TOL
+    at = href.snr_at(spec, 32, count)
+    assert not at.isnan().any()
+    assert _snr_err(at, want) < HSUM_TOL
+    if log_n == 20:
+        cpu = periodicity.harmonic_sum(arg.cpu(), precision=precision)
+        assert _snr_err(snr.cpu(), cpu.reshape(rows, n + 1)) < HSUM_TOL
+
+
+def test_a_harmonic_sum_is_two_kernels_and_nothing_else(dev):
+    """Under ``torch.profiler`` (CUDA activity), one call on a contiguous
+    complex64 spectrum runs ``interbin_kernel`` then ``harmonic_sum_kernel``
+    and no other device operation (no memset, copy or reduction), so the
+    benchmark's idle split pairs each with its launch span."""
+    from smfft_tpu_torch import periodicity
+    spec = torch.fft.rfft(rand_r(2, 1 << 20, dev, seed=26))
+    periodicity.harmonic_sum(spec, return_counts=True)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        periodicity.harmonic_sum(spec, return_counts=True)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [name for _, name in sorted(
+        (e.start_ns(), e.name().removeprefix("void ").replace(
+            "(anonymous namespace)::", ""))
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == cuda)]
+    assert len(ops) == 2, ops
+    assert ops[0].startswith("interbin_kernel<"), ops
+    assert ops[1].startswith("harmonic_sum_kernel<"), ops

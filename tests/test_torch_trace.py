@@ -531,7 +531,7 @@ def test_every_global_is_some_entrys_and_the_lookup_covers_the_kernels():
     a wrapper of ``ops/*`` records is in it."""
     from smfft_tpu_torch.parallel import dryrun
     functions = [e.function for e in _cuda.KERNELS.values()]
-    assert len(set(functions)) == len(functions) == 12
+    assert len(set(functions)) == len(functions) == 14
     assert set(functions) == _defined_globals()
     assert set(_cuda.LAUNCHED) == {f"launch:{k}" for k in dryrun.KERNELS}
     recorded = {m.group(1) for src in (_cuda.CSRC.parent / "ops").glob("*.py")
